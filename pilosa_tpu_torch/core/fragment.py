@@ -1,0 +1,1699 @@
+"""Fragment: the (index, frame, view, slice) unit of storage.
+
+Reference analog: fragment.go (1514 LoC).  A fragment owns one slice of one
+view's bitmap matrix: bit ``(rowID, columnID)`` lives at linear position
+``pos = rowID*SLICE_WIDTH + columnID % SLICE_WIDTH`` (fragment.go:1512-1514)
+inside a roaring bitmap, persisted as snapshot-file + appended WAL ops with
+re-snapshot after MaxOpN=2000 ops (fragment.go:63-65, 993-1057).
+
+Device-first departures from the reference:
+
+- Row reads surface as dense packed ``uint32[SLICE_WIDTH/32]`` word arrays
+  (``row_dense``), the exact layout the device kernels consume; the roaring
+  form is only touched at the storage boundary.
+- TopN's per-candidate ``Src.IntersectionCount(f.Row(id))`` scalar loop
+  (fragment.go:553-560) becomes chunked *batched* popcount counts over a
+  stacked candidate matrix (`_batch_intersection_counts`) — same results,
+  same threshold-pruning semantics, but the hot loop is one vectorized
+  call per chunk instead of K scalar loops, so the executor can push it
+  through the fused device kernel.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import itertools
+import math
+import os
+import tempfile
+import threading
+
+from pilosa_tpu_torch.analysis import lockcheck
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Optional, Sequence
+
+import numpy as np
+
+from pilosa_tpu_torch import native as native_mod
+from pilosa_tpu_torch import roaring
+from pilosa_tpu_torch.core import cache as cache_mod
+from pilosa_tpu_torch.ops import bitwise as bw
+from pilosa_tpu_torch.pilosa import ErrFragmentClosed, ErrFragmentLocked, SLICE_WIDTH
+
+try:
+    import fcntl
+except ImportError:  # non-POSIX: no inter-process lock (reference is
+    fcntl = None  # POSIX-only here too: syscall.Flock, fragment.go:187)
+
+# Number of rows in a checksum block (fragment.go:59 HashBlockSize).
+HASH_BLOCK_SIZE = 100
+
+# Snapshot after this many WAL ops (fragment.go:63-65 DefaultFragmentMaxOpN).
+DEFAULT_MAX_OPN = 2000
+
+DEFAULT_CACHE_SIZE = 50000
+
+# TopN candidate-scoring chunk; engine scorers pad to this for stable
+# jitted shapes, so both sites must share the constant.
+TOPN_SCORE_CHUNK = 256
+
+_WORDS = SLICE_WIDTH // 32
+
+# Process-global write-generation source (see Fragment.generation).
+_generation_counter = itertools.count(1)
+
+# Read-only singleton changed-vectors for the scalar write-lane path
+# (np.full costs ~0.7 us per singleton request).
+_CH_TRUE = np.full(1, True, dtype=bool)
+_CH_TRUE.setflags(write=False)
+_CH_FALSE = np.full(1, False, dtype=bool)
+_CH_FALSE.setflags(write=False)
+
+# Dirty-row journal length (entries, one per generation bump).  Past this
+# the oldest entries are dropped and deltas reaching back that far become
+# unenumerable (rows_dirty_since returns None -> callers rebuild), which
+# is exactly the right degradation: a warm cache that fell thousands of
+# writes behind is not worth patching row by row anyway.
+_DIRTY_LOG_MAX = int(os.environ.get("PILOSA_TPU_DIRTY_LOG_MAX", "512"))
+
+# Magic header for the sidecar .cache file (row-id list persisted so ranked
+# caches can be rebuilt by recount on open; fragment.go:236-274, 1073-1093).
+_CACHE_MAGIC = b"PTPC\x01"
+
+
+@dataclass
+class TopOptions:
+    """Options for Fragment.top (fragment.go:662-677)."""
+
+    n: int = 0
+    src: Optional[roaring.Bitmap] = None
+    # Pre-densified src (uint32[W] slice-local words); the executor's batched
+    # path passes this directly so the device-evaluated child bitmap never
+    # round-trips through a roaring conversion.
+    src_dense: Optional[np.ndarray] = None
+    # Optional batched scorer: callable(list[row_id]) -> int array of
+    # |row & src| per id, or None to decline a chunk (the fragment then
+    # scores it with its own host path).  The executor passes an
+    # engine-backed one so the candidate hot loop (fragment.go:553-560)
+    # runs on device against the cached HBM row matrix.
+    scorer: Optional[object] = None
+    row_ids: Sequence[int] = field(default_factory=list)
+    min_threshold: int = 0
+    filter_field: str = ""
+    filter_values: Sequence = field(default_factory=list)
+    tanimoto_threshold: int = 0
+
+    @property
+    def has_src(self) -> bool:
+        return self.src is not None or self.src_dense is not None
+
+
+def _batch_intersection_counts(rows: np.ndarray, src: np.ndarray) -> np.ndarray:
+    """|rows[k] & src| per row; numpy host path (device path in executor)."""
+    return bw.np_popcount(rows & src).reshape(rows.shape[0], -1).sum(axis=1)
+
+
+@lockcheck.guarded_class
+class Fragment:
+    """One slice of one view's row-major bitmap matrix."""
+
+    # Lockset race detector declarations (PILOSA_TPU_LOCK_CHECK=1):
+    # every post-init REBIND of these fields must hold the fragment
+    # lock.  Storage identity and the write generation are the validity
+    # tokens every warm cache (serve states, row pools, qcache vectors,
+    # armed write-lane tables) hangs off — an unguarded write here is
+    # how a free-threaded host serves stale or torn state.
+    _guarded_by_ = {
+        "storage": "core.fragment._mu",
+        "generation": "core.fragment._mu",
+        "_wal": "core.fragment._mu",
+        "_open": "core.fragment._mu",
+        "_storage_map": "core.fragment._mu",
+        "_writelane": "core.fragment._mu",
+        "_writelane_streak": "core.fragment._mu",
+        "_writelane_cooldown": "core.fragment._mu",
+        "_pending_rows": "core.fragment._mu",
+        "_bulk_planes": "core.fragment._mu",
+        "_checksum_cache": "core.fragment._mu",
+        "_opn_trigger": "core.fragment._mu",
+        "_dirty_floor": "core.fragment._mu",
+    }
+
+    def __init__(
+        self,
+        path: str,
+        index: str,
+        frame: str,
+        view: str,
+        slice_i: int,
+        cache_type: str = cache_mod.DEFAULT_CACHE_TYPE,
+        cache_size: int = DEFAULT_CACHE_SIZE,
+        max_opn: int = DEFAULT_MAX_OPN,
+        row_attr_store=None,
+        stats=None,
+        ranking_debounce_s=None,
+    ):
+        self.path = path
+        self.index = index
+        self.frame = frame
+        self.view = view
+        self.slice = slice_i
+        self.cache_type = cache_type
+        self.cache_size = cache_size
+        self.ranking_debounce_s = ranking_debounce_s
+        self.max_opn = max_opn
+        from pilosa_tpu_torch.stats import NOP_STATS
+
+        self.row_attr_store = row_attr_store
+        self.stats = stats if stats is not None else NOP_STATS
+
+        # Guards storage + caches against concurrent readers/writers
+        # (fragment.go:69 mu analog).
+        self._mu = lockcheck.named_rlock("core.fragment._mu")
+        self.storage: roaring.Bitmap = roaring.Bitmap()
+        self.cache = cache_mod.new_cache(cache_type, cache_size, ranking_debounce_s)
+        self._wal = None  # append handle to the data file
+        self._row_cache: OrderedDict[int, np.ndarray] = OrderedDict()
+        self._row_cache_max = 64
+        # Device-resident dense rows (HBM working set): per row id, a dict
+        # of engine-name -> engine array, so repeat queries skip the
+        # host→device upload entirely and mutation invalidates a row in
+        # O(1) (one dict pop, not a scan over the cache).  The bound counts
+        # ARRAYS (rows x engines), keeping the same memory cap as the old
+        # flat (engine, row) keying even when several engines read one
+        # fragment.
+        self._row_dev_cache: OrderedDict[int, dict] = OrderedDict()
+        self._row_dev_cache_max = 256
+        self._row_dev_cache_arrays = 0
+        self._checksums: dict[int, bytes] = {}
+        # Whole-fragment checksum memo keyed by write generation (the
+        # replica digest protocol hashes every fragment per sweep; an
+        # unwritten fragment answers from here without re-walking its
+        # blocks).  Generation-keyed, so no mutator needs to clear it.
+        self._checksum_cache: Optional[tuple[int, bytes]] = None
+        # Incrementally-maintained per-row bit counts (LRU-bounded like the
+        # other per-row caches): every guarded mutation knows its delta, so
+        # the rank-cache update on the SetBit hot path avoids a count_range
+        # scan per op (fragment.go keeps the same invariant through its
+        # stored container counts).
+        self._row_counts: OrderedDict[int, int] = OrderedDict()
+        self._row_counts_max = 4096
+        # Deferred (row -> bit-count delta) bookkeeping from the ingest
+        # hot path; drained by _flush_row_bookkeeping before cache reads.
+        self._pending_rows: dict[int, int] = {}
+        # Pending dense overlay from the device bulk builder: row id ->
+        # packed uint32[SLICE_WIDTH/32] word plane OF BITS NOT YET IN
+        # STORAGE's roaring form.  Serving reads merge it for free
+        # (row_dense ORs word planes); roaring-shaped touches (snapshot,
+        # digest, WAL-logged mutation, export of containers) MUST call
+        # _materialize_bulk_locked first so storage is always the full
+        # truth wherever its container structure is observed.  The
+        # bulk.lazy ledger tracks fragments with a non-empty overlay.
+        self._bulk_planes: dict[int, np.ndarray] = {}
+        self._open = False
+        self._max_opn_scale: Optional[int] = None  # lazy env read
+        self._opn_trigger = 0  # cached snapshot trigger (_increment_opn)
+        self._lock_fd: Optional[int] = None
+        self._storage_map = None  # live mmap backing zero-copy containers
+        # Write generation: refreshed on every mutation from a
+        # process-global counter, so engine-side assembled row matrices
+        # (executor fused path) can validate their cache without hashing
+        # storage.  Global (not per-object) so a deleted+recreated
+        # fragment can never repeat an old fragment's generation and
+        # revive its cache entries.
+        self.generation = next(_generation_counter)
+        # Dirty-row journal: one (generation, rows) entry per generation
+        # bump, so warm device state (executor serve states, row-pool
+        # matrices, Grams) can be PATCHED after small writes instead of
+        # rebuilt (rows None = unenumerable bulk change).  The floor is
+        # the creation generation: a consumer holding an older fragment's
+        # generation can never enumerate a delta against this one.
+        self._dirty_log: "list[tuple[int, Optional[tuple[int, ...]]]]" = []
+        self._dirty_floor = self.generation
+        # Armed container table for the native write request lane
+        # (write_batch): sorted container keys + slack-buffer addresses/
+        # counts/capacities handed to pn_write_batch so one GIL-released
+        # crossing can do parse + insert + WAL for a whole batch.  Valid
+        # only while (storage identity, generation) match — any foreign
+        # writer or snapshot swap invalidates it by construction.
+        self._writelane: Optional[dict] = None
+        # Adaptive disarm: when structural declines dominate (cold
+        # uniform workloads where most ops first-touch a container),
+        # the native crossing is pure overhead — idle the lane for a
+        # stretch and let the plain Python lanes serve, re-probing
+        # periodically.
+        self._writelane_streak = 0
+        self._writelane_cooldown = 0
+
+    # -- lifecycle (fragment.go:151-274) --------------------------------
+
+    def open(self) -> None:
+        if self._open:
+            return
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        self._acquire_flock()
+        # A crash between the snapshot temp write and the rename leaves an
+        # orphaned .snapshotting file; the data file is still the previous
+        # good state (os.replace is atomic), so just sweep the orphans.
+        import glob
+
+        for stale in glob.glob(glob.escape(self.path) + ".*.snapshotting"):
+            try:
+                os.unlink(stale)
+            except OSError:
+                pass
+        try:
+            if os.path.exists(self.path):
+                data, mm = self._map_storage()
+                if data is not None:
+                    try:
+                        self.storage = roaring.Bitmap.from_bytes(
+                            data, zero_copy=mm is not None
+                        )
+                    except ValueError:
+                        # Torn WAL tail (crash mid-append): recover the
+                        # valid prefix and truncate the file there.  Real
+                        # snapshot-body corruption re-raises from inside
+                        # from_bytes_recover's strict body parse.  Safe
+                        # with the mmap: valid_len covers the snapshot
+                        # body, so no container view extends past the
+                        # truncation point.
+                        self.storage, valid_len = roaring.Bitmap.from_bytes_recover(
+                            data, zero_copy=mm is not None
+                        )
+                        with open(self.path, "r+b") as f:
+                            f.truncate(valid_len)
+                        self.stats.count("walRecoveredN", 1)
+                    self._storage_map = mm
+            self._attach_wal()
+            self._load_cache()
+        except BaseException:
+            if self._wal is not None:  # mirror close(): no fd leak, and no
+                self._wal.close()  # live append handle past the lock release
+                self._wal = None
+                self.storage.op_writer = None
+            self._release_flock()
+            raise
+        self._open = True
+
+    @staticmethod
+    def _mmap_enabled() -> bool:
+        # analysis-ok: lockstep-determinism: deployment config, launcher sets identical env on every rank
+        return os.environ.get("PILOSA_TPU_MMAP", "1").lower() not in (
+            "0", "false", "no",
+        )
+
+    def _map_storage(self):
+        """(buffer, mmap-or-None) for the storage file: an mmap when
+        possible (zero-copy attach: open cost is O(container headers),
+        payloads page in on demand, the index can exceed host RAM —
+        fragment.go:179-234), else the file bytes.  ``PILOSA_TPU_MMAP=0``
+        forces the read path."""
+        if self._mmap_enabled():
+            import mmap as _mmap
+
+            try:
+                with open(self.path, "rb") as f:
+                    mm = _mmap.mmap(f.fileno(), 0, access=_mmap.ACCESS_READ)
+                if hasattr(mm, "madvise"):
+                    # The query access pattern is random container touches
+                    # (the reference's MADV_RANDOM, fragment.go:205).
+                    mm.madvise(_mmap.MADV_RANDOM)
+                return mm, mm
+            except (OSError, ValueError):
+                pass  # empty file or fs without mmap: fall through
+        with open(self.path, "rb") as f:
+            data = f.read()
+        return (data if data else None), None
+
+    def close(self) -> None:
+        with self._mu:
+            # Pay any bulk-overlay debt FIRST, while the WAL is still
+            # attached: the conversion logs op records (or snapshots),
+            # and a detach-then-materialize would silently drop them.
+            if self._open and self._bulk_planes:
+                self._materialize_bulk_locked()
+        with self._mu:
+            if self._wal is not None:
+                # Detach + close UNDER the write lock: the fused native
+                # add caches the raw fd from op_writer and write(2)s to
+                # it with the GIL released — closing outside _mu could
+                # free the fd (reusable by any later open()) while an
+                # in-flight add still writes to it.  Detaching first
+                # also resets the Bitmap's fd cache (op_writer setter).
+                self.storage.op_writer = None
+                self._wal.close()
+                self._wal = None
+        with self._mu:
+            self._flush_row_bookkeeping()
+            # Flip _open UNDER the lock, before any storage swap below:
+            # a concurrent guarded caller that acquires _mu after this
+            # point raises ErrFragmentClosed instead of racing the swap
+            # (the TOCTOU would let e.g. snapshot() rewrite the data
+            # file from the swapped-in empty bitmap).
+            self._open = False
+        self._save_cache()
+        self._release_flock()
+        # Drop the storage containers BEFORE closing the map: mmap.close()
+        # with live exported views would fail (BufferError) — replace
+        # storage so no view outlives the mapping.  Under _mu so a reader
+        # mid-query (e.g. delete_frame closing while a row read holds the
+        # lock) never observes the swapped-in empty bitmap.
+        mm = getattr(self, "_storage_map", None)
+        if mm is not None:
+            with self._mu:
+                self.storage = roaring.Bitmap()
+                self._storage_map = None
+            try:
+                mm.close()
+            except BufferError:
+                pass  # a caller still holds a row view; GC will finish it
+
+    def _acquire_flock(self) -> None:
+        """Exclusive inter-process lock for this fragment's files.
+
+        The reference flocks the storage file itself for the process
+        lifetime (fragment.go:179-234).  Here snapshots replace the data
+        file by rename, which would silently break inode-based lock
+        continuity, so the lock lives on a ``.lock`` sidecar whose inode
+        never changes.  Non-blocking: a second opener fails immediately
+        (ErrFragmentLocked) instead of corrupting a shared data dir.
+        """
+        if fcntl is None:
+            return
+        import errno
+
+        fd = os.open(self.path + ".lock", os.O_CREAT | os.O_RDWR, 0o644)
+        try:
+            fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except OSError as e:
+            os.close(fd)
+            if e.errno in (errno.EWOULDBLOCK, errno.EAGAIN, errno.EACCES):
+                raise ErrFragmentLocked(
+                    f"fragment file locked by another process: {self.path}"
+                )
+            if e.errno in (errno.ENOLCK, errno.EOPNOTSUPP, errno.ENOTSUP):
+                # Filesystem can't do flock (some NFS mounts): degrade to
+                # unlocked operation rather than bricking every open with
+                # a misleading "locked by another process".
+                return
+            raise  # real I/O error: surface as-is
+        self._lock_fd = fd
+
+    def _release_flock(self) -> None:
+        fd = getattr(self, "_lock_fd", None)
+        if fd is not None:
+            self._lock_fd = None
+            try:
+                fcntl.flock(fd, fcntl.LOCK_UN)
+            finally:
+                os.close(fd)
+
+    def _attach_wal(self) -> None:
+        if self._wal is not None:
+            self._wal.close()
+        if not os.path.exists(self.path):
+            with open(self.path, "wb") as f:
+                self.storage.write_to(f)
+            self.storage.op_n = 0
+        # Unbuffered: each op record reaches the kernel immediately, like the
+        # reference's direct file writes (a buffered handle would lose acked
+        # ops on crash).
+        self._wal = open(self.path, "ab", buffering=0)
+        self.storage.op_writer = self._wal
+        self._opn_trigger = 0  # storage swap: recompute on next op
+
+    @property
+    def cache_path(self) -> str:
+        return self.path + ".cache"
+
+    def _load_cache(self) -> None:
+        try:
+            with open(self.cache_path, "rb") as f:
+                data = f.read()
+        except FileNotFoundError:
+            return
+        if not data.startswith(_CACHE_MAGIC):
+            return
+        ids = np.frombuffer(data[len(_CACHE_MAGIC) :], dtype="<u8")
+        with self._mu:  # runs inside open(), before _open flips true
+            for row_id in ids:
+                n = self._row_count_locked(int(row_id))
+                if n:
+                    self.cache.bulk_add(int(row_id), n)
+        self.cache.recalculate()
+
+    def _save_cache(self) -> None:
+        ids = np.asarray(self.cache.ids(), dtype="<u8")
+        tmp = self.cache_path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(_CACHE_MAGIC)
+            f.write(ids.tobytes())
+        os.replace(tmp, self.cache_path)
+
+    def recalculate_cache(self) -> None:
+        """Force the rank cache's rankings current: drain deferred write
+        bookkeeping, then rebuild (bypasses the 10s invalidate debounce —
+        the fragment-level equivalent of cache.Recalculate)."""
+        with self._mu:
+            self._flush_row_bookkeeping()
+            # Pending bulk-overlay rows aren't in the rank cache yet
+            # (bulk_set_planes defers all derived bookkeeping): seed
+            # them here with merged counts so a recalculated ranking
+            # reflects read-your-writes without materializing roaring.
+            for row_id in sorted(self._bulk_planes):
+                self.cache.bulk_add(row_id, self._row_count_locked(row_id))
+            self.cache.recalculate()
+
+    def flush_cache(self) -> None:
+        """Persist the rank cache sidecar (holder cache-flush loop target)."""
+        with self._mu:
+            self._flush_row_bookkeeping()
+        self._save_cache()
+
+    # -- positions ------------------------------------------------------
+
+    def pos(self, row_id: int, column_id: int) -> int:
+        """Linear bit position (fragment.go:1512-1514)."""
+        return row_id * SLICE_WIDTH + (column_id % SLICE_WIDTH)
+
+    # -- dirty-row journal (warm-state repair) ---------------------------
+
+    def _log_dirty(self, rows) -> None:
+        """Record one generation bump's touched rows (call with the lock
+        held, AFTER self.generation was advanced).  ``rows`` None marks
+        an unenumerable change (bulk import / restore): any delta
+        spanning it forces a full rebuild downstream."""
+        self._dirty_log.append(
+            (self.generation, None if rows is None else tuple(rows))
+        )
+        if len(self._dirty_log) > _DIRTY_LOG_MAX:
+            drop = len(self._dirty_log) - _DIRTY_LOG_MAX
+            self._dirty_floor = self._dirty_log[drop - 1][0]
+            del self._dirty_log[:drop]
+
+    def rows_dirty_since(self, gen0: int) -> Optional[set]:
+        """Rows written since generation ``gen0``, or None when the delta
+        cannot be enumerated: the journal was evicted past gen0, a bulk
+        import/restore landed in the span, or this fragment was created
+        after gen0 (a recreated fragment's floor is its creation
+        generation, so stale consumers of a deleted namesake always get
+        None, never a partial delta)."""
+        with self._mu:
+            if gen0 == self.generation:
+                return set()
+            if gen0 < self._dirty_floor:
+                return None
+            out: set = set()
+            for g, rows in reversed(self._dirty_log):
+                if g <= gen0:
+                    break
+                if rows is None:
+                    return None
+                out.update(rows)
+            return out
+
+    # -- bit ops (fragment.go:371-459) ----------------------------------
+
+    def set_bit(self, row_id: int, column_id: int) -> bool:
+        with self._mu:
+            self._assert_open()
+            self._materialize_bulk_locked()
+            changed = self.storage.add(self.pos(row_id, column_id))
+            if changed:
+                # Row bookkeeping (cache invalidation + rank-cache update)
+                # is DEFERRED: the hot ingest loop only records the delta;
+                # any reader that consults the caches flushes first
+                # (_flush_row_bookkeeping).  Storage itself is always
+                # current, and the write generation bumps eagerly so
+                # engine-side matrices never serve stale hits.
+                self.generation = next(_generation_counter)
+                self._log_dirty((row_id,))
+                p = self._pending_rows
+                p[row_id] = p.get(row_id, 0) + 1
+                self._increment_opn()
+                self.stats.count("setN", 1)  # fragment.go:410
+            return changed
+
+    def set_bits(self, row_ids, column_ids) -> np.ndarray:
+        """Durable batched SetBit: one vectorized storage pass + one WAL
+        append for the whole batch (the host-side write batching of
+        SURVEY §7 'hard parts (a)').
+
+        Returns a bool array: per input position, whether that bit was
+        newly set (duplicates within the batch count once, first wins —
+        identical to issuing the SetBits sequentially).
+        """
+        row_ids = np.asarray(row_ids, dtype=np.uint64)
+        column_ids = np.asarray(column_ids, dtype=np.uint64)
+        if len(row_ids) != len(column_ids):
+            raise ValueError("row/column id length mismatch")
+        positions = row_ids * np.uint64(SLICE_WIDTH) + (column_ids % np.uint64(SLICE_WIDTH))
+        # Tiny batches (group-commit queue under light concurrency: mean
+        # batch size is near the client count, often 1-8) skip the
+        # vectorized machinery — np.unique/isin/split cost ~300 us of
+        # numpy dispatch per call, vs a few us of scalar adds.  Same
+        # semantics: one WAL append for the batch, first duplicate wins.
+        if len(positions) <= 8:
+            with self._mu:
+                self._assert_open()
+                self._materialize_bulk_locked()
+                changed = np.zeros(len(positions), dtype=bool)
+                added: list[int] = []
+                for i, v in enumerate(positions.tolist()):
+                    if self.storage.add_unlogged(v):
+                        changed[i] = True
+                        added.append(v)
+                if added:
+                    self.stats.count("setN", len(added))
+                    self.generation = next(_generation_counter)
+                    self._log_dirty({v // SLICE_WIDTH for v in added})
+                    p = self._pending_rows
+                    for v in added:
+                        r = v // SLICE_WIDTH
+                        p[r] = p.get(r, 0) + 1
+                    self.storage.log_add_ops(np.asarray(added, dtype=np.uint64))
+                    self._increment_opn()
+                return changed
+        with self._mu:
+            self._assert_open()
+            self._materialize_bulk_locked()
+            # Apply first, then choose durability by how much was actually
+            # new: a batch at/over the snapshot threshold goes straight to
+            # snapshot (import_bits shape, the op records would be
+            # superseded anyway); anything smaller appends its op records —
+            # so mostly-duplicate batches cost a few WAL records, not a
+            # fragment rewrite.
+            added = self.storage.add_many_unlogged(positions)
+            if len(added):
+                self.stats.count("setN", len(added))
+                self.generation = next(_generation_counter)
+                rows_added, per_row = np.unique(
+                    added // np.uint64(SLICE_WIDTH), return_counts=True
+                )
+                self._log_dirty(rows_added.tolist())
+                p = self._pending_rows
+                for row_id, cnt in zip(rows_added.tolist(), per_row.tolist()):
+                    p[row_id] = p.get(row_id, 0) + cnt
+                if len(added) >= self._effective_max_opn():
+                    self._snapshot()
+                else:
+                    self.storage.log_add_ops(added)
+                    self._increment_opn()
+            # changed[i] = position newly added AND first occurrence in batch
+            is_new = np.isin(positions, added)
+            _, first_idx = np.unique(positions, return_index=True)
+            first_mask = np.zeros(len(positions), dtype=bool)
+            first_mask[first_idx] = True
+            return is_new & first_mask
+
+    def clear_bit(self, row_id: int, column_id: int) -> bool:
+        with self._mu:
+            self._assert_open()
+            self._materialize_bulk_locked()
+            changed = self.storage.remove(self.pos(row_id, column_id))
+            if changed:
+                self.generation = next(_generation_counter)
+                self._log_dirty((row_id,))
+                p = self._pending_rows
+                p[row_id] = p.get(row_id, 0) - 1
+                self._increment_opn()
+                self.stats.count("clearN", 1)  # fragment.go:456
+            return changed
+
+    def contains(self, row_id: int, column_id: int) -> bool:
+        with self._mu:
+            self._assert_open()
+            pos = self.pos(row_id, column_id)
+            if self.storage.contains(pos):
+                return True
+            # A bit may still be pending in the bulk overlay: point reads
+            # merge it in word space (no materialization for a read).
+            ov = self._bulk_planes.get(row_id)
+            if ov is None:
+                return False
+            local = pos - row_id * SLICE_WIDTH
+            return bool((int(ov[local >> 5]) >> (local & 31)) & 1)
+
+    # -- native write request lane (write-side twin of pn_serve_pairs) ---
+
+    def _writelane_state(self) -> Optional[dict]:
+        """Build (or revalidate) the armed container table handed to
+        ``pn_write_batch`` — call with the lock held.  The table covers
+        every ARRAY container, each with a writable slack buffer
+        (``_ensure_slack``), so the native crossing can memmove-insert
+        in place; bitmap containers simply aren't in the table and ops
+        touching them decline to the Python path.  Validity = storage
+        identity (a snapshot re-attach swaps storage and strands the
+        buffers) + write generation (any foreign writer may have
+        restructured containers or reallocated a buffer)."""
+        st = self._writelane
+        storage = self.storage
+        if (
+            st is not None
+            and st["storage"] is storage
+            and st["gen"] == self.generation
+        ):
+            return st
+        keys_l: list[int] = []
+        objs: list = []
+        addrs: list[int] = []
+        ns_l: list[int] = []
+        caps: list[int] = []
+        bkeys_l: list[int] = []
+        for key in sorted(storage.containers):
+            c = storage.containers[key]
+            arr = c.array
+            if arr is None:
+                # Bitmap container: not natively insertable — recorded in
+                # the bkeys side table so the tree READ lane can tell
+                # "bitmap here, decline" from "empty row segment".
+                bkeys_l.append(key)
+                continue
+            n = len(arr)
+            c._ensure_slack(n)
+            keys_l.append(key)
+            objs.append(c)
+            addrs.append(c._buf_addr)
+            ns_l.append(n)
+            caps.append(len(c._buf))
+        keys_a = np.array(keys_l, dtype=np.uint64)
+        addrs_a = np.array(addrs, dtype=np.uint64)
+        ns_a = np.array(ns_l, dtype=np.int64)
+        caps_a = np.array(caps, dtype=np.int64)
+        bkeys_a = np.array(bkeys_l, dtype=np.uint64)
+        st = {
+            "storage": storage,
+            "gen": self.generation,
+            "keys": keys_a,
+            "addrs": addrs_a,
+            "ns": ns_a,
+            "caps": caps_a,
+            "bkeys": bkeys_a,
+            "objs": objs,
+            # Raw base addresses, cached once per rebuild: .ctypes.data
+            # costs ~1.4 us per access — 4 accesses per request would
+            # dominate the singleton crossing.  In-place updates
+            # (touch/apply) never move these buffers.
+            "ptrs": (
+                keys_a.ctypes.data, addrs_a.ctypes.data,
+                ns_a.ctypes.data, caps_a.ctypes.data,
+            ),
+            "bptr": bkeys_a.ctypes.data,
+            "n": len(keys_a),
+            "n_bkeys": len(bkeys_a),
+        }
+        self._writelane = st
+        return st
+
+    def serve_tree(self, src: bytes, frame_b: bytes, allow_default: bool,
+                   rowkey_b: bytes):
+        """Fused nested-tree READ lane: parse an all-Count(op-tree over
+        Bitmap leaves) body and evaluate it against this fragment's armed
+        container table in one GIL-released ``pn_serve_tree`` crossing —
+        the read-side use of the write lane's table.  Runs under the
+        fragment lock for the whole call: native writers mutate those
+        buffers in place, so the read must exclude them.
+
+        Returns i64[N] counts, or None for any decline (native
+        unavailable, non-canonical body, a leaf touching a bitmap
+        container, containers born since the table was built) — the
+        caller falls back to the general path.
+        """
+        with self._mu:
+            self._assert_open()
+            # The armed table reads container extents directly: pending
+            # overlay planes would be invisible to it, so pay the debt.
+            self._materialize_bulk_locked()
+            st = self._writelane_state()
+            if st is None or st.get("extra"):
+                # Containers created through the scalar lane since the
+                # build aren't in the table: a tree read would silently
+                # see them as empty segments.
+                return None
+            kp, ap, np_, _cp = st["ptrs"]
+            counts = native_mod.serve_tree(
+                src, frame_b, allow_default, rowkey_b,
+                kp, ap, np_, st["n"], st["bptr"], st["n_bkeys"],
+            )
+            if counts is not None:
+                self.stats.count("servelane.tree_batches", 1)
+            return counts
+
+    def write_batch(self, src: bytes, frame_b: bytes, rowkey_b: bytes,
+                    colkey_b: bytes):
+        """One-crossing native write lane: parse a canonical
+        all-SetBit/ClearBit request body, apply the sorted container
+        inserts/removes, and group-commit the WAL records — all inside
+        a single GIL-released ``pn_write_batch`` call against this
+        fragment's armed container table.
+
+        Returns:
+
+        - ``(changed bool-array, types, rows, cols)`` — applied
+          natively (WAL written, caches/journals/generation maintained
+          here);
+        - ``(None, types, rows, cols)`` — the body PARSED natively but
+          a structural case (new/bitmap container, out-of-slice op, no
+          slack) declined the apply; the caller pushes the parsed
+          arrays through the Python batch path, still skipping the
+          Python tokenizer;
+        - ``None`` — full fallback (native unavailable, non-canonical
+          body, buffered WAL writer): the caller runs the general lane.
+        """
+        W = np.uint64(SLICE_WIDTH)
+        with self._mu:
+            self._assert_open()
+            self._materialize_bulk_locked()
+            if self._writelane_cooldown > 0 and len(src) < 192:
+                # SINGLETON structural declines dominated recently: the
+                # per-op crossing is pure overhead on cold first-touch
+                # streams — let the Python lanes serve for a stretch.
+                # Batch bodies (a crossing amortized over many ops) are
+                # never cooled down; 192 bytes ~ two canonical calls.
+                self._writelane_cooldown -= 1
+                return None
+            storage = self.storage
+            fd = -1 if storage.op_writer is None else storage._wal_fd()
+            if fd == -2:
+                return None  # buffered writer: C write(2) would reorder
+            st = self._writelane_state()
+            kp, ap, np_, cp = st["ptrs"]
+            res = native_mod.write_batch(
+                src, frame_b, rowkey_b, colkey_b,
+                self.slice, SLICE_WIDTH,
+                kp, ap, np_, cp, st["n"],
+                fd, roaring.ARRAY_MAX_SIZE,
+            )
+            if res is None:
+                return None
+            types, rows, cols, changed = res
+            native_apply = changed is not None
+            if native_apply:
+                self._writelane_streak = 0
+            elif len(types) == 1:
+                # Only singleton declines feed the cooldown: a batch's
+                # scalar fallback already amortizes its crossing.
+                self._writelane_streak += 1
+                if self._writelane_streak >= 32:
+                    self._writelane_streak = 0
+                    self._writelane_cooldown = 512
+            # Singleton scalar path: the n==1 request is THE hot shape;
+            # numpy masking/unique/bincount machinery costs more than
+            # the whole op there.
+            if len(types) == 1:
+                return self._write_batch_one(
+                    st, storage, fd, native_apply, types, rows, cols, changed
+                )
+            if native_apply:
+                self.stats.count("writelane.native_batches", 1)
+                pos = rows * W + cols % W
+            else:
+                # Structural decline (new container, no slack, bitmap
+                # container, clear-would-empty...).  An in-slice batch
+                # of modest size still applies HERE through the scalar
+                # storage lane (which creates containers and slack
+                # buffers), with the armed table maintained
+                # INCREMENTALLY — a full O(containers) rebuild per
+                # first-touch op would be quadratic on uniform write
+                # mixes.  Bigger or cross-slice batches hand the parse
+                # back for the vectorized frame-level path.
+                n = len(types)
+                if n > 256 or not (cols // W == np.uint64(self.slice)).all():
+                    self.stats.count("writelane.parsed_only", 1)
+                    return None, types, rows, cols
+                pos = rows * W + cols % W
+                changed = np.zeros(n, dtype=bool)
+                for i, (t, p_) in enumerate(zip(types.tolist(), pos.tolist())):
+                    changed[i] = (
+                        storage.add(p_) if t == 0 else storage.remove(p_)
+                    )
+                self.stats.count("writelane.scalar_batches", 1)
+                # Refresh EVERY touched container (even unchanged ops
+                # can reallocate slack buffers — see _write_batch_one).
+                self._writelane_touch(
+                    st, storage, np.unique(pos >> np.uint64(16))
+                )
+            n_changed = int(changed.sum())
+            if n_changed:
+                cpos = pos[changed]
+                ctyp = types[changed]
+                tkeys = np.unique(cpos >> np.uint64(16))
+                if native_apply:
+                    # Re-point the touched containers at their new
+                    # extents (the crossing updated st["ns"] in place);
+                    # op-log count and snapshot-mirror dirt are ours to
+                    # record (the scalar lane did its own inside
+                    # storage.add/remove).
+                    for ti in st["keys"].searchsorted(tkeys).tolist():
+                        c = st["objs"][ti]
+                        c.array = c._buf[: int(st["ns"][ti])]
+                        c._ser = None
+                    if storage._snap_dirty is not None:
+                        storage._snap_dirty.update(int(k) for k in tkeys.tolist())
+                    if fd >= 0:
+                        storage.op_n += n_changed
+                n_set = int((ctyp == 0).sum())
+                if n_set:
+                    self.stats.count("setN", n_set)
+                if n_changed - n_set:
+                    self.stats.count("clearN", n_changed - n_set)
+                # Same deferred bookkeeping as the scalar mutators: bump
+                # the generation eagerly, journal the touched rows, and
+                # leave rank/row-cache updates to the next reader.
+                self.generation = next(_generation_counter)
+                crow = (cpos // W).astype(np.int64)
+                deltas = np.where(ctyp == 0, 1, -1)
+                uro, inv = np.unique(crow, return_inverse=True)
+                per_row = np.bincount(inv, weights=deltas).astype(np.int64)
+                self._log_dirty(uro.tolist())
+                p = self._pending_rows
+                for r, dlt in zip(uro.tolist(), per_row.tolist()):
+                    p[r] = p.get(r, 0) + int(dlt)
+                if self._writelane is st:
+                    st["gen"] = self.generation
+                self._increment_opn()
+                if self.storage is not storage:
+                    # The opn trigger snapshotted and re-attached: the
+                    # armed table points into the replaced containers.
+                    self._writelane = None
+            return changed, types, rows, cols
+
+    def _write_batch_one(self, st, storage, fd, native_apply,
+                         types, rows, cols, changed):
+        """Singleton-request bookkeeping for write_batch (lock held):
+        the exact work of set_bit/clear_bit, minus the numpy batch
+        machinery the n==1 shape cannot amortize."""
+        t0 = int(types[0])
+        row0 = int(rows[0])
+        col0 = int(cols[0])
+        pos0 = row0 * SLICE_WIDTH + col0 % SLICE_WIDTH
+        if native_apply:
+            self.stats.count("writelane.native_batches", 1)
+            ch = bool(changed[0])
+        else:
+            if col0 // SLICE_WIDTH != self.slice:
+                self.stats.count("writelane.parsed_only", 1)
+                return None, types, rows, cols
+            ch = storage.add(pos0) if t0 == 0 else storage.remove(pos0)
+            self.stats.count("writelane.scalar_batches", 1)
+            changed = _CH_TRUE if ch else _CH_FALSE
+            # Refresh even when unchanged: a duplicate add can still
+            # reallocate the slack buffer (ensure-slack runs before the
+            # duplicate check), which would strand a stale address in
+            # the armed table.
+            self._writelane_touch(st, storage, (pos0 >> 16,))
+        if ch:
+            key0 = pos0 >> 16
+            if native_apply:
+                ti = int(st["keys"].searchsorted(key0))
+                c = st["objs"][ti]
+                c.array = c._buf[: int(st["ns"][ti])]
+                c._ser = None
+                if storage._snap_dirty is not None:
+                    storage._snap_dirty.add(key0)
+                if fd >= 0:
+                    storage.op_n += 1
+            if t0 == 0:
+                self.stats.count("setN", 1)
+            else:
+                self.stats.count("clearN", 1)
+            self.generation = next(_generation_counter)
+            self._log_dirty((row0,))
+            p = self._pending_rows
+            p[row0] = p.get(row0, 0) + (1 if t0 == 0 else -1)
+            if self._writelane is st:
+                st["gen"] = self.generation
+            self._increment_opn()
+            if self.storage is not storage:
+                self._writelane = None
+        return changed, types, rows, cols
+
+    def _writelane_touch(self, st: dict, storage, tkeys) -> None:
+        """Incrementally reconcile the armed table after a scalar-lane
+        apply touched ``tkeys`` (call with the lock held).  Containers
+        already in the table get their (addr, n, cap) refreshed (the
+        scalar add may have reallocated the slack buffer); NEW
+        containers accumulate in a side set served by the scalar lane
+        until a bounded rebuild folds them in; a table entry whose
+        container vanished (emptied by a clear) or densified to bitmap
+        invalidates the state — the native crossing must never see a
+        stale buffer address."""
+        dead = False
+        extra = st.setdefault("extra", set())
+        keys = st["keys"]
+        nkeys = len(keys)
+        if isinstance(tkeys, np.ndarray):
+            tkeys = tkeys.tolist()
+        for k in tkeys:
+            c = storage.containers.get(k)
+            ti = int(keys.searchsorted(k))
+            in_tab = ti < nkeys and int(keys[ti]) == k
+            if c is None or c.array is None:
+                if in_tab:
+                    dead = True
+                    break
+                extra.discard(k)
+                continue
+            if in_tab:
+                c._ensure_slack(len(c.array))
+                st["addrs"][ti] = c._buf_addr
+                st["ns"][ti] = len(c.array)
+                st["caps"][ti] = len(c._buf)
+                st["objs"][ti] = c
+            else:
+                extra.add(k)
+        if dead or len(extra) > max(64, nkeys // 4):
+            self._writelane = None
+
+    def _flush_row_bookkeeping(self) -> None:
+        """Apply deferred per-row cache invalidations + rank updates.
+
+        Called (with the lock held) by every reader that consults the
+        row/device/checksum/count caches or the rank cache; the ingest
+        hot path only records (row, delta) so a burst of writes pays the
+        bookkeeping once per touched row, not once per op.  Storage is
+        never deferred — only derived caches are.
+        """
+        if not self._pending_rows:
+            return
+        pending = self._pending_rows
+        self._pending_rows = {}
+        for row_id, delta in pending.items():
+            self._row_cache.pop(row_id, None)
+            dropped = self._row_dev_cache.pop(row_id, None)
+            if dropped is not None:
+                # analysis-ok: check-then-act: every caller holds fragment._mu (locked-suffix convention; the rule sees only function-local locks)
+                self._row_dev_cache_arrays -= len(dropped)
+            self._checksums.pop(row_id // HASH_BLOCK_SIZE, None)
+            # analysis-ok: check-then-act: every caller holds fragment._mu (locked-suffix convention; the rule sees only function-local locks)
+            cached = self._row_counts.get(row_id)
+            if cached is not None:
+                rc = cached + delta
+                self._row_counts[row_id] = rc
+                self._row_counts.move_to_end(row_id)
+            else:
+                # Counts from storage AFTER the ops applied — the delta is
+                # already included, so no adjustment here.
+                rc = self._row_count_locked(row_id)
+            self.cache.add(row_id, rc)
+
+    def _increment_opn(self) -> None:
+        # One comparison on the hot path: the full trigger computation
+        # (env cache + container count scaling) runs only when op_n
+        # crosses the cached value.  The cache may lag the true trigger
+        # (container churn between crossings); the recompute at crossing
+        # time makes the final snapshot decision, so the deviation is
+        # only WHEN the check happens, never whether.
+        if self.storage.op_n < self._opn_trigger:
+            return
+        t = self._effective_max_opn()
+        if self.storage.op_n >= t:
+            self.snapshot()
+            t = self._effective_max_opn()
+        self._opn_trigger = t
+
+    def _effective_max_opn(self) -> int:
+        """Snapshot trigger, scaled with fragment size for DEFAULT-tuned
+        fragments.
+
+        The reference's fixed MaxOpN=2000 (fragment.go:63-65) is sized
+        for its ~ms C snapshot; here a snapshot serializes+reparses every
+        container in Python/C++ (~7 us/container measured), so at a few
+        thousand containers the fixed trigger makes snapshot amortization
+        THE singleton-write cost (~58 us/op at 16k containers).  Scaling
+        the trigger with container count keeps snapshot work a bounded
+        fraction of write work, and crash recovery stays bounded: WAL
+        replay runs at ~100k ops/s (native decode), so the 200k-op cap
+        bounds re-open at ~2 s.  Only applies when max_opn is the
+        default — an explicitly configured max_opn is honored exactly
+        (reference-identical file-state behavior); set
+        PILOSA_TPU_MAX_OPN_SCALE=0 to disable scaling entirely.
+        """
+        if self.max_opn != DEFAULT_MAX_OPN:
+            return self.max_opn
+        scale = self._max_opn_scale
+        if scale is None:  # read once per fragment (env reads cost ~10us/op)
+            scale = self._max_opn_scale = int(
+                # analysis-ok: lockstep-determinism: deployment config, launcher sets identical env on every rank
+                os.environ.get("PILOSA_TPU_MAX_OPN_SCALE", "8")
+            )
+        if scale <= 0:
+            return self.max_opn
+        return max(
+            self.max_opn, min(len(self.storage.containers) * scale, 200_000)
+        )
+
+    # -- snapshotting (fragment.go:1017-1057) ---------------------------
+
+    def snapshot(self) -> None:
+        """Rewrite the data file from storage; temp-file + rename."""
+        with self._mu:
+            self._assert_open()
+            # The snapshot file is the restore-path truth: fold any
+            # pending bulk overlay in first so no bits live only in RAM.
+            self._materialize_bulk_locked()
+            self._snapshot()
+
+    def _snapshot(self) -> None:
+        import time as _time
+
+        t0 = _time.perf_counter()
+        dirname = os.path.dirname(self.path) or "."
+        # The "<name>." prefix + suffix pair makes the orphan-sweep glob in
+        # open() precise: fragment "0" must not match fragment "01"'s temps.
+        fd, tmp = tempfile.mkstemp(
+            prefix=os.path.basename(self.path) + ".", suffix=".snapshotting", dir=dirname
+        )
+        try:
+            with os.fdopen(fd, "wb") as f:
+                self.storage.write_to(f)
+            os.replace(tmp, self.path)
+        except BaseException:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise
+        self.storage.op_n = 0
+        # Re-attach zero-copy to the NEW snapshot file (the reference
+        # re-mmaps after every snapshot, fragment.go:1017-1057): the
+        # re-parsed storage is byte-equivalent to the in-memory state just
+        # written, heap containers become file views again, and the old
+        # mapping (pinning the replaced inode) is released.  Readers
+        # holding the old bitmap keep their immutable snapshot.  Costs one
+        # O(containers) parse on top of the O(containers) write this
+        # method just did; skipped when mmap is disabled.
+        old_mm = self._storage_map
+        data, mm = self._map_storage() if self._mmap_enabled() else (None, None)
+        if mm is not None:
+            self.storage = roaring.Bitmap.from_bytes(data, zero_copy=True)
+            self._storage_map = mm
+            if old_mm is not None:
+                try:
+                    old_mm.close()
+                except BufferError:
+                    pass  # a reader still views it; GC finishes later
+        self._attach_wal()
+        # duration logging analog (fragment.go:1012-1020); timing() takes
+        # seconds (sinks convert to ms themselves).
+        self.stats.timing("snapshot", _time.perf_counter() - t0)
+
+    # -- row reads (fragment.go:332-367) --------------------------------
+
+    def _assert_open(self) -> None:
+        """Guard for read paths: close() swaps storage to an empty bitmap
+        (to release the mmap), so a late reader must fail loudly instead
+        of silently observing an empty fragment."""
+        if not self._open:
+            raise ErrFragmentClosed(f"fragment closed: {self.path}")
+
+    def row_dense(self, row_id: int) -> np.ndarray:
+        """One row of this slice as packed uint32 words (device layout)."""
+        with self._mu:
+            self._assert_open()
+            self._flush_row_bookkeeping()
+            cached = self._row_cache.get(row_id)
+            if cached is not None:
+                self._row_cache.move_to_end(row_id)
+                return cached
+            words = self.storage.to_dense_words(row_id * SLICE_WIDTH, SLICE_WIDTH)
+            ov = self._bulk_planes.get(row_id)
+            if ov is not None:
+                # Pending bulk overlay: the dense read merges it for free
+                # (one word-wise OR) — this is why bulk commits serve
+                # read-your-writes without touching roaring containers.
+                words = words | ov
+            self._row_cache[row_id] = words
+            while len(self._row_cache) > self._row_cache_max:
+                self._row_cache.popitem(last=False)
+            return words
+
+    def row_device(self, row_id: int, engine):
+        """Dense row as an ENGINE array, cached device-side.
+
+        On a device engine the packed words stay resident in HBM across
+        queries (the fragment's device working set); repeat reads of hot
+        rows cost zero host→device traffic.  Mutations invalidate the row
+        (see _on_row_mutated), so reads are always current.
+        """
+        # Compute-and-insert stays under one lock hold: inserting after a
+        # release could overwrite the invalidation of a concurrent mutation
+        # with a stale row.
+        ename = getattr(engine, "name", "?")
+        with self._mu:
+            self._flush_row_bookkeeping()
+            per_row = self._row_dev_cache.get(row_id)
+            if per_row is not None:
+                cached = per_row.get(ename)
+                if cached is not None:
+                    self._row_dev_cache.move_to_end(row_id)
+                    return cached
+            arr = engine.asarray(self.row_dense(row_id))
+            if per_row is None:
+                per_row = self._row_dev_cache[row_id] = {}
+            per_row[ename] = arr
+            self._row_dev_cache_arrays += 1
+            self._row_dev_cache.move_to_end(row_id)
+            while self._row_dev_cache_arrays > self._row_dev_cache_max:
+                _, evicted = self._row_dev_cache.popitem(last=False)
+                self._row_dev_cache_arrays -= len(evicted)
+            return arr
+
+    def row(self, row_id: int) -> roaring.Bitmap:
+        """Row as a roaring bitmap of global column positions for this slice."""
+        with self._mu:
+            self._assert_open()
+            # Roaring-shaped read: container structure is observed, so any
+            # pending overlay must be in storage first.
+            self._materialize_bulk_locked()
+            return self.storage.offset_range(
+                self.slice * SLICE_WIDTH, row_id * SLICE_WIDTH, (row_id + 1) * SLICE_WIDTH
+            )
+
+    def row_count(self, row_id: int) -> int:
+        with self._mu:
+            self._assert_open()
+            self._flush_row_bookkeeping()
+            return self._row_count_locked(row_id)
+
+    def _row_count_locked(self, row_id: int) -> int:
+        """Cached row cardinality; sole owner of the count+store logic."""
+        # analysis-ok: check-then-act: every caller holds fragment._mu (locked-suffix convention; the rule sees only function-local locks)
+        rc = self._row_counts.get(row_id)
+        if rc is None:
+            ov = self._bulk_planes.get(row_id)
+            if ov is None:
+                rc = self.storage.count_range(
+                    row_id * SLICE_WIDTH, (row_id + 1) * SLICE_WIDTH
+                )
+            elif self.storage.count_range(
+                row_id * SLICE_WIDTH, (row_id + 1) * SLICE_WIDTH
+            ) == 0:
+                # Bulk-into-empty row (the common build shape): the
+                # overlay IS the row; no dense expansion needed.
+                rc = bw.count_words(ov)
+            else:
+                # Overlay rows count over the merged dense view (overlap
+                # with storage bits makes count_range + popcount(ov) wrong).
+                words = self.storage.to_dense_words(
+                    row_id * SLICE_WIDTH, SLICE_WIDTH
+                )
+                rc = bw.count_words(words | ov)
+            self._row_counts[row_id] = rc
+            while len(self._row_counts) > self._row_counts_max:
+                self._row_counts.popitem(last=False)
+        else:
+            self._row_counts.move_to_end(row_id)
+        return rc
+
+    def max_row(self) -> int:
+        with self._mu:
+            m = self.storage.max() // SLICE_WIDTH
+            if self._bulk_planes:
+                m = max(m, max(self._bulk_planes))
+            return m
+
+    def count(self) -> int:
+        with self._mu:
+            self._assert_open()
+            # Whole-fragment cardinality needs the deduplicated union;
+            # cheapest exact answer is to pay the overlay debt.
+            self._materialize_bulk_locked()
+            return self.storage.count()
+
+    # -- TopN (fragment.go:493-659) -------------------------------------
+
+    def top_pairs(self, row_ids: Sequence[int]) -> list[cache_mod.Pair]:
+        """Candidate (id, count) pairs, count-descending (topBitmapPairs)."""
+        with self._mu:
+            self._flush_row_bookkeeping()
+        if not row_ids:
+            self.cache.invalidate()
+            return list(self.cache.top())
+        pairs = []
+        for row_id in row_ids:
+            n = self.cache.get(row_id) or self.row_count(row_id)
+            if n > 0:
+                pairs.append(cache_mod.Pair(id=row_id, count=n))
+        return cache_mod.pairs_sorted(pairs)
+
+    def top(self, opt: TopOptions) -> list[cache_mod.Pair]:
+        pairs = self.top_pairs(list(opt.row_ids))
+        n = 0 if opt.row_ids else opt.n  # explicit ids -> no truncation
+
+        filters = set(opt.filter_values) if (opt.filter_field and opt.filter_values) else None
+
+        tanimoto = opt.tanimoto_threshold if (opt.tanimoto_threshold > 0 and opt.has_src) else 0
+        src_count = 0
+        if tanimoto:
+            src_count = (
+                opt.src.count()
+                if opt.src is not None
+                else int(bw.np_popcount(opt.src_dense).sum())
+            )
+        min_tan = (src_count * tanimoto) / 100.0 if tanimoto else 0.0
+        max_tan = (src_count * 100.0) / tanimoto if tanimoto else 0.0
+
+        # Pre-filter candidates on cached counts (cheap, host-side).
+        cands: list[cache_mod.Pair] = []
+        for p in pairs:
+            if p.count <= 0:
+                continue
+            if tanimoto:
+                if p.count <= min_tan or p.count >= max_tan:
+                    continue
+            elif p.count < opt.min_threshold:
+                continue
+            if filters is not None:
+                attrs = self.row_attr_store.attrs(p.id) if self.row_attr_store else None
+                if not attrs or attrs.get(opt.filter_field) not in filters:
+                    continue
+            cands.append(p)
+
+        if not opt.has_src:
+            # Counts are final; take the first n.
+            results = cands[:n] if n else cands
+            return cache_mod.pairs_sorted(results)
+
+        # Intersection-count phase: process candidates count-descending in
+        # chunks; batched popcount per chunk; heap-threshold pruning between
+        # candidates exactly as the reference does between iterations.
+        src_dense = (
+            opt.src_dense
+            if opt.src_dense is not None
+            else opt.src.to_dense_words(self.slice * SLICE_WIDTH, SLICE_WIDTH)
+        )
+        results: list[cache_mod.Pair] = []
+        chunk = TOPN_SCORE_CHUNK
+        i = 0
+        while i < len(cands):
+            batch = cands[i : i + chunk]
+            i += chunk
+            counts = None
+            if opt.scorer is not None:
+                counts = opt.scorer([p.id for p in batch])
+            if counts is None:  # no scorer, or scorer declined this chunk
+                rows = np.stack([self.row_dense(p.id) for p in batch])
+                counts = _batch_intersection_counts(rows, src_dense)
+            else:
+                counts = np.asarray(counts)
+            stop = False
+            for p, count in zip(batch, counts.tolist()):
+                if n and len(results) >= n:
+                    results.sort(key=lambda q: q.count)
+                    threshold = results[0].count
+                    if threshold < opt.min_threshold or p.count < threshold:
+                        stop = True
+                        break
+                    if count < threshold:
+                        continue
+                    results.pop(0)
+                    results.append(cache_mod.Pair(id=p.id, count=count))
+                    continue
+                if count == 0:
+                    continue
+                if tanimoto:
+                    t = math.ceil(count * 100.0 / (p.count + src_count - count))
+                    if t <= tanimoto:
+                        continue
+                elif count < opt.min_threshold:
+                    continue
+                results.append(cache_mod.Pair(id=p.id, count=count))
+            if stop:
+                break
+        return cache_mod.pairs_sorted(results)
+
+    # -- bulk import (fragment.go:924-989) ------------------------------
+
+    def import_bits(self, row_ids: Sequence[int], column_ids: Sequence[int]) -> None:
+        """Bulk load; WAL detached, one snapshot at the end."""
+        with self._mu:
+            self._assert_open()
+            self._materialize_bulk_locked()
+            self._import_bits(row_ids, column_ids)
+
+    def _import_bits(self, row_ids, column_ids) -> None:
+        row_ids = np.asarray(row_ids, dtype=np.uint64)
+        column_ids = np.asarray(column_ids, dtype=np.uint64)
+        if len(row_ids) != len(column_ids):
+            raise ValueError("row/column id length mismatch")
+        positions = row_ids * np.uint64(SLICE_WIDTH) + (column_ids % np.uint64(SLICE_WIDTH))
+        self.storage.op_writer = None  # detach WAL during bulk load
+        try:
+            self.storage.add_many(positions)
+        finally:
+            self.storage.op_writer = self._wal
+        self.generation = next(_generation_counter)
+        self._log_dirty(None)  # bulk load: delta unenumerable by design
+        self._row_cache.clear()
+        self._row_dev_cache.clear()
+        self._row_dev_cache_arrays = 0
+        self._checksums.clear()
+        self._row_counts.clear()
+        for row_id in np.unique(row_ids):
+            self.cache.bulk_add(int(row_id), self.row_count(int(row_id)))
+        self.cache.recalculate()
+        self.snapshot()
+
+    # -- device bulk build commit (pilosa_tpu_torch/bulk) ----------------------
+
+    def bulk_set_planes(self, row_ids, planes) -> int:
+        """Commit packed word planes from the device bulk builder as a
+        PENDING dense overlay — no roaring conversion here (that is the
+        lazy half; see bulk/lazy.py and _materialize_bulk_locked).
+
+        ``planes[i]`` is a uint32[SLICE_WIDTH/32] plane of bits to OR
+        into row ``row_ids[i]``.  Serving reads (row_dense, contains,
+        row counts, TopN scoring) merge the overlay immediately, so
+        read-your-writes holds from the moment this returns; any
+        roaring-shaped touch materializes first.  Returns the number of
+        planes committed.
+        """
+        planes = np.asarray(planes, dtype=np.uint32)
+        if planes.ndim != 2 or planes.shape[1] != _WORDS:
+            raise ValueError("planes must be (G, SLICE_WIDTH/32) uint32")
+        if len(row_ids) != len(planes):
+            raise ValueError("row/plane length mismatch")
+        with self._mu:
+            self._assert_open()
+            if len(planes) == 0:
+                return 0
+            was_empty = not self._bulk_planes
+            ov = self._bulk_planes
+            rows = [int(r) for r in row_ids]
+            for row_id, plane in zip(rows, planes):
+                cur = ov.get(row_id)
+                if cur is None:
+                    ov[row_id] = plane.copy()
+                else:
+                    np.bitwise_or(cur, plane, out=cur)
+                self._bulk_drop_row_caches_locked(row_id)
+            self._bulk_commit_tail_locked(rows, was_empty)
+            return len(rows)
+
+    def bulk_or_words(self, row_ids, counts, word_idx, word_vals) -> int:
+        """Sparse twin of :meth:`bulk_set_planes`: OR individual plane
+        words into the overlay from the builder's CSR form
+        (``counts[i]`` words for ``row_ids[i]``; ``word_idx`` in-plane
+        word indices, UNIQUE within each group — the builder's segment
+        stage guarantees it, and the fancy-indexed OR below silently
+        drops duplicates; ``word_vals`` their uint32 values).
+
+        A chunk's pairs touch a few hundred words per plane, so this
+        avoids materializing and merging full 32768-word planes per
+        chunk — each overlay plane is allocated once and only its
+        touched words are written.  Semantics are identical to
+        committing the equivalent dense planes."""
+        counts = np.asarray(counts, dtype=np.int64)
+        word_idx = np.asarray(word_idx, dtype=np.int64)
+        word_vals = np.asarray(word_vals, dtype=np.uint32)
+        if len(row_ids) != len(counts):
+            raise ValueError("row/count length mismatch")
+        if len(word_idx) != len(word_vals) or int(counts.sum()) != len(word_idx):
+            raise ValueError("word CSR length mismatch")
+        if len(word_idx) and (
+            int(word_idx.min()) < 0 or int(word_idx.max()) >= _WORDS
+        ):
+            raise ValueError("word index out of plane range")
+        offs = np.concatenate([np.zeros(1, dtype=np.int64), np.cumsum(counts)])
+        with self._mu:
+            self._assert_open()
+            if len(counts) == 0:
+                return 0
+            was_empty = not self._bulk_planes
+            ov = self._bulk_planes
+            rows = [int(r) for r in row_ids]
+            for i, row_id in enumerate(rows):
+                cur = ov.get(row_id)
+                if cur is None:
+                    cur = ov[row_id] = np.zeros(_WORDS, dtype=np.uint32)
+                lo, hi = offs[i], offs[i + 1]
+                cur[word_idx[lo:hi]] |= word_vals[lo:hi]
+                self._bulk_drop_row_caches_locked(row_id)
+            self._bulk_commit_tail_locked(rows, was_empty)
+            return len(rows)
+
+    def _bulk_drop_row_caches_locked(self, row_id: int) -> None:
+        """An overlay commit changes the row by an UNKNOWN delta (the
+        committed bits may overlap existing ones), which the deferred
+        (row -> delta) bookkeeping cannot express — drop the derived
+        caches for the row outright instead."""
+        self._row_cache.pop(row_id, None)
+        dropped = self._row_dev_cache.pop(row_id, None)
+        if dropped is not None:
+            # analysis-ok: check-then-act: every caller holds fragment._mu (locked-suffix convention; the rule sees only function-local locks)
+            self._row_dev_cache_arrays -= len(dropped)
+        self._checksums.pop(row_id // HASH_BLOCK_SIZE, None)
+        self._row_counts.pop(row_id, None)
+
+    def _bulk_commit_tail_locked(self, rows, was_empty: bool) -> None:
+        """Shared overlay-commit bookkeeping: eager generation bump
+        (armed write-lane tables, engine row matrices, and qcache
+        vectors keyed on the old generation must not serve pre-overlay
+        state), dirty-row journal, stats, and the lazy ledger's pending
+        note on the empty -> non-empty transition."""
+        self.generation = next(_generation_counter)
+        self._log_dirty(rows)
+        self.stats.count("bulk.commit_rows", len(rows))
+        if was_empty:
+            from pilosa_tpu_torch.bulk.lazy import LEDGER
+
+            LEDGER.note_pending(self)
+
+    def materialize_bulk(self) -> int:
+        """Convert any pending bulk overlay into roaring storage (the
+        materialization ledger's drain entry point).  Returns the number
+        of overlay rows folded in; 0 on a closed fragment (close()
+        already paid the debt)."""
+        with self._mu:
+            if not self._open:
+                return 0
+            return self._materialize_bulk_locked()
+
+    def _materialize_bulk_locked(self) -> int:
+        """Pay the overlay debt: fold every pending plane into roaring
+        storage, WAL-or-snapshot durable, generation bumped (the
+        conversion restructures containers, so armed write-lane tables
+        and zero-copy readers must revalidate).  Call with the lock
+        held.  Reentrancy-safe: the overlay detaches first, so the
+        snapshot trigger's re-entry through snapshot() sees no debt.
+        A no-op (one dict truthiness check) when there is no overlay —
+        every guarded touch path calls this unconditionally."""
+        ov = self._bulk_planes
+        if not ov:
+            return 0
+        import time as _time
+
+        from pilosa_tpu_torch.bulk.build import plane_positions
+        from pilosa_tpu_torch.bulk.lazy import LEDGER
+
+        t0 = _time.perf_counter()
+        self._bulk_planes = {}
+        rows = sorted(ov)
+        positions = np.concatenate(
+            [plane_positions(ov[r], base=r * SLICE_WIDTH) for r in rows]
+        )
+        added = self.storage.add_many_unlogged(positions)
+        if len(added):
+            self.generation = next(_generation_counter)
+            self._log_dirty(rows)
+            if len(added) >= self._effective_max_opn():
+                self._snapshot()
+            else:
+                self.storage.log_add_ops(added)
+                self._increment_opn()
+        # Row-level derived caches stay: the fragment's LOGICAL content
+        # is unchanged by materialization (reads merged the overlay all
+        # along) — only the container structure moved.
+        self.stats.count("bulk.materialized_rows", len(rows))
+        self.stats.timing("bulk.materialize", _time.perf_counter() - t0)
+        LEDGER.note_materialized(self)
+        return len(rows)
+
+    def export_pairs(self) -> tuple[np.ndarray, np.ndarray]:
+        """All set bits as global (row_ids, col_ids) uint64 columns in
+        ascending position order — the columnar egress source.  Merges
+        any pending bulk overlay in position space WITHOUT materializing
+        roaring containers: egress is a dense read, and staying lazy
+        here is the point of the columnar door."""
+        with self._mu:
+            self._assert_open()
+            positions = np.asarray(self.storage.to_array(), dtype=np.uint64)
+            if self._bulk_planes:
+                from pilosa_tpu_torch.bulk.build import plane_positions
+
+                extra = np.concatenate(
+                    [
+                        plane_positions(plane, base=r * SLICE_WIDTH)
+                        for r, plane in sorted(self._bulk_planes.items())
+                    ]
+                )
+                positions = np.union1d(positions, extra)
+        rows = positions // np.uint64(SLICE_WIDTH)
+        cols = positions % np.uint64(SLICE_WIDTH) + np.uint64(
+            self.slice * SLICE_WIDTH
+        )
+        return rows, cols
+
+    # -- block checksums & merge (fragment.go:681-920) -------------------
+
+    def checksum(self) -> bytes:
+        """Checksum of the whole fragment: hash of (block id, block
+        checksum) pairs in block order.
+
+        POSITION-BOUND: the block id participates in the hash, so two
+        fragments whose blocks hold the same relative bit pattern at
+        DIFFERENT block ids cannot collide (block checksums are
+        relative to their block's base row by construction).  The
+        digest is a pure function of the logical bit set — identical
+        bits reached through any write order, the patch or rebuild
+        path, or a write_to/read_from round trip hash identically —
+        which is the property the replica digest protocol
+        (replica/digest.py) and anti-entropy repair rest on.
+
+        Cached per write generation: digest sweeps over an idle holder
+        re-hash nothing (every mutator bumps ``generation``, which
+        invalidates the cache by key, never by callback)."""
+        with self._mu:
+            self._assert_open()
+            # Digests hash storage positions: a pending overlay must be
+            # folded in or replicas would disagree on identical content.
+            self._materialize_bulk_locked()
+            self._flush_row_bookkeeping()
+            gen = self.generation
+            cached = self._checksum_cache
+            if cached is not None and cached[0] == gen:
+                return cached[1]
+            h = hashlib.sha1()
+            for block_id, chk in self._blocks():
+                h.update(block_id.to_bytes(8, "little"))
+                h.update(chk)
+            digest = h.digest()
+            self._checksum_cache = (gen, digest)
+            return digest
+
+    def blocks(self) -> list[tuple[int, bytes]]:
+        """(block id, sha1) for each non-empty block of HASH_BLOCK_SIZE rows."""
+        with self._mu:
+            self._assert_open()
+            self._materialize_bulk_locked()
+            self._flush_row_bookkeeping()
+            return self._blocks()
+
+    def _blocks(self) -> list[tuple[int, bytes]]:
+        positions = self.storage.to_array()
+        if len(positions) == 0:
+            return []
+        block_ids = (positions // np.uint64(SLICE_WIDTH * HASH_BLOCK_SIZE)).astype(np.int64)
+        out = []
+        for bid in np.unique(block_ids):
+            bid = int(bid)
+            # analysis-ok: check-then-act: _blocks runs only under fragment._mu (checksum() takes it; the rule sees only function-local locks)
+            chk = self._checksums.get(bid)
+            if chk is None:
+                block = positions[block_ids == bid]
+                rel = block - np.uint64(bid * SLICE_WIDTH * HASH_BLOCK_SIZE)
+                chk = hashlib.sha1(rel.astype("<u8").tobytes()).digest()
+                self._checksums[bid] = chk
+            out.append((bid, chk))
+        return out
+
+    def block_data(self, block_id: int) -> tuple[np.ndarray, np.ndarray]:
+        """(row_ids, column_ids) of all bits in a block (fragment.go:785-794)."""
+        start = block_id * HASH_BLOCK_SIZE * SLICE_WIDTH
+        end = (block_id + 1) * HASH_BLOCK_SIZE * SLICE_WIDTH
+        with self._mu:
+            self._assert_open()
+            self._materialize_bulk_locked()
+            positions = self.storage.slice_values(start, end)
+        rows = positions // np.uint64(SLICE_WIDTH)
+        cols = positions % np.uint64(SLICE_WIDTH)
+        return rows, cols
+
+    def merge_block(
+        self, block_id: int, pair_sets: list[tuple[np.ndarray, np.ndarray]]
+    ) -> list[tuple[tuple[np.ndarray, np.ndarray], tuple[np.ndarray, np.ndarray]]]:
+        """Majority-vote block merge (fragment.go:802-920).
+
+        ``pair_sets[i]`` is node i's (row_ids, column_ids) for this block;
+        pair_sets[0] must be the local node.  A bit is canonical when set on
+        >= (len(pair_sets)+1)//2 nodes.  Returns, per node, the diff
+        ((set_rows, set_cols), (clear_rows, clear_cols)) to converge, and
+        applies the local node's diff to storage.
+        """
+        m = len(pair_sets)
+        majority = (m + 1) // 2
+        pos_sets = []
+        for rows, cols in pair_sets:
+            rows = np.asarray(rows, dtype=np.uint64)
+            cols = np.asarray(cols, dtype=np.uint64)
+            pos_sets.append(rows * np.uint64(SLICE_WIDTH) + cols)
+        all_pos = np.concatenate(pos_sets) if pos_sets else np.empty(0, np.uint64)
+        uniq, counts = np.unique(all_pos, return_counts=True)
+        target = uniq[counts >= majority]
+
+        diffs = []
+        for pos in pos_sets:
+            sets = np.setdiff1d(target, pos)
+            clears = np.setdiff1d(pos, target)
+            diffs.append(
+                (
+                    (sets // np.uint64(SLICE_WIDTH), sets % np.uint64(SLICE_WIDTH)),
+                    (clears // np.uint64(SLICE_WIDTH), clears % np.uint64(SLICE_WIDTH)),
+                )
+            )
+
+        # Apply local diff (node 0) through the normal mutation path.
+        (set_rows, set_cols), (clear_rows, clear_cols) = diffs[0]
+        for r, c in zip(set_rows.tolist(), set_cols.tolist()):
+            self.set_bit(int(r), int(c))
+        for r, c in zip(clear_rows.tolist(), clear_cols.tolist()):
+            self.clear_bit(int(r), int(c))
+        return diffs
+
+    # -- backup payload (fragment.go:1096-1266) --------------------------
+
+    def write_to(self, w) -> int:
+        """Serialize current storage (snapshot format, no pending ops)."""
+        with self._mu:
+            if self._open:
+                # Backup/resync payloads must carry the overlay bits; a
+                # closed fragment already materialized during close().
+                self._materialize_bulk_locked()
+            return self.storage.write_to(w)
+
+    def read_from(self, data: bytes) -> None:
+        """Replace contents from a snapshot byte string (restore path)."""
+        with self._mu:
+            self._read_from(data)
+
+    def _read_from(self, data: bytes) -> None:
+        if self._bulk_planes:
+            # Wholesale restore supersedes the pending overlay: the
+            # incoming snapshot IS the new truth, debt and all.
+            self._bulk_planes = {}
+            from pilosa_tpu_torch.bulk.lazy import LEDGER
+
+            LEDGER.note_materialized(self)
+        self.storage = roaring.Bitmap.from_bytes(data)
+        self.storage.op_n = 0
+        self.generation = next(_generation_counter)
+        self._log_dirty(None)  # wholesale restore: delta unenumerable
+        self._row_cache.clear()
+        self._row_dev_cache.clear()
+        self._row_dev_cache_arrays = 0
+        self._checksums.clear()
+        self._row_counts.clear()
+        self.snapshot()
+        self._rebuild_cache()
+
+    def _rebuild_cache(self) -> None:
+        self.cache = cache_mod.new_cache(
+            self.cache_type, self.cache_size, self.ranking_debounce_s
+        )
+        positions = self.storage.to_array()
+        if len(positions):
+            rows, counts = np.unique(positions // np.uint64(SLICE_WIDTH), return_counts=True)
+            for r, c in zip(rows.tolist(), counts.tolist()):
+                self.cache.bulk_add(int(r), int(c))
+        self.cache.recalculate()

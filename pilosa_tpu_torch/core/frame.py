@@ -1,0 +1,340 @@
+"""Frame: a named matrix of rows × columns with views and row attributes.
+
+Reference analog: frame.go.  A frame owns its views (standard, optional
+inverse, time-quantum sub-views), a row AttrStore, and per-frame options
+(rowLabel, cacheType/cacheSize, inverseEnabled, timeQuantum) persisted in a
+``.meta`` sidecar (frame.go:281-336; JSON here rather than protobuf — the
+on-disk meta is node-internal, only the HTTP wire format is
+reference-compatible).
+
+SetBit fans out to the standard view plus one view per time-quantum unit
+(frame.go:446-485); the inverse view stores the transposed bit
+(columnID, rowID) so column-axis queries are row reads (frame.go:530-606).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+
+from pilosa_tpu_torch.analysis import lockcheck
+from datetime import datetime
+from typing import Optional, Sequence
+
+import numpy as np
+
+from pilosa_tpu_torch.core import cache as cache_mod
+from pilosa_tpu_torch.core import timequantum as tq
+from pilosa_tpu_torch.core.attr import AttrStore
+from pilosa_tpu_torch.core.fragment import DEFAULT_CACHE_SIZE
+from pilosa_tpu_torch.core.view import VIEW_INVERSE, VIEW_STANDARD, View, is_inverse_view, is_valid_view
+from pilosa_tpu_torch.pilosa import (
+    ErrFrameInverseDisabled,
+    ErrInvalidView,
+    SLICE_WIDTH,
+    validate_label,
+    validate_name,
+)
+
+DEFAULT_ROW_LABEL = "rowID"
+DEFAULT_CACHE_TYPE = cache_mod.DEFAULT_CACHE_TYPE
+
+
+class FrameOptions:
+    def __init__(
+        self,
+        row_label: str = "",
+        inverse_enabled: bool = False,
+        cache_type: str = "",
+        cache_size: int = 0,
+        time_quantum: str = "",
+    ):
+        self.row_label = row_label
+        self.inverse_enabled = inverse_enabled
+        self.cache_type = cache_type
+        self.cache_size = cache_size
+        self.time_quantum = time_quantum
+
+    def validate(self) -> None:
+        """Raise for any invalid option — callers check BEFORE creating
+        frame state on disk, so a rejected create leaves no ghost frame."""
+        if self.row_label:
+            validate_label(self.row_label)
+        if self.cache_type:
+            cache_mod.new_cache(self.cache_type, 1)
+        if self.time_quantum:
+            tq.parse_time_quantum(self.time_quantum)
+
+    def to_json(self) -> dict:
+        return {
+            "rowLabel": self.row_label,
+            "inverseEnabled": self.inverse_enabled,
+            "cacheType": self.cache_type,
+            "cacheSize": self.cache_size,
+            "timeQuantum": self.time_quantum,
+        }
+
+
+class Frame:
+    def __init__(
+        self,
+        path: str,
+        index: str,
+        name: str,
+        stats=None,
+        on_new_fragment=None,
+        ranking_debounce_s=None,
+    ):
+        from pilosa_tpu_torch.stats import NOP_STATS
+
+        validate_name(name)
+        self.path = path
+        self.index = index
+        self.name = name
+        self.stats = stats if stats is not None else NOP_STATS
+        self.on_new_fragment = on_new_fragment
+        self.ranking_debounce_s = ranking_debounce_s
+
+        self.row_label = DEFAULT_ROW_LABEL
+        self.inverse_enabled = False
+        self.cache_type = DEFAULT_CACHE_TYPE
+        self.cache_size = DEFAULT_CACHE_SIZE
+        self.time_quantum = ""
+
+        # Guards view create against concurrent writers (frame.go mu analog).
+        self._mu = lockcheck.named_rlock("core.frame._mu")
+        self.views: dict[str, View] = {}
+        self.row_attr_store = AttrStore(os.path.join(path, "row_attrs.db"))
+
+    # -- lifecycle ------------------------------------------------------
+
+    def open(self) -> None:
+        os.makedirs(self.path, exist_ok=True)
+        self._load_meta()
+        self.row_attr_store.open()
+        views_dir = os.path.join(self.path, "views")
+        os.makedirs(views_dir, exist_ok=True)
+        for entry in sorted(os.listdir(views_dir)):
+            if entry.startswith("."):
+                continue
+            self._open_view(entry)
+
+    def close(self) -> None:
+        self.row_attr_store.close()
+        for v in list(self.views.values()):
+            v.close()
+        self.views.clear()
+
+    def flush_caches(self) -> None:
+        # list() snapshots: schema merges may insert concurrently
+        for v in list(self.views.values()):
+            v.flush_caches()
+
+    @property
+    def meta_path(self) -> str:
+        return os.path.join(self.path, ".meta")
+
+    def _load_meta(self) -> None:
+        try:
+            with open(self.meta_path) as f:
+                meta = json.load(f)
+        except FileNotFoundError:
+            return
+        self.row_label = meta.get("rowLabel", DEFAULT_ROW_LABEL)
+        self.inverse_enabled = meta.get("inverseEnabled", False)
+        self.cache_type = meta.get("cacheType", DEFAULT_CACHE_TYPE)
+        self.cache_size = meta.get("cacheSize", DEFAULT_CACHE_SIZE)
+        self.time_quantum = meta.get("timeQuantum", "")
+
+    def save_meta(self) -> None:
+        os.makedirs(self.path, exist_ok=True)
+        with open(self.meta_path, "w") as f:
+            json.dump(
+                {
+                    "rowLabel": self.row_label,
+                    "inverseEnabled": self.inverse_enabled,
+                    "cacheType": self.cache_type,
+                    "cacheSize": self.cache_size,
+                    "timeQuantum": self.time_quantum,
+                },
+                f,
+            )
+
+    def apply_options(self, opt: FrameOptions) -> None:
+        # Callers validate first (Index._create_frame runs opt.validate()
+        # BEFORE any on-disk state exists); this only applies.
+        if opt.row_label:
+            self.row_label = opt.row_label
+        self.inverse_enabled = bool(opt.inverse_enabled)
+        if opt.cache_type:
+            self.cache_type = opt.cache_type
+        if opt.cache_size:
+            self.cache_size = opt.cache_size
+        if opt.time_quantum:
+            self.time_quantum = tq.parse_time_quantum(opt.time_quantum)
+        self.save_meta()
+
+    def set_time_quantum(self, q: str) -> None:
+        self.time_quantum = tq.parse_time_quantum(q)
+        self.save_meta()
+
+    def schema_json(self) -> dict:
+        return {
+            "name": self.name,
+            "rowLabel": self.row_label,
+            "inverseEnabled": self.inverse_enabled,
+            "cacheType": self.cache_type,
+            "cacheSize": self.cache_size,
+            "timeQuantum": self.time_quantum,
+        }
+
+    # -- views ----------------------------------------------------------
+
+    def view_path(self, name: str) -> str:
+        return os.path.join(self.path, "views", name)
+
+    def _open_view(self, name: str) -> View:
+        v = View(
+            self.view_path(name),
+            self.index,
+            self.name,
+            name,
+            cache_type=self.cache_type,
+            cache_size=self.cache_size,
+            row_attr_store=self.row_attr_store,
+            on_new_fragment=self.on_new_fragment,
+            stats=self.stats.with_tags(f"view:{name}"),
+            ranking_debounce_s=self.ranking_debounce_s,
+        )
+        v.open()
+        self.views[name] = v
+        return v
+
+    def view(self, name: str) -> Optional[View]:
+        return self.views.get(name)
+
+    def create_view_if_not_exists(self, name: str) -> View:
+        # Don't create inverse views (incl. time-quantum inverse
+        # sub-views) when disabled (frame.go:413-415 IsInverseView).
+        if is_inverse_view(name) and not self.inverse_enabled:
+            raise ErrFrameInverseDisabled(f"inverse storage disabled for frame {self.name!r}")
+        with self._mu:
+            v = self.views.get(name)
+            if v is not None:
+                return v
+            return self._open_view(name)
+
+    def max_slice(self) -> int:
+        return max((v.max_slice() for v in list(self.views.values())), default=0)
+
+    def max_inverse_slice(self) -> int:
+        v = self.views.get(VIEW_INVERSE)
+        return v.max_slice() if v else 0
+
+    # -- bit ops (frame.go:446-525) --------------------------------------
+
+    def set_bit(
+        self, name: str, row_id: int, col_id: int, timestamp: Optional[datetime] = None
+    ) -> bool:
+        if not is_valid_view(name):
+            raise ErrInvalidView(f"invalid view: {name}")
+        changed = self.create_view_if_not_exists(name).set_bit(row_id, col_id)
+        if timestamp is None:
+            return changed
+        if not self.time_quantum:
+            return changed
+        for subname in tq.views_by_time(name, timestamp, self.time_quantum):
+            if self.create_view_if_not_exists(subname).set_bit(row_id, col_id):
+                changed = True
+        return changed
+
+    def set_bits(
+        self,
+        name: str,
+        row_ids,
+        column_ids,
+        timestamps: Optional[Sequence[Optional[datetime]]] = None,
+    ) -> "np.ndarray":
+        """Durable batched SetBit: per-input changed bools, semantically
+        identical to issuing set_bit sequentially (first occurrence of a
+        duplicate wins).  One fragment pass + WAL append per touched
+        (view, slice) instead of per bit."""
+        if not is_valid_view(name):
+            raise ErrInvalidView(f"invalid view: {name}")
+        row_ids = np.asarray(row_ids, dtype=np.uint64)
+        column_ids = np.asarray(column_ids, dtype=np.uint64)
+        if len(row_ids) != len(column_ids):
+            raise ValueError("row/column id length mismatch")
+        if timestamps is not None and len(timestamps) != len(row_ids):
+            raise ValueError("timestamps length mismatch")
+        changed = self.create_view_if_not_exists(name).set_bits(row_ids, column_ids)
+        if self.time_quantum and timestamps is not None:
+            # Group indices by time sub-view so each sub-view gets one pass.
+            by_view: dict[str, list[int]] = {}
+            for i, t in enumerate(timestamps):
+                if t is None:
+                    continue
+                for subname in tq.views_by_time(name, t, self.time_quantum):
+                    by_view.setdefault(subname, []).append(i)
+            for subname, idxs in by_view.items():
+                sub_changed = self.create_view_if_not_exists(subname).set_bits(
+                    row_ids[idxs], column_ids[idxs]
+                )
+                changed[idxs] |= sub_changed
+        return changed
+
+    def clear_bit(self, name: str, row_id: int, col_id: int) -> bool:
+        if not is_valid_view(name):
+            raise ErrInvalidView(f"invalid view: {name}")
+        v = self.views.get(name)
+        if v is None:
+            return False
+        return v.clear_bit(row_id, col_id)
+
+    # -- bulk import (frame.go:530-606) -----------------------------------
+
+    def import_bits(
+        self,
+        row_ids: Sequence[int],
+        column_ids: Sequence[int],
+        timestamps: Optional[Sequence[Optional[datetime]]] = None,
+    ) -> None:
+        """Group bits by target view and bulk-load per fragment.
+
+        Standard view gets every bit; time views get timestamped bits;
+        the inverse view (when enabled) gets the transposed pairs.
+        """
+        row_ids = np.asarray(row_ids, dtype=np.uint64)
+        column_ids = np.asarray(column_ids, dtype=np.uint64)
+        if timestamps is None:
+            timestamps = [None] * len(row_ids)
+
+        # view name -> (rows list, cols list)
+        groups: dict[str, tuple[list, list]] = {}
+
+        def add(view_name: str, r: int, c: int):
+            g = groups.setdefault(view_name, ([], []))
+            g[0].append(r)
+            g[1].append(c)
+
+        for r, c, t in zip(row_ids.tolist(), column_ids.tolist(), timestamps):
+            add(VIEW_STANDARD, r, c)
+            if self.inverse_enabled:
+                add(VIEW_INVERSE, c, r)
+            if t is not None and self.time_quantum:
+                for name in tq.views_by_time(VIEW_STANDARD, t, self.time_quantum):
+                    add(name, r, c)
+                if self.inverse_enabled:
+                    for name in tq.views_by_time(VIEW_INVERSE, t, self.time_quantum):
+                        add(name, c, r)
+
+        for view_name, (rows, cols) in groups.items():
+            view = self.create_view_if_not_exists(view_name)
+            rows = np.asarray(rows, dtype=np.uint64)
+            cols = np.asarray(cols, dtype=np.uint64)
+            slices = cols // np.uint64(SLICE_WIDTH)
+            for slice_i in np.unique(slices):
+                mask = slices == slice_i
+                frag = view.create_fragment_if_not_exists(int(slice_i))
+                frag.import_bits(rows[mask], cols[mask])

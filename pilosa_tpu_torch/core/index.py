@@ -1,0 +1,219 @@
+"""Index: a namespace of frames sharing a column space.
+
+Reference analog: index.go.  Owns the column AttrStore, the columnLabel
+(default "columnID", index.go:34), a default time quantum inherited by new
+frames, and ``remote_max_slice`` — the cluster-wide max slice learned from
+peers so queries span slices this node has never written
+(index.go:252-272).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+
+from pilosa_tpu_torch.analysis import lockcheck
+from typing import Optional
+
+from pilosa_tpu_torch.core import timequantum as tq
+from pilosa_tpu_torch.core.attr import AttrStore
+from pilosa_tpu_torch.core.frame import Frame, FrameOptions
+from pilosa_tpu_torch.pilosa import (
+    ErrColumnRowLabelEqual,
+    ErrFrameExists,
+    ErrFrameNotFound,
+    validate_label,
+    validate_name,
+)
+
+DEFAULT_COLUMN_LABEL = "columnID"
+
+
+class IndexOptions:
+    def __init__(self, column_label: str = "", time_quantum: str = ""):
+        self.column_label = column_label
+        self.time_quantum = time_quantum
+
+    def validate(self) -> None:
+        """Raise for any invalid option — checked BEFORE creating index
+        state on disk, so a rejected create leaves no ghost index."""
+        if self.column_label:
+            validate_label(self.column_label)
+        if self.time_quantum:
+            tq.parse_time_quantum(self.time_quantum)
+
+
+class Index:
+    def __init__(
+        self,
+        path: str,
+        name: str,
+        stats=None,
+        on_new_fragment=None,
+        ranking_debounce_s=None,
+    ):
+        from pilosa_tpu_torch.stats import NopStatsClient
+
+        validate_name(name)
+        self.path = path
+        self.name = name
+        self.stats = stats if stats is not None else NopStatsClient()
+        self.on_new_fragment = on_new_fragment
+        self.ranking_debounce_s = ranking_debounce_s
+
+        self.column_label = DEFAULT_COLUMN_LABEL
+        self.time_quantum = ""
+        self.remote_max_slice = 0
+        self.remote_max_inverse_slice = 0
+
+        # Guards frame create/delete against concurrent schema merges
+        # (index.go mu analog).
+        self._mu = lockcheck.named_rlock("core.index._mu")
+        self.frames: dict[str, Frame] = {}
+        self.column_attr_store = AttrStore(os.path.join(path, "column_attrs.db"))
+
+    # -- lifecycle ------------------------------------------------------
+
+    def open(self) -> None:
+        os.makedirs(self.path, exist_ok=True)
+        self._load_meta()
+        self.column_attr_store.open()
+        for entry in sorted(os.listdir(self.path)):
+            full = os.path.join(self.path, entry)
+            if not os.path.isdir(full) or entry.startswith("."):
+                continue
+            frame = Frame(
+                full,
+                self.name,
+                entry,
+                stats=self.stats.with_tags(f"frame:{entry}"),
+                on_new_fragment=self.on_new_fragment,
+                ranking_debounce_s=self.ranking_debounce_s,
+            )
+            frame.open()
+            self.frames[entry] = frame
+            self.stats.count("frameN", 1)  # index.go:183
+
+    def close(self) -> None:
+        self.column_attr_store.close()
+        for f in list(self.frames.values()):
+            f.close()
+        self.frames.clear()
+
+    def flush_caches(self) -> None:
+        # list() snapshots: schema merges may insert concurrently
+        for f in list(self.frames.values()):
+            f.flush_caches()
+
+    @property
+    def meta_path(self) -> str:
+        return os.path.join(self.path, ".meta")
+
+    def _load_meta(self) -> None:
+        try:
+            with open(self.meta_path) as f:
+                meta = json.load(f)
+        except FileNotFoundError:
+            return
+        self.column_label = meta.get("columnLabel", DEFAULT_COLUMN_LABEL)
+        self.time_quantum = meta.get("timeQuantum", "")
+
+    def save_meta(self) -> None:
+        with open(self.meta_path, "w") as f:
+            json.dump({"columnLabel": self.column_label, "timeQuantum": self.time_quantum}, f)
+
+    def apply_options(self, opt: IndexOptions) -> None:
+        # Callers validate first (Holder._create_index runs opt.validate()
+        # BEFORE any on-disk state exists); this only applies.
+        if opt.column_label:
+            self.column_label = opt.column_label
+        if opt.time_quantum:
+            self.time_quantum = tq.parse_time_quantum(opt.time_quantum)
+        self.save_meta()
+
+    def set_time_quantum(self, q: str) -> None:
+        self.time_quantum = tq.parse_time_quantum(q)
+        self.save_meta()
+
+    # -- slices ---------------------------------------------------------
+
+    def max_slice(self) -> int:
+        """Max of local frames and the remotely-observed max (index.go:252)."""
+        local = max((f.max_slice() for f in list(self.frames.values())), default=0)
+        return max(local, self.remote_max_slice)
+
+    def max_inverse_slice(self) -> int:
+        local = max((f.max_inverse_slice() for f in list(self.frames.values())), default=0)
+        return max(local, self.remote_max_inverse_slice)
+
+    def set_remote_max_slice(self, v: int) -> None:
+        self.remote_max_slice = max(self.remote_max_slice, v)
+
+    def set_remote_max_inverse_slice(self, v: int) -> None:
+        self.remote_max_inverse_slice = max(self.remote_max_inverse_slice, v)
+
+    # -- frames ----------------------------------------------------------
+
+    def frame(self, name: str) -> Optional[Frame]:
+        return self.frames.get(name)
+
+    def create_frame(self, name: str, opt: FrameOptions) -> Frame:
+        with self._mu:
+            if name in self.frames:
+                raise ErrFrameExists(name)
+            return self._create_frame(name, opt)
+
+    def create_frame_if_not_exists(self, name: str, opt: Optional[FrameOptions] = None) -> Frame:
+        with self._mu:
+            f = self.frames.get(name)
+            if f is not None:
+                return f
+            return self._create_frame(name, opt or FrameOptions())
+
+    def _create_frame(self, name: str, opt: FrameOptions) -> Frame:
+        validate_name(name)
+        # Frame row label may not equal the index column label
+        # (index.go:386-388) — the query arg namespace would collide.
+        row_label = opt.row_label or "rowID"
+        if row_label == self.column_label:
+            raise ErrColumnRowLabelEqual(f"row label equals column label: {row_label}")
+        # Validate ALL options BEFORE any directory exists: a rejected
+        # create must not leave a ghost frame that reappears on restart.
+        opt.validate()
+        frame = Frame(
+            os.path.join(self.path, name),
+            self.name,
+            name,
+            stats=self.stats.with_tags(f"frame:{name}"),
+            on_new_fragment=self.on_new_fragment,
+            ranking_debounce_s=self.ranking_debounce_s,
+        )
+        frame.open()
+        if not opt.time_quantum and self.time_quantum:
+            opt.time_quantum = self.time_quantum  # inherit index default
+        frame.apply_options(opt)
+        self.frames[name] = frame
+        self.stats.count("frameN", 1)  # index.go:434
+        return frame
+
+    def delete_frame(self, name: str) -> None:
+        import shutil
+
+        # close + rmtree stay under the lock so a concurrent create of the
+        # same name can't have its fresh directory deleted out from under it.
+        with self._mu:
+            f = self.frames.pop(name, None)
+            if f is None:
+                raise ErrFrameNotFound(name)
+            self.stats.count("frameN", -1)  # index.go:474
+            f.close()
+            shutil.rmtree(f.path, ignore_errors=True)
+
+    def schema_json(self) -> dict:
+        return {
+            "name": self.name,
+            "columnLabel": self.column_label,
+            "timeQuantum": self.time_quantum,
+            "frames": [f.schema_json() for _, f in sorted(list(self.frames.items()))],
+        }

@@ -1,0 +1,813 @@
+"""ctypes bridge to the C++ host-runtime kernels (native/pilosa_native.cpp).
+
+Auto-builds the shared library with the in-tree Makefile on first use when
+a toolchain is present; every entry point has a pure-Python/numpy fallback
+so the framework runs identically (slower) without it.  The analog of the
+reference's asm-vs-Go split (roaring/assembly_asm.go vs assembly.go) for
+the host side of this build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+from typing import Optional
+
+import numpy as np
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libpilosa_native.so")
+
+from pilosa_tpu_torch.analysis import lockcheck
+
+_lock = lockcheck.named_lock("native._lock")
+_lib: Optional[ctypes.CDLL] = None
+_lib_path_loaded: Optional[str] = None
+_tried = False
+
+
+def _build() -> bool:
+    try:
+        subprocess.run(
+            ["make", "-C", _NATIVE_DIR],
+            check=True,
+            capture_output=True,
+            timeout=120,
+        )
+        return os.path.exists(_LIB_PATH)
+    # analysis-ok: exception-hygiene: toolchain probe; load() reports the miss and Python lanes take over
+    except Exception:
+        return False
+
+
+def loaded_path() -> Optional[str]:
+    """Absolute path of the .so actually loaded (None = Python lanes).
+    The sanitizer gate asserts this matches the ASAN build it pointed
+    PILOSA_TPU_NATIVE_LIB at — a silent fallback would pass the suites
+    without sanitizing anything."""
+    load()
+    return _lib_path_loaded
+
+
+def load() -> Optional[ctypes.CDLL]:
+    global _lib, _lib_path_loaded, _tried
+    # Lock-free fast path: both fields are only ever set under _lock and
+    # transition once (None -> value), so a stale read at worst takes the
+    # locked slow path.  Per-op WAL encodes call this on the hot path.
+    if _lib is not None or _tried:
+        return _lib
+    with _lock:
+        if _lib is not None or _tried:
+            return _lib
+        _tried = True
+        if os.environ.get("PILOSA_TPU_NO_NATIVE", "").lower() in ("1", "true", "yes"):
+            return None
+        # PILOSA_TPU_NATIVE_LIB points the bridge at an alternate build
+        # of the same ABI — the sanitizer gate runs the differential
+        # suites against the ASAN/UBSAN .so this way (native/Makefile
+        # `asan`/`ubsan` targets; tests/test_native_sanitized.py).  An
+        # explicit path is never auto-built: a missing file is a
+        # misconfiguration, not a cue to compile the default flavor.
+        lib_path = os.environ.get("PILOSA_TPU_NATIVE_LIB", "")
+        if lib_path:
+            if not os.path.exists(lib_path):
+                return None
+        else:
+            lib_path = _LIB_PATH
+            if not os.path.exists(lib_path) and not _build():
+                return None
+        try:
+            lib = ctypes.CDLL(lib_path)
+        except OSError:
+            return None
+        _lib_path_loaded = os.path.abspath(lib_path)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        u32p = ctypes.POINTER(ctypes.c_uint32)
+        u64p = ctypes.POINTER(ctypes.c_uint64)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        lib.pn_fnv1a64.restype = ctypes.c_uint64
+        lib.pn_fnv1a64.argtypes = [u8p, ctypes.c_size_t]
+        lib.pn_fnv1a32.restype = ctypes.c_uint32
+        lib.pn_fnv1a32.argtypes = [u8p, ctypes.c_size_t]
+        lib.pn_popcount_u32.restype = ctypes.c_uint64
+        lib.pn_popcount_u32.argtypes = [u32p, ctypes.c_size_t]
+        lib.pn_popcount_and_u32.restype = ctypes.c_uint64
+        lib.pn_popcount_and_u32.argtypes = [u32p, u32p, ctypes.c_size_t]
+        lib.pn_varint_encode.restype = ctypes.c_int64
+        lib.pn_varint_encode.argtypes = [u64p, ctypes.c_size_t, u8p, ctypes.c_size_t]
+        lib.pn_varint_decode.restype = ctypes.c_int64
+        lib.pn_varint_decode.argtypes = [u8p, ctypes.c_size_t, u64p, ctypes.c_size_t]
+        lib.pn_oplog_encode.restype = None
+        lib.pn_oplog_encode.argtypes = [u8p, u64p, ctypes.c_size_t, u8p]
+        lib.pn_op_encode1.restype = None
+        lib.pn_op_encode1.argtypes = [ctypes.c_uint8, ctypes.c_uint64, u8p]
+        # c_void_p + raw .ctypes.data int: cheapest per-call marshalling on
+        # the SetBit hot path (data_as() allocates a pointer object).
+        lib.pn_array_insert_u32.restype = ctypes.c_int64
+        lib.pn_array_insert_u32.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32]
+        lib.pn_array_add_logged.restype = ctypes.c_int64
+        lib.pn_array_add_logged.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
+            ctypes.c_uint64, ctypes.c_int32,
+        ]
+        lib.pn_gram_counts.restype = ctypes.c_int64
+        lib.pn_gram_counts.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ]
+        lib.pn_serve_pairs.restype = ctypes.c_int64
+        lib.pn_serve_pairs.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64,
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_char_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64,
+        ]
+        lib.pn_oplog_decode.restype = ctypes.c_int64
+        lib.pn_oplog_decode.argtypes = [u8p, ctypes.c_size_t, u8p, u64p]
+        lib.pn_parse_csv.restype = ctypes.c_int64
+        lib.pn_parse_csv.argtypes = [ctypes.c_char_p, ctypes.c_size_t, u64p, u64p, i64p, ctypes.c_size_t]
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        lib.pn_pql_parse.restype = ctypes.c_int64
+        lib.pn_pql_parse.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64,
+            i32p, i32p, i32p, i32p, i32p, ctypes.c_int64,
+            i32p, i32p, i32p, i64p, i32p, i32p,
+            ctypes.c_int64, i64p,
+        ]
+        lib.pn_snap_new.restype = ctypes.c_int64
+        lib.pn_snap_new.argtypes = []
+        lib.pn_snap_free.restype = None
+        lib.pn_snap_free.argtypes = [ctypes.c_int64]
+        lib.pn_snap_set.restype = None
+        lib.pn_snap_set.argtypes = [
+            ctypes.c_int64, ctypes.c_uint64, ctypes.c_uint32,
+            ctypes.c_char_p, ctypes.c_size_t,
+        ]
+        lib.pn_snap_del.restype = None
+        lib.pn_snap_del.argtypes = [ctypes.c_int64, ctypes.c_uint64]
+        lib.pn_snap_image_size.restype = ctypes.c_int64
+        lib.pn_snap_image_size.argtypes = [ctypes.c_int64]
+        lib.pn_snap_emit.restype = ctypes.c_int64
+        lib.pn_snap_emit.argtypes = [ctypes.c_int64, ctypes.c_void_p, ctypes.c_size_t]
+        lib.pn_pql_match_pairs.restype = ctypes.c_int64
+        lib.pn_pql_match_pairs.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64,
+            u8p, i32p, i32p, i64p, i64p, ctypes.c_int64,
+            i32p, i32p, i32p, i32p, i32p, i32p,
+            ctypes.c_int32,
+        ]
+        lib.pn_write_batch.restype = ctypes.c_int64
+        lib.pn_write_batch.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64,        # src
+            ctypes.c_char_p, ctypes.c_int64,        # frame
+            ctypes.c_char_p, ctypes.c_int64,        # rowkey
+            ctypes.c_char_p, ctypes.c_int64,        # colkey
+            ctypes.c_uint64, ctypes.c_uint64,       # slice_i, slice_width
+            ctypes.c_void_p, ctypes.c_void_p,       # keys_sorted, buf_addrs
+            ctypes.c_void_p, ctypes.c_void_p,       # ns, caps
+            ctypes.c_int64,                         # n_containers
+            ctypes.c_int64, ctypes.c_int32,         # array_max, wal_fd
+            ctypes.c_void_p, ctypes.c_void_p,       # types_out, rows_out
+            ctypes.c_void_p, ctypes.c_void_p,       # cols_out, changed_out
+            ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),  # cap, applied
+        ]
+        lib.pn_serve_multi.restype = ctypes.c_int64
+        lib.pn_serve_multi.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64,        # src
+            ctypes.c_char_p, ctypes.c_void_p,       # names, name_offs
+            ctypes.c_char_p, ctypes.c_void_p,       # rlabels, rlabel_offs
+            ctypes.c_int64, ctypes.c_int64,         # n_states, default_sid
+            ctypes.c_void_p, ctypes.c_void_p,       # rs_addrs, ps_addrs
+            ctypes.c_void_p, ctypes.c_void_p,       # gram_addrs, n_rows
+            ctypes.c_void_p,                        # gram_dims
+            ctypes.c_void_p, ctypes.c_int64,        # out, cap
+        ]
+        lib.pn_pql_match_range.restype = ctypes.c_int64
+        lib.pn_pql_match_range.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64,
+            i32p, i32p, i64p, i64p, i64p, ctypes.c_int64,
+            i32p, i32p, i32p, i32p, i32p, i32p,
+            ctypes.c_int32,
+        ]
+        lib.pn_serve_tree.restype = ctypes.c_int64
+        lib.pn_serve_tree.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64,        # src
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,  # frame, allow_default
+            ctypes.c_char_p, ctypes.c_int64,        # rowkey
+            ctypes.c_void_p, ctypes.c_void_p,       # keys_sorted, buf_addrs
+            ctypes.c_void_p, ctypes.c_int64,        # ns, n_containers
+            ctypes.c_void_p, ctypes.c_int64,        # bkeys, n_bkeys
+            ctypes.c_void_p, ctypes.c_int64,        # out, cap
+        ]
+        _lib = lib
+        return _lib
+
+
+def available() -> bool:
+    return load() is not None
+
+
+def _u8(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _u64(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64))
+
+
+# ---------------------------------------------------------------------------
+# Public API with fallbacks
+# ---------------------------------------------------------------------------
+
+# Pure-Python fallbacks for the codec primitives this module needs when
+# the shared library is absent (kept here so the port depends on no other
+# package's wire or cluster module).
+
+def _py_encode_varint(v: int) -> bytes:
+    if v < 0:
+        v &= (1 << 64) - 1  # two's-complement for int64 fields
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if v:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _py_decode_varint(data: bytes, i: int) -> tuple[int, int]:
+    shift = 0
+    result = 0
+    while True:
+        if i >= len(data):
+            raise ValueError("truncated varint")
+        b = data[i]
+        i += 1
+        result |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return result, i
+        shift += 7
+        if shift > 70:
+            raise ValueError("varint too long")
+
+
+def _py_fnv1a64(data: bytes) -> int:
+    h = 0xCBF29CE484222325
+    for b in data:
+        h ^= b
+        h = (h * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
+    return h
+
+
+# Below this many values/bytes the ctypes call overhead beats the win;
+# the single dispatch point for packed varint fields lives HERE.
+_VARINT_NATIVE_THRESHOLD = 64
+
+
+def varint_encode(values) -> bytes:
+    """Packed-varint encode uint64/int64 values (protobuf packed payload).
+
+    Negative values are masked to two's-complement uint64, matching
+    proto3 int64 varint encoding (e.g. ImportRequest timestamps).
+    """
+    try:
+        arr = np.ascontiguousarray(values, dtype=np.uint64)
+    except OverflowError:
+        mask = (1 << 64) - 1
+        arr = np.array([int(v) & mask for v in values], dtype=np.uint64)
+    lib = load() if len(arr) >= _VARINT_NATIVE_THRESHOLD else None
+    if lib is not None and len(arr):
+        out = np.empty(len(arr) * 10, dtype=np.uint8)
+        n = lib.pn_varint_encode(_u64(arr), len(arr), _u8(out), len(out))
+        if n >= 0:
+            return out[:n].tobytes()
+    return b"".join(_py_encode_varint(int(v)) for v in arr.tolist())
+
+
+def varint_decode(data: bytes) -> np.ndarray:
+    """Decode concatenated varints into a uint64 array."""
+    lib = load() if len(data) >= _VARINT_NATIVE_THRESHOLD else None
+    if lib is not None and data:
+        buf = np.frombuffer(data, dtype=np.uint8)
+        # Exact value count = bytes with the continuation bit clear.
+        count = int(np.count_nonzero(buf < 0x80))
+        out = np.empty(count, dtype=np.uint64)
+        n = lib.pn_varint_decode(_u8(buf), len(buf), _u64(out), len(out))
+        if n < 0:
+            raise ValueError("invalid varint stream (truncated or overflows uint64)")
+        return out if n == count else out[:n].copy()
+    out_list = []
+    i = 0
+    while i < len(data):
+        v, i = _py_decode_varint(data, i)
+        if v > 0xFFFFFFFFFFFFFFFF:
+            raise ValueError("invalid varint stream (truncated or overflows uint64)")
+        out_list.append(v)
+    return np.array(out_list, dtype=np.uint64)
+
+
+_op1_local = threading.local()
+_wb_local = threading.local()
+
+
+def op_encode1(typ: int, value: int) -> bytes:
+    """One 13-byte WAL op record (the single-SetBit hot path)."""
+    lib = load()
+    if lib is None:
+        from pilosa_tpu_torch.roaring import encode_op
+
+        return encode_op(typ, value)
+    buf = getattr(_op1_local, "buf", None)
+    if buf is None:
+        buf = _op1_local.buf = (ctypes.c_uint8 * 13)()
+    lib.pn_op_encode1(typ, value, buf)
+    return bytes(buf)
+
+
+def oplog_encode(types: np.ndarray, values: np.ndarray) -> bytes:
+    types = np.ascontiguousarray(types, dtype=np.uint8)
+    values = np.ascontiguousarray(values, dtype=np.uint64)
+    lib = load()
+    if lib is not None and len(types):
+        out = np.empty(len(types) * 13, dtype=np.uint8)
+        lib.pn_oplog_encode(_u8(types), _u64(values), len(types), _u8(out))
+        return out.tobytes()
+    from pilosa_tpu_torch.roaring import encode_op
+
+    return b"".join(encode_op(int(t), int(v)) for t, v in zip(types.tolist(), values.tolist()))
+
+
+def oplog_decode(data: bytes) -> tuple[np.ndarray, np.ndarray]:
+    """Decode + checksum-verify a WAL tail; raises ValueError on corruption."""
+    if len(data) % 13:
+        raise ValueError(f"op data out of bounds: len={len(data)}")
+    n = len(data) // 13
+    lib = load()
+    if lib is not None and n:
+        buf = np.frombuffer(data, dtype=np.uint8)
+        types = np.empty(n, dtype=np.uint8)
+        values = np.empty(n, dtype=np.uint64)
+        got = lib.pn_oplog_decode(_u8(buf), len(buf), _u8(types), _u64(values))
+        if got < 0:
+            raise ValueError(f"checksum mismatch at op {-got - 1}")
+        return types, values
+    from pilosa_tpu_torch.roaring import decode_op
+
+    types_l, values_l = [], []
+    for i in range(n):
+        t, v = decode_op(data[i * 13 : (i + 1) * 13])
+        types_l.append(t)
+        values_l.append(v)
+    return np.array(types_l, dtype=np.uint8), np.array(values_l, dtype=np.uint64)
+
+
+def oplog_decode_prefix(data: bytes) -> tuple[np.ndarray, np.ndarray, int]:
+    """Decode the longest valid record prefix of a WAL tail.
+
+    Crash-recovery variant of :func:`oplog_decode`: a torn tail — the
+    partial or checksum-corrupt record a crash mid-append leaves — stops
+    the decode instead of raising.  Returns (types, values, valid_bytes)
+    where ``valid_bytes`` is the byte length of the valid prefix (the
+    caller truncates the file there).
+    """
+    n_full = len(data) // 13
+    if n_full == 0:
+        return np.empty(0, np.uint8), np.empty(0, np.uint64), 0
+    trunc = data[: n_full * 13]
+    lib = load()
+    if lib is not None:
+        buf = np.frombuffer(trunc, dtype=np.uint8)
+        types = np.empty(n_full, dtype=np.uint8)
+        values = np.empty(n_full, dtype=np.uint64)
+        got = lib.pn_oplog_decode(_u8(buf), len(buf), _u8(types), _u64(values))
+        k = int(-got - 1) if got < 0 else int(got)
+        return types[:k], values[:k], k * 13
+    from pilosa_tpu_torch.roaring import decode_op
+
+    types_l, values_l = [], []
+    k = 0
+    for i in range(n_full):
+        try:
+            t, v = decode_op(trunc[i * 13 : (i + 1) * 13])
+        except ValueError:
+            break
+        types_l.append(t)
+        values_l.append(v)
+        k = i + 1
+    return np.array(types_l, dtype=np.uint8), np.array(values_l, dtype=np.uint64), k * 13
+
+
+def _ascii_digits(s: str) -> bool:
+    """Plain ASCII decimal digits only — matches pn_parse_csv exactly."""
+    return s.isascii() and s.isdigit()
+
+
+def parse_csv(data: bytes) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Parse 'row,col[,timestamp]' lines → (rows, cols, timestamps)."""
+    lib = load()
+    if lib is not None and data:
+        cap = data.count(b"\n") + 2
+        rows = np.empty(cap, dtype=np.uint64)
+        cols = np.empty(cap, dtype=np.uint64)
+        ts = np.empty(cap, dtype=np.int64)
+        n = lib.pn_parse_csv(
+            data,
+            len(data),
+            _u64(rows),
+            _u64(cols),
+            ts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            cap,
+        )
+        if n < 0:
+            raise ValueError(f"malformed CSV at line {-n}")
+        return rows[:n].copy(), cols[:n].copy(), ts[:n].copy()
+    rows_l, cols_l, ts_l = [], [], []
+    for lineno, line in enumerate(data.decode().splitlines(), 1):
+        line = line.strip()
+        if not line:
+            continue
+        parts = line.split(",")
+        # Mirror the native parser exactly (pn_parse_csv): 2 or 3 fields,
+        # plain decimal digits only (no sign, no '_' grouping) — acceptance
+        # must not depend on whether the .so loaded.
+        if len(parts) < 2 or len(parts) > 3:
+            raise ValueError(f"malformed CSV at line {lineno}")
+        try:
+            if not _ascii_digits(parts[0].strip()) or not _ascii_digits(parts[1].strip()):
+                raise ValueError("non-digit id")
+            row, col = int(parts[0]), int(parts[1])
+            if not (0 <= row < 1 << 64) or not (0 <= col < 1 << 64):
+                raise ValueError("id out of uint64 range")
+            t = 0
+            if len(parts) > 2 and parts[2].strip():
+                if not _ascii_digits(parts[2].strip()):
+                    raise ValueError("non-digit timestamp")
+                t = int(parts[2])
+            if not (0 <= t < 1 << 63):
+                raise ValueError("timestamp out of int64 range")
+            rows_l.append(row)
+            cols_l.append(col)
+            ts_l.append(t)
+        except ValueError:
+            raise ValueError(f"malformed CSV at line {lineno}")
+    return (
+        np.array(rows_l, dtype=np.uint64),
+        np.array(cols_l, dtype=np.uint64),
+        np.array(ts_l, dtype=np.int64),
+    )
+
+
+def pql_parse_flat(src: bytes):
+    """Native PQL fast path: parse a query body into flat preorder arrays.
+
+    Returns None when the library is unavailable or the source needs the
+    full Python parser (floats, lists, escapes, any syntax error — the
+    caller falls back, keeping error messages identical).  On success
+    returns (n_calls, cname_s, cname_e, cnchild, cnargs, cargs_off,
+    n_args, ak_s, ak_e, atype, aint, av_s, av_e) — all spans are byte
+    offsets into ``src``.
+    """
+    lib = load()
+    if lib is None or not src:
+        return None
+    # Exact upper bounds from two cheap scans: every call carries a '('
+    # and every arg an '=' — far tighter than source-length sizing for
+    # large request bodies (a 10MB import body stays ~KBs of arrays).
+    call_cap = src.count(b"(") + 1
+    arg_cap = src.count(b"=") + 1
+    i32 = ctypes.POINTER(ctypes.c_int32)
+    cname_s = np.empty(call_cap, dtype=np.int32)
+    cname_e = np.empty(call_cap, dtype=np.int32)
+    cnchild = np.empty(call_cap, dtype=np.int32)
+    cnargs = np.empty(call_cap, dtype=np.int32)
+    cargs_off = np.empty(call_cap, dtype=np.int32)
+    ak_s = np.empty(arg_cap, dtype=np.int32)
+    ak_e = np.empty(arg_cap, dtype=np.int32)
+    atype = np.empty(arg_cap, dtype=np.int32)
+    aint = np.empty(arg_cap, dtype=np.int64)
+    av_s = np.empty(arg_cap, dtype=np.int32)
+    av_e = np.empty(arg_cap, dtype=np.int32)
+    n_args_out = ctypes.c_int64(0)
+
+    def p(a):
+        return a.ctypes.data_as(i32)
+
+    n = lib.pn_pql_parse(
+        src, len(src),
+        p(cname_s), p(cname_e), p(cnchild), p(cnargs), p(cargs_off), call_cap,
+        p(ak_s), p(ak_e), p(atype),
+        aint.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), p(av_s), p(av_e),
+        arg_cap, ctypes.byref(n_args_out),
+    )
+    if n < 0:
+        return None
+    return (
+        int(n), cname_s, cname_e, cnchild, cnargs, cargs_off,
+        int(n_args_out.value), ak_s, ak_e, atype, aint, av_s, av_e,
+    )
+
+
+# Kernel op names by pn_pql_match_pairs op id.
+PQL_PAIR_OPS = ("and", "or", "xor", "andnot")
+
+_PAIR_TAB_CAP = 64  # distinct frame names / row labels per request
+
+
+def pql_match_pairs(src: bytes):
+    """Native matcher for an all-Count(<op>(Bitmap,Bitmap)) request body.
+
+    Returns None (fall back to the slower paths) or
+    (op_ids u8[N], frame_ids i32[N] (-1 = default frame), key_ids i32[N],
+    r1 i64[N], r2 i64[N], frames list[bytes], keys list[bytes]) where
+    frames/keys are the interned distinct spans referenced by the ids.
+    """
+    lib = load()
+    if lib is None or not src:
+        return None
+    # Cheap bail before any scan/allocation: a request not starting with
+    # "Count" (e.g. a megabyte SetBit import body) pays nothing here.
+    if not src.lstrip()[:5] == b"Count":
+        return None
+    call_cap = src.count(b"Count") + 1
+    op_ids = np.empty(call_cap, dtype=np.uint8)
+    frame_ids = np.empty(call_cap, dtype=np.int32)
+    key_ids = np.empty(call_cap, dtype=np.int32)
+    r1 = np.empty(call_cap, dtype=np.int64)
+    r2 = np.empty(call_cap, dtype=np.int64)
+    uf_s = np.empty(_PAIR_TAB_CAP, dtype=np.int32)
+    uf_e = np.empty(_PAIR_TAB_CAP, dtype=np.int32)
+    uk_s = np.empty(_PAIR_TAB_CAP, dtype=np.int32)
+    uk_e = np.empty(_PAIR_TAB_CAP, dtype=np.int32)
+    n_frames = ctypes.c_int32(0)
+    n_keys = ctypes.c_int32(0)
+    i32 = ctypes.POINTER(ctypes.c_int32)
+    i64 = ctypes.POINTER(ctypes.c_int64)
+    n = lib.pn_pql_match_pairs(
+        src, len(src),
+        _u8(op_ids), frame_ids.ctypes.data_as(i32), key_ids.ctypes.data_as(i32),
+        r1.ctypes.data_as(i64), r2.ctypes.data_as(i64), call_cap,
+        uf_s.ctypes.data_as(i32), uf_e.ctypes.data_as(i32), ctypes.byref(n_frames),
+        uk_s.ctypes.data_as(i32), uk_e.ctypes.data_as(i32), ctypes.byref(n_keys),
+        _PAIR_TAB_CAP,
+    )
+    if n < 0:
+        return None
+    frames = [src[uf_s[t]:uf_e[t]] for t in range(n_frames.value)]
+    keys = [src[uk_s[t]:uk_e[t]] for t in range(n_keys.value)]
+    return (
+        op_ids[:n], frame_ids[:n], key_ids[:n], r1[:n], r2[:n], frames, keys,
+    )
+
+
+def gram_counts(op_ids, r1, r2, rows_sorted, pos, gram):
+    """Answer a matched pair-count batch from the Gram via count
+    identities in one native call (the executor's steady-state lane).
+
+    op_ids: u8[N] (PQL_PAIR_OPS order); r1/r2: i64[N] row ids;
+    rows_sorted: i64[R] sorted row-id table; pos: i32[R] matrix positions
+    aligned with rows_sorted; gram: C-contiguous i64[D, D].
+    Returns i64[N] counts, or None when unavailable or some row id is
+    not in the table (caller takes the Python path).
+    """
+    lib = load()
+    if lib is None or not len(op_ids):
+        return None
+    out = np.empty(len(op_ids), dtype=np.int64)
+    rc = lib.pn_gram_counts(
+        op_ids.ctypes.data, r1.ctypes.data, r2.ctypes.data, len(op_ids),
+        rows_sorted.ctypes.data, pos.ctypes.data, len(rows_sorted),
+        gram.ctypes.data, gram.shape[0], out.ctypes.data,
+    )
+    if rc != 0:
+        return None
+    return out
+
+
+def serve_pairs(raw, frame_b, allow_default, rowkey_b, rows_sorted, pos, gram):
+    """One-call serving lane: parse + validate + Gram-evaluate a whole
+    batched pair-count request in a single GIL-released native call
+    (the executor's cached-state steady-state loop; server.go:150 +
+    executor.go:1209-1244 analog).
+
+    raw: utf-8 request bytes; frame_b/rowkey_b: expected frame name and
+    row-key label bytes; allow_default: the frame may be referenced
+    implicitly (it IS the index default).  Table args as gram_counts.
+    Returns i64[N] counts or None (caller runs the general path).
+    """
+    lib = load()
+    if lib is None:
+        return None
+    out = np.empty(4096, dtype=np.int64)
+    n = lib.pn_serve_pairs(
+        raw, len(raw), frame_b, len(frame_b), 1 if allow_default else 0,
+        rowkey_b, len(rowkey_b),
+        rows_sorted.ctypes.data, pos.ctypes.data, len(rows_sorted),
+        gram.ctypes.data, gram.shape[0], out.ctypes.data, len(out),
+    )
+    if n < 0:
+        return None
+    return out[:n]
+
+
+def serve_multi(raw, names_cat, name_offs, rlabels_cat, rlabel_offs,
+                default_sid, rs_addrs, ps_addrs, gram_addrs, n_rows, gram_dims):
+    """Multi-frame one-call serving lane (``pn_serve_multi``): the
+    serve_pairs crossing generalized to K armed frame states, so a
+    dashboard batch spanning several frames still parses, validates, and
+    Gram-evaluates in ONE GIL-released native call.
+
+    names_cat/rlabels_cat: concatenated frame-name / row-label bytes with
+    i64[K+1] offset fences; rs/ps/gram_addrs: u64[K] RAW base addresses
+    of each state's glut arrays; n_rows/gram_dims: i64[K] extents;
+    default_sid: state index serving an absent ``frame=`` arg (-1 =
+    none).  Returns i64[N] counts or None (caller runs the general path).
+    """
+    lib = load()
+    if lib is None:
+        return None
+    out = np.empty(4096, dtype=np.int64)
+    n = lib.pn_serve_multi(
+        raw, len(raw),
+        names_cat, name_offs.ctypes.data,
+        rlabels_cat, rlabel_offs.ctypes.data,
+        len(n_rows), default_sid,
+        rs_addrs.ctypes.data, ps_addrs.ctypes.data, gram_addrs.ctypes.data,
+        n_rows.ctypes.data, gram_dims.ctypes.data,
+        out.ctypes.data, len(out),
+    )
+    if n < 0:
+        return None
+    return out[:n]
+
+
+def pql_match_range(src: bytes):
+    """Native matcher for an all-Count(Range(...)) request body.
+
+    Returns None (fall back to the slower paths) or
+    (frame_ids i32[N] (-1 = default frame), key_ids i32[N], rows i64[N],
+    starts i64[N], ends i64[N], frames list[bytes], keys list[bytes])
+    where starts/ends are Y*1e8+M*1e6+D*1e4+h*1e2+m packed minutes —
+    digit-validated only; the caller's datetime() conversion keeps the
+    sequential path's calendar errors.
+    """
+    lib = load()
+    if lib is None or not src:
+        return None
+    if not src.lstrip()[:5] == b"Count":
+        return None
+    call_cap = src.count(b"Count") + 1
+    frame_ids = np.empty(call_cap, dtype=np.int32)
+    key_ids = np.empty(call_cap, dtype=np.int32)
+    rows = np.empty(call_cap, dtype=np.int64)
+    starts = np.empty(call_cap, dtype=np.int64)
+    ends = np.empty(call_cap, dtype=np.int64)
+    uf_s = np.empty(_PAIR_TAB_CAP, dtype=np.int32)
+    uf_e = np.empty(_PAIR_TAB_CAP, dtype=np.int32)
+    uk_s = np.empty(_PAIR_TAB_CAP, dtype=np.int32)
+    uk_e = np.empty(_PAIR_TAB_CAP, dtype=np.int32)
+    n_frames = ctypes.c_int32(0)
+    n_keys = ctypes.c_int32(0)
+    i32 = ctypes.POINTER(ctypes.c_int32)
+    i64 = ctypes.POINTER(ctypes.c_int64)
+    n = lib.pn_pql_match_range(
+        src, len(src),
+        frame_ids.ctypes.data_as(i32), key_ids.ctypes.data_as(i32),
+        rows.ctypes.data_as(i64), starts.ctypes.data_as(i64),
+        ends.ctypes.data_as(i64), call_cap,
+        uf_s.ctypes.data_as(i32), uf_e.ctypes.data_as(i32), ctypes.byref(n_frames),
+        uk_s.ctypes.data_as(i32), uk_e.ctypes.data_as(i32), ctypes.byref(n_keys),
+        _PAIR_TAB_CAP,
+    )
+    if n < 0:
+        return None
+    frames = [src[uf_s[t]:uf_e[t]] for t in range(n_frames.value)]
+    keys = [src[uk_s[t]:uk_e[t]] for t in range(n_keys.value)]
+    return frame_ids[:n], key_ids[:n], rows[:n], starts[:n], ends[:n], frames, keys
+
+
+def serve_tree(raw, frame_b, allow_default, rowkey_b,
+               keys_p, addrs_p, ns_p, n_containers, bkeys_p, n_bkeys):
+    """Fused nested-tree serving lane (``pn_serve_tree``): parse an
+    all-Count(op-tree over Bitmap leaves) body and evaluate it straight
+    off the fragment's armed container table, matcher and evaluator
+    fused per container block — intermediate row-id arrays never
+    materialize.  The caller holds the fragment lock for the whole call
+    (the table's buffers must not move mid-read).
+
+    ``keys_p/addrs_p/ns_p/bkeys_p`` are RAW base-address ints of the
+    armed table arrays (see fragment._writelane_state); n_bkeys may be 0.
+    Returns i64[N] counts or None (caller runs the general path).
+    """
+    lib = load()
+    if lib is None:
+        return None
+    out = np.empty(4096, dtype=np.int64)
+    n = lib.pn_serve_tree(
+        raw, len(raw), frame_b, len(frame_b), 1 if allow_default else 0,
+        rowkey_b, len(rowkey_b),
+        keys_p, addrs_p, ns_p, n_containers, bkeys_p, n_bkeys,
+        out.ctypes.data, len(out),
+    )
+    if n < 0:
+        return None
+    return out[:n]
+
+
+def write_batch(src, frame_b, rowkey_b, colkey_b, slice_i, slice_width,
+                keys_p, addrs_p, ns_p, caps_p, n_containers,
+                wal_fd, array_max):
+    """Native write request lane (``pn_write_batch``): parse + container
+    insert + WAL append for a canonical all-SetBit/ClearBit request body
+    in ONE GIL-released crossing (the write-side twin of serve_pairs).
+
+    ``keys_p/addrs_p/ns_p/caps_p`` are RAW base-address ints of the
+    fragment's container-table arrays (sorted keys, slack-buffer
+    addresses, element counts — updated IN PLACE on apply — and buffer
+    capacities); raw ints because ``.ctypes.data`` costs ~1.4 us per
+    access and this is the singleton hot path — the caller caches them
+    alongside the table.  ``wal_fd`` is the raw fragment WAL fd (-1 =
+    no WAL attached).
+
+    Returns None when the library is unavailable or the body needs the
+    full Python path (parse mismatch), else
+    ``(types u8[N], rows u64[N], cols u64[N], changed)`` where
+    ``changed`` is a bool array when the ops were APPLIED natively (WAL
+    written, ns[] updated) or None when the batch was only PARSED
+    (structural decline — the caller applies through the Python batch
+    path using the parse).  The returned arrays are views into
+    thread-local buffers, valid until the same thread's next call.
+    Raises OSError when the WAL write failed after mutation (matching
+    the Python batch lane's apply-then-log ordering).
+    """
+    lib = load()
+    if lib is None or not src:
+        return None
+    # Exact bound: every canonical call contains one "Bit(".
+    cap = src.count(b"Bit(")
+    if cap <= 0:
+        return None
+    # Thread-local reused out buffers (pointers cached with them): the
+    # singleton hot path would otherwise pay four allocations plus four
+    # .ctypes.data accesses per request.
+    tl = _wb_local
+    arrs = getattr(tl, "arrs", None)
+    if arrs is None or len(arrs[0]) < cap:
+        size = max(64, cap)
+        arrs = tl.arrs = (
+            np.empty(size, dtype=np.uint8),
+            np.empty(size, dtype=np.uint64),
+            np.empty(size, dtype=np.uint64),
+            np.empty(size, dtype=np.uint8),
+        )
+        tl.ptrs = tuple(a.ctypes.data for a in arrs)
+        tl.applied = ctypes.c_int64(0)
+        tl.applied_ref = ctypes.byref(tl.applied)
+    types, rows, cols, changed = arrs
+    tp, rp, cp, chp = tl.ptrs
+    applied = tl.applied
+    applied.value = 0
+    n = lib.pn_write_batch(
+        src, len(src),
+        frame_b, len(frame_b),
+        rowkey_b, len(rowkey_b),
+        colkey_b, len(colkey_b),
+        slice_i, slice_width,
+        keys_p, addrs_p, ns_p, caps_p,
+        n_containers,
+        array_max, wal_fd,
+        tp, rp, cp, chp, cap, tl.applied_ref,
+    )
+    if n == -3:
+        raise OSError("WAL write failed")
+    if n < 0:
+        return None
+    return (
+        types[:n], rows[:n], cols[:n],
+        changed[:n].view(bool) if applied.value else None,
+    )
+
+
+def fnv1a64(data: bytes) -> int:
+    lib = load()
+    if lib is not None:
+        buf = np.frombuffer(data, dtype=np.uint8) if data else np.empty(0, dtype=np.uint8)
+        return int(lib.pn_fnv1a64(_u8(buf), len(data)))
+    return _py_fnv1a64(data)
+
+
+def popcount_words(words: np.ndarray) -> int:
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    lib = load()
+    if lib is not None:
+        return int(lib.pn_popcount_u32(words.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), words.size))
+    from pilosa_tpu_torch.roaring import _popcount_words
+
+    return _popcount_words(words)

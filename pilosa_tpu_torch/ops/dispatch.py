@@ -1,0 +1,102 @@
+"""Dispatch: a CUDA tensor goes to its kernel, a CPU tensor to the plain
+version.
+
+The choice is the tensor's device and nothing else: there is no probe,
+no ``try`` and no environment switch between a kernel and its plain
+version (each wrapper in ``ops/kernels.py`` makes that choice itself).
+What this module decides is WHICH kernel serves a call — the resident
+or the gather pair kernel — and the Gram gate the executor imports.
+
+Lanes whose kernels are not ported yet (the K-operand multi fold, the
+tree fold, and the row-major gather) run their plain versions on the
+CPU and raise ``NotImplementedError`` on a CUDA tensor (ROADMAP Queue 2).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pilosa_tpu_torch.ops import bitwise, kernels
+
+
+def _rows2d(x: torch.Tensor) -> torch.Tensor:
+    """[..., W] -> contiguous [M, W] (the count_rows kernel's shape)."""
+    return x.reshape(-1, x.shape[-1]).contiguous()
+
+
+def count(x: torch.Tensor) -> torch.Tensor:
+    """Total set bits over the last axis. [..., W] -> int32[...]."""
+    return kernels.count_rows(_rows2d(x)).reshape(x.shape[:-1])
+
+
+def batch_intersection_count(rows: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """|rows[k] & src| for a stack of rows [..., W] — TopN's exact-count
+    hot loop.  A [W] src is shared by every row (read with stride 0, no
+    K-way broadcast in memory); otherwise src is per row."""
+    b = src.contiguous() if src.dim() == 1 else _rows2d(src.expand_as(rows))
+    return kernels.count_rows(_rows2d(rows), b, "and").reshape(rows.shape[:-1])
+
+
+# Gram gate the executor imports: per-pair counts must stay inside int32
+# (<= 2047 slices x 2^20 bits).
+_GRAM_SLICES_MAX = 2047
+
+
+def resident_strategy(n_rows: int, w: int, batch: int) -> bool:
+    """Whether the shared-memory-resident kernel serves a pair batch:
+    streaming ALL rows once must beat gathering 2 rows per pair
+    (R < 2B), and the all-rows tile of the narrowest chunk plus the
+    per-pair sums must fit one block's shared memory
+    (``kernels.resident_chunk_words``)."""
+    return n_rows < 2 * batch and bool(kernels.resident_chunk_words(n_rows, w, batch))
+
+
+def gather_count(op: str, row_matrix: torch.Tensor, pairs):
+    """Batched Count(<op>(Bitmap, Bitmap)) over int32[S, R, W] for int[B, 2]
+    row-id pairs -> int32[B].  The executor keeps its own cached Gram
+    (engine.pair_gram); this is the direct-kernel lane."""
+    n_slices, n_rows, w = row_matrix.shape
+    if resident_strategy(n_rows, w, len(pairs)):
+        return kernels.resident_count2(op, row_matrix, pairs)
+    return kernels.gather_count2(op, row_matrix, pairs)
+
+
+def topn_scorer_counts(row_matrix: torch.Tensor, pos, src_stack: torch.Tensor):
+    """Per-(slice, candidate) |rm[s, pos[k]] & src[s]| -> int32[S, K]."""
+    return kernels.gather_src_counts(row_matrix, pos, src_stack)
+
+
+def _not_ported(t: torch.Tensor, lane: str) -> None:
+    if t.device.type != "cpu":
+        raise NotImplementedError(
+            f"the {lane} kernel is not ported to CUDA yet (ROADMAP Queue 2); "
+            "its plain version runs on CPU tensors only"
+        )
+
+
+def gather_count_multi(op: str, row_matrix: torch.Tensor, idx):
+    """K-operand left-fold counts (N-operand Intersect/Union/Difference,
+    Range covers) -> int32[B].  CPU only until its kernel is ported."""
+    _not_ported(row_matrix, "gather_count_multi")
+    return bitwise.gather_count_multi(op, row_matrix, idx)
+
+
+def gather_count_tree(row_matrix: torch.Tensor, leaves, opc):
+    """Perfect-tree opcode-fold counts (nested Count trees) -> int32[B].
+    CPU only until its kernel is ported."""
+    _not_ported(row_matrix, "gather_count_tree")
+    return bitwise.gather_count_tree(row_matrix, leaves, opc)
+
+
+def gather_count_rowmajor(op: str, row_major: torch.Tensor, pairs):
+    """Pair counts over a ROW-MAJOR [R, S, W] matrix -> int32[B].  CPU
+    only until the row-major kernels are ported."""
+    _not_ported(row_major, "gather_count2_rowmajor")
+    return bitwise.gather_count(op, row_major.transpose(0, 1), pairs)
+
+
+def gather_count_multi_rowmajor(op: str, row_major: torch.Tensor, idx):
+    """K-operand fold counts over a ROW-MAJOR [R, S, W] matrix.  CPU only
+    until the row-major kernels are ported."""
+    _not_ported(row_major, "gather_count_multi_rowmajor")
+    return bitwise.gather_count_multi(op, row_major.transpose(0, 1), idx)

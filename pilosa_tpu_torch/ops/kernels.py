@@ -1,0 +1,345 @@
+"""Hand-written CUDA kernels for the fused popcount counts (Hopper, sm_90a).
+
+Each kernel's source is ``pilosa_tpu_torch/csrc/<name>.cu`` with a plain C
+entry point.  At first use every source is compiled by its own ``nvcc``
+(all started together) into a shared library under ``build/kernels/`` at
+the repository root, named by the hash of the sources and flags, and
+loaded with ctypes.  Pointers and the stream cross as ``c_void_p``; each
+entry point returns ``cudaGetLastError()`` and the wrapper raises if it is
+not 0.
+
+Every wrapper:
+
+- takes the plain PyTorch version (``*_plain`` below) for a tensor that
+  lies on the CPU, and launches its kernel (or raises) for a CUDA tensor;
+- checks device, dtype, contiguity, alignment and shape, and allocates
+  its output with ``torch.empty``/``torch.zeros`` on the current stream;
+- adds one to ``LAUNCHES[name]`` where it launches its kernel, and
+  nowhere else.
+
+The four kernels replace the Pallas kernels on the executor's Count and
+TopN path (pilosa_tpu/ops/pallas_kernels.py): fused_count1 and
+fused_count2 (``count_rows``), fused_resident_count2
+(``resident_count2``), fused_gather_count2 (``gather_count2``), and
+fused_gather_src_counts (``gather_src_counts``).  All four are bound by
+device-memory bytes on this card; each source says what its design does
+about that.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import numpy as np
+import torch
+
+from pilosa_tpu_torch.ops import bitwise
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+BUILD_DIR = os.path.join(_REPO_ROOT, "build", "kernels")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+KERNELS = ("count_rows", "resident_count2", "gather_count2", "gather_src_counts")
+
+# Launch counters: one per kernel, bumped only where the kernel launches.
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+OPS = {"none": 0, "and": 1, "or": 2, "xor": 3, "andnot": 4}
+
+# Per-block shared memory on sm_90 (227 KB of the SM's 256 KB, dynamic
+# allocation only above 48 KB).
+SMEM_BYTES = 232448
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_ARGTYPES = {
+    "count_rows": ("pk_count_rows", [_P, _P, _L, _P, _I, _I, _I, _P]),
+    "resident_count2": ("pk_resident_count2", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "gather_count2": ("pk_gather_count2", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "gather_src_counts": ("pk_gather_src_counts", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+}
+
+_build_mu = threading.Lock()
+_fns: dict = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
+
+
+def _lib_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fn in sorted(os.listdir(_CSRC)):
+        if fn == f"{name}.cu" or fn.endswith(".cuh"):
+            with open(os.path.join(_CSRC, fn), "rb") as f:
+                h.update(fn.encode() + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def build() -> dict:
+    """Compile every kernel source that has no current library (one nvcc
+    per source, all started together) and bind the entry points.
+    Returns {name: seconds} for the sources compiled by this call."""
+    import time
+
+    with _build_mu:
+        if len(_fns) == len(KERNELS):
+            return {}
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        procs = {}
+        t0 = time.perf_counter()
+        for name in KERNELS:
+            path = _lib_path(name)
+            if os.path.exists(path):
+                continue
+            tmp = f"{path}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, f"{name}.cu")]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT
+            ), tmp, path)
+        took = {}
+        for name, (p, tmp, path) in procs.items():
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}.cu:\n{out.decode(errors='replace')}")
+            os.replace(tmp, path)
+            took[name] = time.perf_counter() - t0
+        for name in KERNELS:
+            sym, argtypes = _ARGTYPES[name]
+            fn = getattr(ctypes.CDLL(_lib_path(name)), sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _fns[name] = fn
+        return took
+
+
+def _fn(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        build()
+        fn = _fns[name]
+    return fn
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (the plain version runs), False for a CUDA
+    tensor (the kernel runs); any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def _check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _words(t: torch.Tensor, what: str, ndim: int) -> None:
+    if t.dtype != torch.int32:
+        raise TypeError(f"{what}: expected int32 words, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{what}: expected {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: must be contiguous")
+    if t.shape[-1] % 4 or t.data_ptr() % 16:
+        raise ValueError(f"{what}: rows must be 16-byte aligned (W % 4 == 0)")
+
+
+def _ids(ids, n_rows: int, device, what: str) -> torch.Tensor:
+    """Host row ids (numpy or list) as a contiguous int32 tensor on
+    ``device``, bounds-checked before upload: a kernel would read out of
+    bounds."""
+    a = np.ascontiguousarray(ids, dtype=np.int32)
+    if a.size and (a.min() < 0 or a.max() >= n_rows):
+        raise IndexError(f"{what}: row id out of range [0, {n_rows})")
+    return torch.from_numpy(a).to(device)
+
+
+# ---------------------------------------------------------------------------
+# count_rows (fused_count1 / fused_count2)
+# ---------------------------------------------------------------------------
+
+def count_rows_plain(a, b=None, op: str = "none"):
+    return bitwise.count_op(op, a, b)
+
+
+def count_rows(a: torch.Tensor, b=None, op: str = "none") -> torch.Tensor:
+    """out[m] = popcount(op(a[m], b[m] or b)) summed over words -> int32[M].
+
+    a: int32[M, W]; b: None (op "none"), int32[M, W] (per row) or
+    int32[W] (one row shared by every a row, read with stride 0)."""
+    if op not in OPS:
+        raise ValueError(f"unknown op {op!r}")
+    if (op == "none") != (b is None):
+        raise ValueError("op 'none' takes no b; a pair op needs one")
+    if _on_cpu(a):
+        return count_rows_plain(a, b, op)
+    _words(a, "count_rows a", 2)
+    m, w = a.shape
+    stride = 0
+    if b is not None:
+        if b.device != a.device:
+            raise ValueError("count_rows: a and b on different devices")
+        _words(b, "count_rows b", b.dim())
+        if tuple(b.shape) == (w,):
+            stride = 0
+        elif tuple(b.shape) == (m, w):
+            stride = w
+        else:
+            raise ValueError(f"count_rows: b shape {tuple(b.shape)} vs a {tuple(a.shape)}")
+    out = torch.empty(m, dtype=torch.int32, device=a.device)
+    err = _fn("count_rows")(
+        a.data_ptr(), b.data_ptr() if b is not None else None, stride,
+        out.data_ptr(), m, w, OPS[op], _stream(a),
+    )
+    _check(err, "count_rows")
+    LAUNCHES["count_rows"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# resident_count2 (fused_resident_count2)
+# ---------------------------------------------------------------------------
+
+# Chunk widths the resident kernel takes: a warp reads one int4 per lane
+# per row at the narrowest (128 words), and at most 2048 words per row
+# per chunk (wider tiles only cut the block count).
+_CHUNK_WORDS_MIN = 128
+_CHUNK_WORDS_MAX = 2048
+
+
+def resident_chunk_words(n_rows: int, w: int, batch: int) -> int:
+    """Largest power-of-two chunk (words per row, dividing w) whose
+    all-rows tile plus the per-pair partial sums fit one block's shared
+    memory: ``n_rows * chunk * 4 + batch * 4 <= SMEM_BYTES``.  0 when even
+    the narrowest chunk does not fit (the gather kernel takes over)."""
+    best = 0
+    c = _CHUNK_WORDS_MIN
+    while c <= min(w, _CHUNK_WORDS_MAX):
+        if w % c == 0 and n_rows * c * 4 + batch * 4 <= SMEM_BYTES:
+            best = c
+        c *= 2
+    return best
+
+
+def resident_count2_plain(op: str, row_matrix, pairs):
+    return bitwise.gather_count(op, row_matrix, pairs)
+
+
+def resident_count2(op: str, row_matrix: torch.Tensor, pairs) -> torch.Tensor:
+    """Per-pair ``sum_s popcount(op(rm[s, p0], rm[s, p1]))`` -> int32[B],
+    every row of a word chunk staged in shared memory once."""
+    if op not in OPS or op == "none":
+        raise ValueError(f"unknown pair op {op!r}")
+    if _on_cpu(row_matrix):
+        return resident_count2_plain(op, row_matrix, pairs)
+    _words(row_matrix, "resident_count2 matrix", 3)
+    s, r, w = row_matrix.shape
+    p = _ids(pairs, r, row_matrix.device, "resident_count2 pairs")
+    if p.dim() != 2 or p.shape[1] != 2:
+        raise ValueError(f"resident_count2: pairs shape {tuple(p.shape)}, want [B, 2]")
+    b = p.shape[0]
+    chunk = resident_chunk_words(r, w, b)
+    if chunk == 0:
+        raise ValueError(f"resident_count2: {r} rows x {b} pairs do not fit shared memory")
+    out = torch.zeros(b, dtype=torch.int32, device=row_matrix.device)
+    n_chunks = w // chunk
+    sms = torch.cuda.get_device_properties(row_matrix.device).multi_processor_count
+    grid_y = max(1, min(n_chunks, -(-2 * sms // max(1, s))))
+    err = _fn("resident_count2")(
+        row_matrix.data_ptr(), p.data_ptr(), out.data_ptr(), s, r, w, b, chunk, grid_y,
+        OPS[op], _stream(row_matrix),
+    )
+    _check(err, "resident_count2")
+    LAUNCHES["resident_count2"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# gather_count2 (fused_gather_count2)
+# ---------------------------------------------------------------------------
+
+def gather_count2_plain(op: str, row_matrix, pairs):
+    return bitwise.gather_count(op, row_matrix, pairs)
+
+
+def gather_count2(op: str, row_matrix: torch.Tensor, pairs) -> torch.Tensor:
+    """Per-pair ``sum_s popcount(op(rm[s, p0], rm[s, p1]))`` -> int32[B],
+    two rows gathered per (pair, slice)."""
+    if op not in OPS or op == "none":
+        raise ValueError(f"unknown pair op {op!r}")
+    if _on_cpu(row_matrix):
+        return gather_count2_plain(op, row_matrix, pairs)
+    _words(row_matrix, "gather_count2 matrix", 3)
+    s, r, w = row_matrix.shape
+    p = _ids(pairs, r, row_matrix.device, "gather_count2 pairs")
+    if p.dim() != 2 or p.shape[1] != 2:
+        raise ValueError(f"gather_count2: pairs shape {tuple(p.shape)}, want [B, 2]")
+    b = p.shape[0]
+    out = torch.zeros(b, dtype=torch.int32, device=row_matrix.device)
+    err = _fn("gather_count2")(
+        row_matrix.data_ptr(), p.data_ptr(), out.data_ptr(), s, r, w, b, OPS[op],
+        _stream(row_matrix),
+    )
+    _check(err, "gather_count2")
+    LAUNCHES["gather_count2"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# gather_src_counts (fused_gather_src_counts)
+# ---------------------------------------------------------------------------
+
+def gather_src_counts_plain(row_matrix, pos, src_stack):
+    return bitwise.gather_src_counts(row_matrix, pos, src_stack)
+
+
+def gather_src_counts(row_matrix: torch.Tensor, pos, src_stack: torch.Tensor) -> torch.Tensor:
+    """Per-(slice, candidate) ``|rm[s, pos[k]] & src[s]|`` -> int32[S, K]."""
+    if _on_cpu(row_matrix):
+        return gather_src_counts_plain(row_matrix, pos, src_stack)
+    _words(row_matrix, "gather_src_counts matrix", 3)
+    _words(src_stack, "gather_src_counts src", 2)
+    s, r, w = row_matrix.shape
+    if tuple(src_stack.shape) != (s, w) or src_stack.device != row_matrix.device:
+        raise ValueError(f"gather_src_counts: src {tuple(src_stack.shape)} vs matrix {(s, r, w)}")
+    p = _ids(pos, r, row_matrix.device, "gather_src_counts pos")
+    if p.dim() != 1:
+        raise ValueError(f"gather_src_counts: pos shape {tuple(p.shape)}, want [K]")
+    k = p.shape[0]
+    out = torch.empty((s, k), dtype=torch.int32, device=row_matrix.device)
+    err = _fn("gather_src_counts")(
+        row_matrix.data_ptr(), p.data_ptr(), src_stack.data_ptr(), out.data_ptr(), s, r, w, k,
+        _stream(row_matrix),
+    )
+    _check(err, "gather_src_counts")
+    LAUNCHES["gather_src_counts"] += 1
+    return out
+

@@ -1,0 +1,380 @@
+"""Paged device-resident row pool: the HBM working set without a row cap.
+
+Round-1's fused query lanes kept ONE device matrix per (frame, view,
+slice-batch) holding exactly the rows ever referenced, hard-capped at
+``PILOSA_TPU_MATRIX_ROWS_MAX`` rows — past the cap every request fell back
+to host numpy.  The reference has no such ceiling: its rank cache tracks
+``DefaultCacheSize=50000`` rows per fragment (frame.go:33-40,
+cache.go:126-275) and rows page between mmap and memory on demand
+(fragment.go:338-367).
+
+This module is the device-native replacement: a fixed-capacity slot pool
+``uint32[n_slices, capacity, W]`` in device memory.  Rows page in on
+demand (host roaring -> dense -> one scatter per miss batch), LRU rows
+page out when the pool is full, and the capacity itself grows by
+power-of-two doubling up to an HBM budget.  Query kernels index rows by
+SLOT id — the same gather kernels as before, they never cared whether
+slot assignment was dense or paged.
+
+Consistency model: every content change produces a NEW engine array
+(functional ``.at[].set``), so a reader that acquired ``(positions,
+matrix)`` holds an immutable snapshot — a concurrent eviction can only
+affect later acquires, never a result in flight.  Write invalidation is
+generation-based exactly like the old cache: stale slices get their
+planes re-fetched (bounded), or the pool resets when a refresh would
+cost more than repopulating on demand.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+
+from pilosa_tpu_torch.analysis import lockcheck
+from collections import OrderedDict
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+
+def _pool_bytes() -> int:
+    """HBM budget for ONE pool's matrix (read per call: benches and tests
+    tune it).  Total pool memory is bounded by this times the executor's
+    matrix-cache entry count; transient peaks reach 2x one pool during a
+    functional scatter (old + new array alive)."""
+    # analysis-ok: lockstep-determinism: deployment config, launcher sets identical env on every rank
+    return int(os.environ.get("PILOSA_TPU_POOL_BYTES", str(2 * 1024 * 1024 * 1024)))
+
+
+def _refresh_bytes_max() -> int:
+    """A stale-slice plane refresh re-uploads every resident row for those
+    slices; past this many bytes a reset-and-repopulate is cheaper than
+    the blind refresh (writes invalidated most of what residency was
+    worth)."""
+    return int(os.environ.get("PILOSA_TPU_POOL_REFRESH_BYTES", str(512 * 1024 * 1024)))
+
+
+def pool_capacity(n_slices: int, words: int, budget_bytes: int = 0) -> int:
+    """Slot capacity the budget allows for an ``[n_slices, cap, W]`` pool."""
+    budget = budget_bytes or _pool_bytes()
+    return max(0, budget // max(1, n_slices * words * 4))
+
+
+def _pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length() if n > 1 else 1
+
+
+class DeviceRowPool:
+    """One frame-view's paged row working set over a fixed slice batch.
+
+    ``fetch(row_ids, slice_idxs) -> uint32[len(slice_idxs), len(row_ids), W]``
+    pulls dense rows from host storage (fragment ``row_dense``).
+    """
+
+    def __init__(
+        self,
+        engine,
+        n_slices: int,
+        words: int,
+        fetch: Callable[[Sequence[int], Sequence[int]], np.ndarray],
+        cap_max: int = 0,
+        row_major: bool = False,
+    ):
+        self.engine = engine
+        self.n_slices = n_slices
+        self.words = words
+        self.fetch = fetch
+        # Row-major pools store [cap, n_slices, W] (tiled) so the gather
+        # regime's kernels get one contiguous DMA descriptor per operand
+        # row; ``fetch`` must then return [len(row_ids), len(slice_idxs),
+        # W] blocks (the executor's densify fills either order directly).
+        # Slice-major (default) matches mesh sharding and the Gram/TopN
+        # lanes.
+        self.row_major = row_major
+        # 0 = budget-driven (re-read per access so a retuned
+        # PILOSA_TPU_POOL_BYTES applies to cached pools, keeping this in
+        # lockstep with callers that consult pool_capacity() directly).
+        self._cap_override = cap_max
+        self.mu = lockcheck.named_rlock("rowpool.mu")
+        self.gens: Optional[tuple] = None
+        self.matrix = None  # engine array [n_slices, cap, W]
+        self.cap = 0
+        self.slot_of: dict[int, int] = {}
+        self.row_at: list[Optional[int]] = []
+        self.lru: OrderedDict[int, None] = OrderedDict()
+        self.box: dict = self._new_box()
+        # Telemetry for benches/tests: paging behavior must be observable.
+        self.stat_misses = 0
+        self.stat_evictions = 0
+        self.stat_resets = 0
+        self.stat_repairs = 0
+        # (row, slice) planes actually fetched by the patch lane — the
+        # per-(row, slice) granularity benches/tests assert on this.
+        self.stat_patch_planes = 0
+
+    @staticmethod
+    def default_cap(n_slices: int, words: int) -> int:
+        """The budget-driven cap an un-overridden pool would report —
+        shared with callers that must predict a pool's capacity WITHOUT
+        instantiating it (executor lane probes)."""
+        return max(1, pool_capacity(n_slices, words))
+
+    @property
+    def cap_max(self) -> int:
+        if self._cap_override:
+            return self._cap_override
+        return self.default_cap(self.n_slices, self.words)
+
+    @cap_max.setter
+    def cap_max(self, v: int) -> None:
+        self._cap_override = v
+
+    def _new_box(self) -> dict:
+        # Same contract as the old matrix-cache "box": holds the Gram and
+        # its lut, dies on ANY content change.  id_pos is the full
+        # row->slot snapshot (immutable; rebuilt per box) so steady-state
+        # hits hand out positions without copying; n_used bounds the slot
+        # range in use so Gram builds can ignore free capacity tail.
+        return {
+            "hits": 0,
+            "mu": lockcheck.named_lock("rowpool.entry_mu"),
+            "id_pos": dict(self.slot_of),
+            "n_used": max(self.slot_of.values(), default=-1) + 1,
+        }
+
+    # -- internals (call with self.mu held) ------------------------------
+
+    def _grow_to(self, need: int) -> None:
+        new_cap = min(self.cap_max, _pow2(need))
+        if new_cap <= self.cap:
+            return
+        if self.matrix is None or self.cap == 0:
+            if self.row_major:
+                host = np.zeros((new_cap, self.n_slices, self.words), dtype=np.uint32)
+                self.matrix = self.engine.matrix_rows(host)
+            else:
+                host = np.zeros((self.n_slices, new_cap, self.words), dtype=np.uint32)
+                self.matrix = self.engine.matrix(host)
+        elif self.row_major:
+            self.matrix = self.engine.grow_rows_rm(self.matrix, new_cap - self.cap)
+        else:
+            # Zero capacity appended device-side (no host transfer).
+            self.matrix = self.engine.grow_rows(self.matrix, new_cap - self.cap)
+        self.row_at.extend([None] * (new_cap - self.cap))
+        self.cap = new_cap
+
+    def _reset(self) -> None:
+        self.slot_of.clear()
+        self.lru.clear()
+        self.row_at = [None] * self.cap
+        # Matrix contents are stale garbage but unreferenced: no slot maps
+        # to them, and gathers only index mapped slots.
+        self.stat_resets += 1
+
+    def _refresh_stale(self, stale: list[int]) -> None:
+        """Re-pull resident rows' planes for written slices, or reset.
+
+        Only the RESIDENT slots are scattered (set_plane_rows) — a
+        whole-plane replacement would transfer the full capacity width,
+        mostly zeros, undercutting the byte budget this check enforces.
+        """
+        if not self.slot_of:
+            return
+        if len(self.slot_of) * len(stale) * self.words * 4 > _refresh_bytes_max():
+            self._reset()
+            return
+        rows = sorted(self.slot_of, key=self.slot_of.get)
+        slots = [self.slot_of[r] for r in rows]
+        block = self.fetch(rows, stale)  # layout per self.row_major
+        if self.row_major:  # block: [len(rows), len(stale), W]
+            self.matrix = self.engine.set_plane_rows_rm(
+                self.matrix, stale, slots, block
+            )
+        else:  # block: [len(stale), len(rows), W]
+            self.matrix = self.engine.set_plane_rows(self.matrix, stale, slots, block)
+
+    def _repair_dirty(self, stale: list[int], dirty_rows) -> bool:
+        """Patch ONLY the written (row, slice) planes and rank-k-repair
+        the box Gram, instead of the blind whole-plane refresh + box
+        reset: the box (and with it the Gram, its glut, and the id_pos
+        snapshot) SURVIVES the write, so a small write costs O(dirty
+        planes) row fetches plus one dirty x resident pair-count
+        dispatch — not an O(R^2) Gram rebuild.  ``dirty_rows`` is either
+        a ``{slice_index: rows}`` mapping (per-(row, slice) granularity:
+        each stale slice re-fetches only the rows written IN that slice)
+        or a flat row iterable (legacy: every dirty row re-fetched
+        across every stale slice).  The caller (executor) guarantees it
+        covers every row whose storage changed across the stale slices
+        (fragment dirty-row journals); rows not resident in the pool
+        need no patch at all.  Returns False (nothing mutated) when the
+        dirty slots fall outside the Gram's slot range — an invariant
+        breach that the conservative full refresh handles."""
+        if isinstance(dirty_rows, dict):
+            per_slice = {
+                si: sorted(r for r in set(dirty_rows.get(si, ())) if r in self.slot_of)
+                for si in stale
+            }
+        else:
+            flat = sorted(r for r in set(dirty_rows) if r in self.slot_of)
+            per_slice = {si: flat for si in stale}
+        patched = [si for si in stale if per_slice[si]]
+        if not patched:
+            return True  # writes only touched rows the pool doesn't hold
+        all_slots = sorted({self.slot_of[r] for si in patched for r in per_slice[si]})
+        gram = self.box.get("gram")
+        if gram is not None and any(s >= gram.shape[0] for s in all_slots):
+            return False  # defensive: slot outside the Gram bucket
+        old_matrix = self.matrix  # pre-patch snapshot (functional updates)
+        # One fetch + one scatter per distinct row set: slices written
+        # with the same rows batch into a single transfer, and a slice
+        # whose dirty rows aren't resident costs nothing at all.
+        by_rows: dict[tuple, list[int]] = {}
+        for si in patched:
+            by_rows.setdefault(tuple(per_slice[si]), []).append(si)
+        for rows_t, group in by_rows.items():
+            rows = list(rows_t)
+            slots = [self.slot_of[r] for r in rows]
+            block = self.fetch(rows, group)  # layout per self.row_major
+            self.stat_patch_planes += len(rows) * len(group)
+            if self.row_major:
+                self.matrix = self.engine.set_plane_rows_rm(
+                    self.matrix, group, slots, block
+                )
+            else:
+                self.matrix = self.engine.set_plane_rows(
+                    self.matrix, group, slots, block
+                )
+        if gram is not None:
+            d = gram.shape[0]
+            m = self.matrix if d == self.cap else self.matrix[:, :d]
+            m_old = old_matrix if d == self.cap else old_matrix[:, :d]
+            gram = self.engine.gram_update_rows(
+                m, gram, all_slots, old_matrix=m_old, slice_idxs=patched
+            )
+            self.box["gram"] = gram
+            glut = self.box.get("gram_lut")
+            if glut is not None:
+                # rs/ps are membership-keyed and membership didn't change;
+                # only the count table is new.
+                self.box["gram_lut"] = (glut[0], np.ascontiguousarray(gram), glut[2])
+        return True
+
+    # -- API --------------------------------------------------------------
+
+    def acquire(self, want: Sequence[int], gens: tuple, dirty_rows=None):
+        """Ensure ``want`` rows are resident; returns (id_pos, matrix, box).
+
+        ``id_pos`` maps every RESIDENT row id to its slot (a stable
+        snapshot — safe to index concurrently); ``matrix`` is the engine
+        array snapshot those slots refer to.  Raises ValueError when
+        ``want`` alone exceeds the pool capacity — callers chunk their
+        query batch by unique-row count first (``chunk_queries``).
+
+        ``dirty_rows``: the complete delta written since this pool's
+        recorded generations (from the fragment dirty-row journals) —
+        either a ``{slice_index: rows}`` mapping (per-(row, slice)
+        granularity) or a flat row set (every row dirty in every stale
+        slice) — or None when unknown.  When provided, a generation
+        mismatch takes the PATCH lane (_repair_dirty) and the cache box
+        — including a warm Gram — survives the write.
+        """
+        want = list(dict.fromkeys(want))  # de-dup, keep order
+        if len(want) > self.cap_max:
+            raise ValueError(
+                f"want {len(want)} rows > pool capacity {self.cap_max}; chunk the batch"
+            )
+        with self.mu:
+            changed = False
+            if self.gens != gens:
+                if self.gens is not None:
+                    stale = [
+                        si for si in range(self.n_slices) if self.gens[si] != gens[si]
+                    ]
+                    if stale:
+                        if dirty_rows is not None and self._repair_dirty(
+                            stale, dirty_rows
+                        ):
+                            self.stat_repairs += 1
+                        else:
+                            self._refresh_stale(stale)
+                            changed = True
+                self.gens = gens
+            missing = [r for r in want if r not in self.slot_of]
+            if missing:
+                self.stat_misses += len(missing)
+                changed = True
+                need = len(self.slot_of) + len(missing)
+                if need > self.cap:
+                    self._grow_to(need)
+                free = [s for s in range(self.cap) if self.row_at[s] is None]
+                if len(free) < len(missing):
+                    want_set = set(want)
+                    for victim in list(self.lru):
+                        if len(free) >= len(missing):
+                            break
+                        if victim in want_set:
+                            continue
+                        s = self.slot_of.pop(victim)
+                        del self.lru[victim]
+                        self.row_at[s] = None
+                        free.append(s)
+                        self.stat_evictions += 1
+                slots = free[: len(missing)]
+                block = self.fetch(missing, list(range(self.n_slices)))
+                if self.row_major:  # block: [len(missing), S, W]
+                    self.matrix = self.engine.set_rows_at_rm(
+                        self.matrix, slots, block
+                    )
+                else:
+                    self.matrix = self.engine.set_rows_at(self.matrix, slots, block)
+                for r, s in zip(missing, slots):
+                    self.slot_of[r] = s
+                    self.row_at[s] = r
+            for r in want:
+                self.lru[r] = None
+                self.lru.move_to_end(r)
+            if changed:
+                self.box = self._new_box()
+            # The generations THIS box's matrix content was validated
+            # against: consumers deriving cached state from the box (the
+            # executor's serve-state capture) must use these as validity
+            # tokens, not generations re-read later — a write landing
+            # between acquire and capture would otherwise stamp post-
+            # write tokens onto pre-write data (permanent stale serves).
+            self.box["gens"] = gens
+            self.box["hits"] += 1
+            return self.box["id_pos"], self.matrix, self.box
+
+
+def chunk_queries(
+    queries: Sequence, rows_of: Callable, cap: int, oversize_ok: bool = False
+) -> list[list]:
+    """Partition a query batch so each chunk's UNIQUE row set fits ``cap``.
+
+    Greedy in arrival order (preserves per-chunk dispatch order).  A
+    single query whose own rows exceed cap has no valid chunking: with
+    ``oversize_ok`` it becomes its own chunk (the caller's slice-streaming
+    branch handles any row count); otherwise it raises.
+    """
+    chunks: list[list] = []
+    cur: list = []
+    cur_rows: set = set()
+    for q in queries:
+        rows = set(rows_of(q))
+        if len(rows) > cap:
+            if not oversize_ok:
+                raise ValueError(
+                    f"single query references {len(rows)} rows > capacity {cap}"
+                )
+            if cur:
+                chunks.append(cur)
+                cur, cur_rows = [], set()
+            chunks.append([q])
+            continue
+        if cur and len(cur_rows | rows) > cap:
+            chunks.append(cur)
+            cur, cur_rows = [], set()
+        cur.append(q)
+        cur_rows |= rows
+    if cur:
+        chunks.append(cur)
+    return chunks
