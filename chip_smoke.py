@@ -4,34 +4,51 @@
 
 1. Probes the card (fails without CUDA) and prints its name and power
    limit as nvidia-smi reports them.
-2. Builds the four CUDA kernels from ``pilosa_tpu_torch/csrc`` with nvcc
-   (one process per source, all started together).
+2. Builds the six CUDA kernels from ``pilosa_tpu_torch/csrc`` with nvcc
+   (one process per source, all started together), and beside them
+   compiles the two fold kernels once more with ``-Xptxas -v`` to report
+   their registers and shared memory.
 3. Holds each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it, for every op variant; exact
    equality (integer counts), and times both with CUDA events beside the
    kernel's memory bound.
-4. Drives the main path — ``Executor.execute`` over a ``Holder`` — at 64
-   slices x 256 rows (the default 2 GiB row-pool budget holds all of them)
-   with 2,000 seeded random bits per row per slice: batched pair Counts
-   (direct resident kernel, then the cached Gram and the native lookup
-   lane), pair Counts on a ``no_gram`` executor (gather kernel), Counts
-   that reach the sequential path (count kernel), and a TopN with a
-   source bitmap (both TopN kernels).  Every answer is checked against
+4. Drives the executor path — ``Executor.execute`` over a ``Holder`` — at
+   64 slices x 256 rows (the default 2 GiB row-pool budget holds all of
+   them) with 2,000 seeded random bits per row per slice: batched pair
+   Counts (direct resident kernel, then the cached Gram and the native
+   lookup lane), pair Counts on a ``no_gram`` executor (gather kernel),
+   Counts that reach the sequential path (count kernel), and a TopN with
+   a source bitmap (both TopN kernels).  Every answer is checked against
    the same port's ``Executor(engine="numpy")`` on the same holder (for
    pair requests, a seeded 16-query subset of each request).
-5. Fails unless every kernel's launch counter moved during the main path.
+5. Drives the HTTP path on the same data directory, which also holds a
+   time-quantum frame ``t`` (YMD, 64 slices x 8 rows x 2,000 stamped bits
+   per row per slice): the port's ``Server`` with its default config
+   (engine on the card) on an ephemeral port, ``POST /index/i/query``
+   over urllib — a pair batch, N-ary Intersect / Union / Difference
+   batches (multi-fold kernel), nested and multi-operand Xor Counts
+   (tree-fold kernel), and two ``Count(Range(...))`` batches (multi-fold
+   kernel over the multi-view matrix).  A seeded 16-query subset of each
+   answer is checked against ``Executor(srv.holder, engine="numpy")``.
+6. Fails unless every kernel's launch counter moved during its path: the
+   counters are set to 0 just before each path and read just after it.
 
-Prints a ``{"card": ..., "requests": [...]}`` line, a ``{"kernels": [...]}``
-line, and last ``{"ok": true, "device": {...}}``.  Any failure raises.
+Prints a ptxas line, a ``{"card": ..., "requests": [...]}`` line per
+path, a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
+{...}}``.  Any failure raises.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
+from datetime import datetime
 
 import numpy as np
 import torch
@@ -52,6 +69,15 @@ GATHER_BATCH = 16
 SUBSET = 16
 SEED = 7
 
+# The HTTP path: frame ``t`` (time quantum YMD) with 8 rows, stamped as
+# bench.py stamps its time-range workload (48 stamps in 2017: months 1-12
+# x days {1, 15} x hours {0, 12}); fold batches of 64 queries and Range
+# batches of 128.
+TIME_ROWS = 8
+STAMPS = [datetime(2017, m, d, hh) for m in range(1, 13) for d in (1, 15) for hh in (0, 12)]
+FOLD_BATCH = 64
+RANGE_BATCH = 128
+
 # H100 SXM published peaks (NVIDIA data sheet) used for the bounds: HBM3
 # bandwidth, and the 32-bit non-tensor-core rate for the integer word ops.
 PEAK_BYTES_S = 3.35e12
@@ -64,12 +90,23 @@ SOURCES = {
     "resident_count2": "pilosa_tpu_torch/csrc/resident_count2.cu",
     "gather_count2": "pilosa_tpu_torch/csrc/gather_count2.cu",
     "gather_src_counts": "pilosa_tpu_torch/csrc/gather_src_counts.cu",
+    "gather_count_multi": "pilosa_tpu_torch/csrc/gather_count_multi.cu",
+    "gather_count_tree": "pilosa_tpu_torch/csrc/gather_count_tree.cu",
 }
 REPLACES = {
     "count_rows": "pilosa_tpu/ops/pallas_kernels.py:82",  # fused_count2 (+ fused_count1 :668)
     "resident_count2": "pilosa_tpu/ops/pallas_kernels.py:186",
     "gather_count2": "pilosa_tpu/ops/pallas_kernels.py:240",
     "gather_src_counts": "pilosa_tpu/ops/pallas_kernels.py:342",
+    # fused_gather_count_multi (+ fused_gather_count_or :592)
+    "gather_count_multi": "pilosa_tpu/ops/pallas_kernels.py:554",
+    "gather_count_tree": "pilosa_tpu/ops/pallas_kernels.py:626",
+}
+# Which path must launch each kernel: the executor path keeps the four pair/TopN kernels;
+# the HTTP path carries the two fold kernels.
+PATH_OF = {
+    "count_rows": "executor", "resident_count2": "executor", "gather_count2": "executor",
+    "gather_src_counts": "executor", "gather_count_multi": "http", "gather_count_tree": "http",
 }
 PAIR_OPS = ("and", "or", "xor", "andnot")
 PQL_OPS = {"and": "Intersect", "or": "Union", "andnot": "Difference", "xor": "Xor"}
@@ -118,6 +155,75 @@ def bound(nbytes: int, ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def span_pool(rng) -> list[tuple[str, str]]:
+    """bench.py's dashboard span pool (its time-range workload): four
+    fixed widget ranges plus 24 random day-aligned spans in Jan-Feb."""
+    pool = [
+        ("2017-01-01T00:00", "2018-01-01T00:00"),
+        ("2017-02-01T00:00", "2017-07-15T12:00"),
+        ("2017-03-01T00:00", "2017-04-01T00:00"),
+        ("2017-06-10T00:00", "2017-06-20T00:00"),
+    ]
+    for _ in range(24):
+        m1 = int(rng.integers(1, 3))
+        d1 = int(rng.integers(1, 28))
+        dur = int(rng.integers(1, 22))
+        m2, d2 = m1, d1 + dur
+        if d2 > 28:
+            m2, d2 = m1 + 1, d2 - 28
+        pool.append((f"2017-{m1:02d}-{d1:02d}T00:00", f"2017-{m2:02d}-{d2:02d}T00:00"))
+    return pool
+
+
+def new_spans(rng, n: int) -> list[tuple[str, str]]:
+    """Short day-aligned spans in Mar-May: covers the pool never asked."""
+    out = []
+    for _ in range(n):
+        m, d = int(rng.integers(3, 6)), int(rng.integers(2, 21))
+        out.append((f"2017-{m:02d}-{d:02d}T00:00", f"2017-{m:02d}-{d + int(rng.integers(1, 8)):02d}T00:00"))
+    return out
+
+
+def cover(span) -> list[str]:
+    """The YMD view cover of a span (the Range lane's operand list)."""
+    from pilosa_tpu_torch.core.timequantum import views_by_time_range
+    from pilosa_tpu_torch.core.view import VIEW_STANDARD
+
+    start, end = (datetime.strptime(t, "%Y-%m-%dT%H:%M") for t in span)
+    return views_by_time_range(VIEW_STANDARD, start, end, "YMD")
+
+
+def ptxas_usage(names) -> dict:
+    """Registers, spills and shared memory per kernel of the given sources,
+    as ``nvcc -Xptxas -v`` reports them (one nvcc per source, together)."""
+    procs = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name in names:
+            cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS[:4], "-Xptxas", "-v", "-cubin",
+                   "-o", os.path.join(d, f"{name}.cubin"), os.path.join(kernels._CSRC, f"{name}.cu")]
+            procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        out = {}
+        for name, p in procs.items():
+            text = p.communicate()[0].decode(errors="replace")
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc -Xptxas -v failed for {name}.cu:\n{text}")
+            entries, fn = [], None
+            for line in text.splitlines():
+                m = re.search(r"Compiling entry function '(\S+)'", line)
+                if m:
+                    fn = m.group(1)
+                m = re.search(r"Used (\d+) registers", line)
+                if m and fn:
+                    smem = re.search(r"(\d+) bytes smem", line)
+                    entries.append({"entry": fn, "registers": int(m.group(1)),
+                                    "smem_bytes": int(smem.group(1)) if smem else 0})
+                m = re.search(r"(\d+) bytes spill stores", line)
+                if m and entries:
+                    entries[-1]["spill_store_bytes"] = int(m.group(1))
+            out[name] = entries
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 1: card
 # ---------------------------------------------------------------------------
@@ -140,6 +246,12 @@ def probe() -> str:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def _gen(seed: int) -> torch.Generator:
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return g
+
+
 def _rand_words(gen, shape) -> torch.Tensor:
     return torch.randint(-(2**31), 2**31, shape, dtype=torch.int32, device="cuda", generator=gen)
 
@@ -147,8 +259,7 @@ def _rand_words(gen, shape) -> torch.Tensor:
 def check_kernels() -> dict:
     """Every kernel == its plain version on the card for every op
     variant, at the main path's shapes; returns per-kernel timings."""
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
+    gen = _gen(SEED)
     rm = _rand_words(gen, (N_SLICES, N_ROWS, W))
     stack = _rand_words(gen, (N_SLICES, W))
     rows = rm[0].contiguous()  # [256, W]: a TopN candidate chunk
@@ -182,6 +293,7 @@ def check_kernels() -> dict:
     diff("gather_src_counts", kernels.gather_src_counts(rm, pos, stack),
          kernels.gather_src_counts_plain(rm, pos, stack))
     torch.cuda.synchronize()
+    fold_cases = check_fold_kernels(rm, rng, diff)
 
     # Timings at the main path's shapes; bytes count each input the
     # function needs once (the rows this run's ids reference).
@@ -228,11 +340,137 @@ def check_kernels() -> dict:
         plain_ms=cuda_ms(lambda: kernels.gather_src_counts_plain(rm, pos, stack), reps=3),
         bound_ms=nb, bound_by=by,
     )
+    res.update(time_fold_kernels(rm, fold_cases))
     for name in res:
         res[name]["max_abs_err"] = err[name]
-    del rm, stack, rows
+    del rm, stack, rows, fold_cases
     torch.cuda.empty_cache()
     return res
+
+
+# Queries per plain-version call in the fold checks: the plain versions
+# materialize the [S, B, K, W] gather, so the batch is cut to keep that
+# under a few GiB (the counts are per query; cutting B changes none).
+PLAIN_CHUNK = 16
+
+
+def _chunked(plain, *per_query):
+    """Run ``plain(*args)`` over query chunks and concatenate: the plain
+    version on the same inputs, with its transient memory bounded."""
+    b = len(per_query[0])
+    return torch.cat([plain(*(a[i:i + PLAIN_CHUNK] for a in per_query))
+                      for i in range(0, b, PLAIN_CHUNK)])
+
+
+def _andnot_left_fold(rm, idx):
+    """Difference as the TPU kernel folds it: acc & ~row, left to right."""
+    from pilosa_tpu_torch.ops import bitwise
+
+    ix = torch.as_tensor(idx, device=rm.device).long()
+    acc = rm[:, ix[:, 0]]
+    for j in range(1, ix.shape[1]):
+        acc = acc & ~rm[:, ix[:, j]]
+    return bitwise.count(acc).sum(dim=0, dtype=torch.int32)
+
+
+def range_shape(rng):
+    """The Range lane's kernel shape at this run's data: a multi-view
+    matrix of (view, row) rows (capacity a power of two, as the executor
+    allocates it), and RANGE_BATCH covers drawn from the span pool, padded
+    to the widest by repeating the first id (the executor's pad)."""
+    pool = span_pool(np.random.default_rng(13))
+    covers = [cover(sp) for sp in pool]
+    views = sorted({v for c in covers for v in c})
+    n = len(views) * TIME_ROWS
+    cap = 1 << (n - 1).bit_length()
+    pos = {v: i for i, v in enumerate(views)}
+    k = max(len(c) for c in covers)
+    idx = np.zeros((RANGE_BATCH, k), dtype=np.int32)
+    for q in range(RANGE_BATCH):
+        c = covers[int(rng.integers(0, len(covers)))]
+        r = int(rng.integers(0, TIME_ROWS))
+        ids = [pos[v] * TIME_ROWS + r for v in c]
+        idx[q] = ids + [ids[0]] * (k - len(ids))
+    return cap, idx
+
+
+def check_fold_kernels(rm, rng, diff) -> dict:
+    """gather_count_multi (and, or, andnot; K = 2-5 and 16; padded and
+    unpadded) and gather_count_tree (K = 2, 4, 8, 16; opcodes 0-5, so
+    pass nodes too) against their plain versions on the card, exactly, at
+    the pool's shape (S = 64, R = 256, B = 64) and, for the Range lane, at
+    the multi-view matrix's shape.  Returns the timed cases."""
+    cases = {"gather_count_multi": [], "gather_count_tree": []}
+    b = FOLD_BATCH
+    for k in (2, 3, 4, 5, 16):
+        idx = rng.integers(0, N_ROWS, size=(b, k)).astype(np.int32)
+        for op in kernels.MULTI_OPS:
+            got = kernels.gather_count_multi(op, rm, idx)
+            diff("gather_count_multi", got,
+                 _chunked(lambda x, _op=op: kernels.gather_count_multi_plain(_op, rm, x), idx))
+            lo = 1 if op == "andnot" else 0
+            pad = idx[np.arange(b)[:, None], rng.integers(lo, k, size=(b, 3))]
+            diff("gather_count_multi", kernels.gather_count_multi(op, rm, np.concatenate([idx, pad], 1)), got)
+            if op == "andnot" and k in (2, 3, 5):
+                diff("gather_count_multi", got, _chunked(lambda x: _andnot_left_fold(rm, x), idx))
+        if k in (3, 4, 16):
+            cases["gather_count_multi"].append(
+                {"op": {3: "and", 4: "or", 16: "andnot"}[k], "idx": idx, "rm": "pool"})
+    cap, ridx = range_shape(rng)
+    rmr = _rand_words(_gen(SEED + 3), (N_SLICES, cap, W))
+    diff("gather_count_multi", kernels.gather_count_multi("or", rmr, ridx),
+         _chunked(lambda x: kernels.gather_count_multi_plain("or", rmr, x), ridx))
+    cases["gather_count_multi"].append({"op": "or", "idx": ridx, "rm": rmr})
+    for k in kernels.TREE_LEAVES:
+        leaves = rng.integers(0, N_ROWS, size=(b, k)).astype(np.int32)
+        opc = rng.integers(0, 6, size=(b, k - 1)).astype(np.int32)
+        diff("gather_count_tree", kernels.gather_count_tree(rm, leaves, opc),
+             _chunked(lambda x, y: kernels.gather_count_tree_plain(rm, x, y), leaves, opc))
+        cases["gather_count_tree"].append({"leaves": leaves, "opc": opc})
+    torch.cuda.synchronize()
+    return cases
+
+
+def time_fold_kernels(rm, cases) -> dict:
+    """CUDA-event times of the two fold kernels and their plain versions
+    at each checked main-path shape.  ``bound_ms`` counts each referenced
+    row once (the function's inputs); ``gathered_bound_ms`` is the bytes
+    the kernel gathers, B x S x K x W x 4 (a row named twice is read
+    twice), over the same rate."""
+    row_b = W * 4
+
+    def entry(name, shape, matrix, ids, launch, plain):
+        b, k = ids.shape
+        s = matrix.shape[0]
+        nb, by = bound(s * len(np.unique(ids)) * row_b + ids.nbytes + b * 4, b * s * W * (k + 1))
+        return dict(
+            shape=shape, ms=cuda_ms(launch), plain_ms=cuda_ms(plain, reps=2, warm=1),
+            bound_ms=nb, bound_by=by, gathered_bound_ms=b * s * k * row_b / PEAK_BYTES_S * 1e3,
+            all_rows_floor_ms=matrix.shape[0] * matrix.shape[1] * row_b / PEAK_BYTES_S * 1e3,
+        )
+
+    multi = []
+    for c in cases["gather_count_multi"]:
+        m = rm if isinstance(c["rm"], str) else c["rm"]
+        idx, op = c["idx"], c["op"]
+        where = "pool" if m is rm else "Range multi-view matrix"
+        multi.append(entry(
+            "gather_count_multi",
+            f"{where} [{m.shape[0]}, {m.shape[1]}, {W}], B={idx.shape[0]}, K={idx.shape[1]}, {op}",
+            m, idx, lambda: kernels.gather_count_multi(op, m, idx),
+            lambda: _chunked(lambda x: kernels.gather_count_multi_plain(op, m, x), idx)))
+    tree = []
+    for c in cases["gather_count_tree"]:
+        lv, oc = c["leaves"], c["opc"]
+        tree.append(entry(
+            "gather_count_tree", f"pool [{N_SLICES}, {N_ROWS}, {W}], B={lv.shape[0]}, K={lv.shape[1]}",
+            rm, lv, lambda: kernels.gather_count_tree(rm, lv, oc),
+            lambda: _chunked(lambda x, y: kernels.gather_count_tree_plain(rm, x, y), lv, oc)))
+    # The line's own numbers: the N-ary Intersect shape (K=3) and the
+    # depth-3 tree (K=8); every other shape rides along under "shapes".
+    out = {"gather_count_multi": dict(multi[0], shapes=multi[1:]),
+           "gather_count_tree": dict(tree[2], shapes=tree[:2] + tree[3:])}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -339,21 +577,128 @@ def main_path(ex, ex_nogram, ex_ref, n_rows: int, sync=lambda: None) -> list[dic
     return records
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the HTTP path through the port's Server
+# ---------------------------------------------------------------------------
+
+def add_time_frame(h, n_slices: int, n_rows: int, bits: int, seed: int) -> None:
+    """Frame ``t`` of index ``i`` with time quantum YMD: every row gets
+    ``bits`` distinct seeded columns per slice, each stamped with one of
+    STAMPS (so the standard view and the year / month / day views all
+    hold data), loaded with ``Frame.import_bits``."""
+    from pilosa_tpu_torch.core.frame import FrameOptions
+
+    h.index("i").create_frame("t", FrameOptions(time_quantum="YMD"))
+    fr = h.index("i").frame("t")
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n_rows, dtype=np.uint64), bits)
+    for s in range(n_slices):
+        cols = np.concatenate(
+            [rng.choice(SLICE_WIDTH, size=bits, replace=False) for _ in range(n_rows)]
+        ).astype(np.uint64) + np.uint64(s * SLICE_WIDTH)
+        fr.import_bits(rows, cols, [STAMPS[i] for i in rng.integers(0, len(STAMPS), size=len(rows))])
+
+
+def _bm(r, frame="f") -> str:
+    return f'Bitmap(rowID={int(r)}, frame="{frame}")'
+
+
+def _tree_call(rng, n_rows: int, i: int) -> str:
+    """Nested Counts of depth 2, 3 and 4 and a 3-operand Xor, in turn."""
+    def b():
+        return _bm(rng.integers(0, n_rows))
+    shapes = (
+        lambda: f"Xor({b()}, {b()}, {b()})",
+        lambda: f"Intersect(Union({b()}, {b()}), Difference({b()}, {b()}))",
+        lambda: f"Union(Intersect(Xor({b()}, {b()}), {b()}), Difference({b()}, Union({b()}, {b()})))",
+        lambda: (f"Xor(Union(Intersect(Xor({b()}, {b()}), {b()}), {b()}), "
+                 f"Difference({b()}, Intersect({b()}, Union({b()}, {b()}))))"),
+    )
+    return f"Count({shapes[i % len(shapes)]()})"
+
+
+def _range_call(row, span) -> str:
+    return f'Count(Range(rowID={int(row)}, frame="t", start="{span[0]}", end="{span[1]}"))'
+
+
+def http_path(host: str, ex_ref, n_rows: int, time_rows: int, engine) -> list[dict]:
+    """POST the request batches to ``host``'s ``/index/i/query``; check a
+    seeded subset of each answer against ``ex_ref``.  Returns per-request
+    records (wall ms on the client's clock, launches by kernel, and the
+    bytes the server's ``engine`` uploaded to the card)."""
+    rng = np.random.default_rng(SEED + 2)
+    records = []
+
+    def run(name, calls, expect=()):
+        before = dict(kernels.LAUNCHES)
+        up0 = engine.stat_upload_bytes
+        req = urllib.request.Request(f"http://{host}/index/i/query",
+                                     data=" ".join(calls).encode(), method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            body = r.read()
+        ms = (time.perf_counter() - t0) * 1e3
+        upload = engine.stat_upload_bytes - up0
+        launched = {k: kernels.LAUNCHES[k] - before[k] for k in before if kernels.LAUNCHES[k] > before[k]}
+        got = json.loads(body)["results"]
+        if len(got) != len(calls):
+            raise AssertionError(f"{name}: {len(got)} answers for {len(calls)} calls")
+        sub = sorted(rng.choice(len(calls), size=min(SUBSET, len(calls)), replace=False).tolist())
+        want = ex_ref.execute("i", " ".join(calls[i] for i in sub))
+        cmp = [got[i] for i in sub]
+        if cmp != want:
+            raise AssertionError(f"{name}: server answers differ from the numpy engine: {cmp[:4]} vs {want[:4]}")
+        for k in expect:
+            if not launched.get(k):
+                raise AssertionError(f"{name}: expected {k} to launch, launches {launched}")
+        records.append({"request": name, "ms": ms, "checked": len(cmp), "launches": launched,
+                        "upload_bytes": upload})
+
+    # The pair lanes behind the server: a cold pair batch naming every row
+    # takes the resident kernel.
+    pairs = rng.integers(0, n_rows, size=(PAIR_BATCH, 2))
+    pairs[:, 0] = np.resize(rng.permutation(n_rows), PAIR_BATCH)
+    run("http pairs Intersect", [f"Count(Intersect({_bm(a)}, {_bm(b)}))" for a, b in pairs],
+        expect=("resident_count2",))
+    for name, op, k in (("nary-and", "Intersect", 3), ("nary-or", "Union", 4),
+                        ("nary-andnot", "Difference", 3)):
+        run(name, [f"Count({op}({', '.join(_bm(r) for r in rng.integers(0, n_rows, size=k))}))"
+                   for _ in range(FOLD_BATCH)], expect=("gather_count_multi",))
+    run("tree", [_tree_call(rng, n_rows, i) for i in range(FOLD_BATCH)], expect=("gather_count_tree",))
+    pool = span_pool(np.random.default_rng(13))
+    run("range-1", [_range_call(rng.integers(0, time_rows), pool[int(rng.integers(0, len(pool)))])
+                    for _ in range(RANGE_BATCH)], expect=("gather_count_multi",))
+    # Repeats answer from the cover memo; the new spans' covers launch.
+    fresh = new_spans(rng, 4)
+    calls = [_range_call(rng.integers(0, time_rows), pool[int(rng.integers(0, len(pool)))])
+             for _ in range(RANGE_BATCH - 32)]
+    calls += [_range_call(rng.integers(0, time_rows), fresh[i % len(fresh)]) for i in range(32)]
+    run("range-2", [calls[i] for i in rng.permutation(len(calls))], expect=("gather_count_multi",))
+    return records
+
+
 def main() -> int:
     card = probe()
     t0 = time.perf_counter()
     per_source = kernels.build()
     print(f"build_s {time.perf_counter() - t0:.3f} per-source {json.dumps(per_source)}", flush=True)
+    print(json.dumps({"ptxas": ptxas_usage(("gather_count_multi", "gather_count_tree"))}), flush=True)
 
     timings = check_kernels()
     print("kernels match their plain versions on the card", flush=True)
 
+    from pilosa_tpu_torch.config import Config
     from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.server.server import Server
 
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         h = build_holder(d, N_SLICES, N_ROWS, BITS_PER_ROW, SEED)
         print(f"holder_s {time.perf_counter() - t0:.3f} ({N_SLICES} slices x {N_ROWS} rows)", flush=True)
+        t0 = time.perf_counter()
+        add_time_frame(h, N_SLICES, TIME_ROWS, BITS_PER_ROW, SEED + 4)
+        print(f"time_frame_s {time.perf_counter() - t0:.3f} ({N_SLICES} slices x {TIME_ROWS} rows, YMD)",
+              flush=True)
         ex = Executor(h)  # engine "auto": TorchEngine("cuda")
         ex_nogram = Executor(h, no_gram=True)
         ex_ref = Executor(h, engine="numpy")
@@ -361,25 +706,47 @@ def main() -> int:
             raise AssertionError(f"default engine is {ex.engine.name} on {ex.engine.device}")
         kernels.reset_launches()
         records = main_path(ex, ex_nogram, ex_ref, N_ROWS, sync=torch.cuda.synchronize)
-        launches = dict(kernels.LAUNCHES)
+        launches = {"executor": dict(kernels.LAUNCHES)}
         h.close()
-    missing = [k for k, n in launches.items() if n == 0]
+        del ex, ex_nogram, ex_ref
+        torch.cuda.empty_cache()
+
+        # The HTTP path: the port's server with its default config opens
+        # the same data directory.
+        t0 = time.perf_counter()
+        srv = Server(Config(data_dir=d, host="127.0.0.1:0"))
+        srv.open()
+        try:
+            print(f"server_open_s {time.perf_counter() - t0:.3f} on {srv.host}", flush=True)
+            if srv.executor.engine.name != "torch" or srv.executor.engine.device.type != "cuda":
+                raise AssertionError(f"server engine is {srv.executor.engine.name}")
+            ex_ref = Executor(srv.holder, engine="numpy")
+            kernels.reset_launches()
+            http_records = http_path(srv.host, ex_ref, N_ROWS, TIME_ROWS, srv.executor.engine)
+            launches["http"] = dict(kernels.LAUNCHES)
+        finally:
+            srv.close()
+    missing = [k for k, path in PATH_OF.items() if launches[path][k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(f"kernels never launched on their path: {missing} ({launches})")
 
     line = []
     for name in kernels.KERNELS:
         t = timings[name]
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": launches[name], "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "launches": launches[PATH_OF[name]][name],
+            "launches_by_path": {p: n[name] for p, n in launches.items()},
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "shape": t["shape"],
         }
-        if "count_path" in t:
-            entry["count_path"] = t["count_path"]
+        for extra in ("count_path", "shapes", "gathered_bound_ms", "all_rows_floor_ms"):
+            if extra in t:
+                entry[extra] = t[extra]
         line.append(entry)
-    print(json.dumps({"card": card, "requests": records}), flush=True)
+    print(json.dumps({"card": card, "path": "executor", "requests": records}), flush=True)
+    print(json.dumps({"card": card, "path": "http", "requests": http_records}), flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({
         "ok": True,

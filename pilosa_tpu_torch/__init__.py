@@ -3,7 +3,8 @@
 A port of ``pilosa_tpu`` with the same module names and layout, so each
 module's counterpart is easy to find.  Host-side code (roaring storage,
 fragments, the data model, PQL, the executor's strategy ladder, the row
-pool) is carried over unchanged; the device layer is new:
+pool, the HTTP server and CLI — ``python -m pilosa_tpu_torch.cli server``)
+is carried over unchanged; the device layer is new:
 
 - ``ops/bitwise.py`` — plain PyTorch versions of the fused counts, the
   exact all-pairs Gram, and the numpy host helpers;

@@ -1,0 +1,670 @@
+"""CLI subcommands (reference: cmd/*.go + ctl/*.go).
+
+Config precedence matches cmd/root.go:89-153: flags > PILOSA_* env >
+TOML config file > defaults.
+"""
+
+from __future__ import annotations
+
+import argparse
+import io
+import json
+import subprocess
+import sys
+import tarfile
+import time
+
+import numpy as np
+
+
+def _load_config(args) -> "Config":
+    from pilosa_tpu_torch.config import Config
+
+    cfg = Config.from_toml(args.config) if getattr(args, "config", None) else Config()
+    cfg.apply_env()
+    # flags override
+    if getattr(args, "data_dir", None):
+        cfg.data_dir = args.data_dir
+    if getattr(args, "host", None):
+        cfg.host = args.host
+    return cfg
+
+
+# -- server (cmd/server.go) -------------------------------------------------
+
+def _spawn_reuseport_workers(cfg, server, args) -> list:
+    """[server] workers > 1: the multi-core fallback for GIL builds.
+
+    The parent has already bound with SO_REUSEPORT (Server.open turns
+    it on when workers > 1); N-1 sibling server processes bind the same
+    resolved port and the kernel spreads accepted connections across
+    them.  On a free-threaded build (GIL disabled) the in-process
+    worker pool already serves N cores, so nothing is forked.  Each
+    sibling is a full server over the same data-dir: read-path scaling
+    only — route writes through the replica router (DEVELOPMENT.md
+    "Multi-core serving") when multi-process write consistency matters.
+    """
+    import os
+
+    n = int(getattr(cfg, "server_workers", 0) or 0)
+    if n <= 1 or os.environ.get("PILOSA_TPU_SERVER_WORKER_CHILD") == "1":
+        return []
+    gil_enabled = getattr(sys, "_is_gil_enabled", lambda: True)()
+    if not gil_enabled:
+        print(f"free-threaded build: {n} workers collapse into the in-process pool")
+        return []
+    env = dict(os.environ)
+    env["PILOSA_TPU_SERVER_WORKER_CHILD"] = "1"
+    env["PILOSA_HOST"] = server.host  # the parent's RESOLVED host:port
+    env["PILOSA_TPU_SERVER_WORKERS"] = str(n)  # keeps SO_REUSEPORT on
+    env["PILOSA_DATA_DIR"] = server.data_dir
+    cmd = [sys.executable, "-m", "pilosa_tpu_torch.cli", "server"]
+    if getattr(args, "config", None):
+        cmd += ["--config", args.config]
+    procs = [subprocess.Popen(cmd, env=env) for _ in range(n - 1)]
+    print(f"spawned {len(procs)} SO_REUSEPORT worker processes on {server.host}")
+    return procs
+
+
+def cmd_server(args) -> int:
+    from pilosa_tpu_torch.server.server import Server
+
+    cfg = _load_config(args)
+    profiler = None
+    if getattr(args, "profile_cpu", None):
+        # cmd/server.go:100 parity: profile the whole serving lifetime,
+        # written on shutdown (pstats; inspect with `python -m pstats`).
+        # On CPython 3.12+ cProfile rides sys.monitoring, whose events
+        # are process-global, so one enable() here captures the
+        # thread-per-request HTTP handler threads too (goroutine-wide
+        # sampling parity with Go's pprof; verified empirically — a
+        # second per-thread Profile raises "Another profiling tool is
+        # already active").
+        import cProfile
+
+        profiler = cProfile.Profile()
+        profiler.enable()
+
+    workers: list = []
+
+    def _finish() -> None:
+        for p in workers:
+            p.terminate()
+        for p in workers:
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+        server.close()
+        if profiler is not None:
+            profiler.disable()
+            profiler.dump_stats(args.profile_cpu)
+            print(f"cpu profile written to {args.profile_cpu}")
+
+    server = Server(cfg)
+    server.open()
+    workers = _spawn_reuseport_workers(cfg, server, args)
+    print(f"pilosa-tpu serving on http://{server.host} (data: {server.data_dir}, "
+          f"engine: {server.executor.engine.name}"
+          f"{'' if server.executor.engine.name == 'numpy' else ' on ' + str(server.executor.engine.device)})",
+          flush=True)
+    if args.test_exit:  # for CLI tests: start, report, stop
+        _finish()
+        return 0
+    # SIGTERM (systemd/docker stop) must flush the profile and close the
+    # holder exactly like Ctrl-C, not die inside time.sleep.  The handler
+    # disarms itself so a second TERM/INT during shutdown cannot abort
+    # close() mid-flush, and _finish runs in a finally for the same
+    # reason.
+    import signal
+
+    def _on_term(signum, frame):
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _on_term)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        print("shutting down")
+    finally:
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+        _finish()
+    return 0
+
+
+# -- lockstep (multi-device serving; no reference analog — the reference's
+# only multi-node mode is the coordinator-style cluster) ---------------------
+
+def cmd_lockstep(args) -> int:
+    """Serve queries SPMD-lockstep over a multi-process job: not ported
+    yet.  The port's multi-GPU layer (``parallel/``: a torch.distributed
+    process group, the sharded kernels and the lockstep service) is
+    ROADMAP Queue 1.6."""
+    raise NotImplementedError(
+        "lockstep is not ported to pilosa_tpu_torch yet (ROADMAP Queue 1.6: "
+        "parallel/multihost.py, parallel/service.py over torch.distributed); "
+        "use `server` on one GPU"
+    )
+
+
+# -- replica-router (replicated serving groups; no reference analog — the
+# reference's ReplicaN picks owners inside one cluster, this routes across
+# whole serving groups) ------------------------------------------------------
+
+def cmd_replica_router(args) -> int:
+    """Front a set of replica serving groups: fan reads across healthy
+    groups (least-inflight, one-shot failover), sequence writes to ALL
+    groups in one total order.
+    """
+    from pilosa_tpu_torch import trace as trace_mod
+    from pilosa_tpu_torch.replica import router_from_config
+    from pilosa_tpu_torch.stats import new_stats_client
+
+    cfg = _load_config(args)
+    if getattr(args, "groups", None):
+        cfg.replica_groups = [g.strip() for g in args.groups.split(",") if g.strip()]
+    if getattr(args, "port", None) is not None:
+        cfg.replica_router_port = args.port
+    if getattr(args, "wal_dir", None):
+        cfg.replica_wal_dir = args.wal_dir
+    if getattr(args, "probe_interval", None) is not None:
+        cfg.replica_probe_interval = args.probe_interval
+    if getattr(args, "anti_entropy_interval", None) is not None:
+        cfg.replica_anti_entropy_interval = args.anti_entropy_interval
+    if getattr(args, "shards", None) is not None:
+        cfg.replica_shards = args.shards
+    if getattr(args, "shard_map", None):
+        cfg.replica_shard_map = args.shard_map
+    if getattr(args, "shard_span", None) is not None:
+        cfg.replica_shard_span = args.shard_span
+    if cfg.replica_shard_map:
+        from pilosa_tpu_torch.replica import ShardMapError, parse_shard_map
+
+        try:
+            smap = parse_shard_map(cfg.replica_shard_map)
+        except ShardMapError as e:
+            print(f"error: bad --shard-map: {e}", file=sys.stderr)
+            return 1
+        cfg.replica_groups = [
+            g for sh in smap for g in sh.group_specs
+        ]
+    if not cfg.replica_groups:
+        print("error: no replica groups configured "
+              "(--groups / [replica] groups / PILOSA_TPU_REPLICA_GROUPS)",
+              file=sys.stderr)
+        return 1
+    if not cfg.replica_shard_map and int(cfg.replica_shards or 1) > 1:
+        from pilosa_tpu_torch.replica import ShardMapError, uniform_shard_map
+
+        try:
+            uniform_shard_map(cfg.replica_groups, int(cfg.replica_shards),
+                              span=int(cfg.replica_shard_span or 1))
+        except ShardMapError as e:
+            print(f"error: bad --shards split: {e}", file=sys.stderr)
+            return 1
+    stats = new_stats_client(cfg.stats)
+    router = router_from_config(
+        cfg, stats=stats, tracer=trace_mod.from_config(cfg, stats=stats)
+    )
+    router.serve()
+    wal_note = (
+        f", wal: {cfg.replica_wal_dir}" if cfg.replica_wal_dir else ", wal: memory"
+    )
+    shard_note = (
+        f" in {len(router.shards)} shards" if len(router.shards) > 1 else ""
+    )
+    print(
+        f"pilosa-tpu replica-router on http://{router.host}:{router.port} "
+        f"over {len(router.groups)} groups{shard_note}: "
+        + ", ".join(f"{g.name}={g.base}" for g in router.groups)
+        + wal_note,
+        flush=True,
+    )
+    if args.test_exit:  # for CLI tests: start, report, stop
+        router.close()
+        return 0
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        print("shutting down")
+    finally:
+        router.close()
+    return 0
+
+
+# -- import/export (ctl/import.go, ctl/export.go) ---------------------------
+
+def cmd_import(args) -> int:
+    from pilosa_tpu_torch import native
+    from pilosa_tpu_torch.server.client import Client
+
+    client = Client(args.host)
+    total = 0
+    for path in args.paths:
+        data = sys.stdin.buffer.read() if path == "-" else open(path, "rb").read()
+        rows, cols, ts = native.parse_csv(data)
+        for start in range(0, len(rows), args.buffer_size):
+            end = start + args.buffer_size
+            bits = list(zip(rows[start:end].tolist(), cols[start:end].tolist(), ts[start:end].tolist()))
+            client.import_bits(args.index, args.frame, bits)
+            total += len(bits)
+    print(f"imported {total} bits into {args.index}/{args.frame}")
+    return 0
+
+
+def cmd_ingest(args) -> int:
+    """Client half of the streaming columnar bulk-ingest door: parse
+    CSV with the native parser, stream packed-uint64 chunks, resume at
+    the server's staged frontier if interrupted and re-run."""
+    from pilosa_tpu_torch import native
+    from pilosa_tpu_torch.server.client import Client
+
+    client = Client(args.host)
+    total = 0
+    for path in args.paths:
+        data = sys.stdin.buffer.read() if path == "-" else open(path, "rb").read()
+        rows, cols, _ts = native.parse_csv(data)
+        client.ingest_stream(
+            args.index, args.frame, rows, cols, chunk_pairs=args.chunk_pairs
+        )
+        total += len(rows)
+    print(f"streamed {total} bits into {args.index}/{args.frame} via /ingest")
+    return 0
+
+
+def cmd_bulk(args) -> int:
+    """Client half of the device-build bulk door: parse CSV with the
+    native parser, stream chunks through POST .../bulk (packed-uint64
+    framing, or Arrow IPC record batches with --arrow) — the server
+    bit-packs planes on device and defers roaring materialization."""
+    from pilosa_tpu_torch import native
+    from pilosa_tpu_torch.server.client import Client
+
+    client = Client(args.host)
+    total = 0
+    for path in args.paths:
+        data = sys.stdin.buffer.read() if path == "-" else open(path, "rb").read()
+        rows, cols, _ts = native.parse_csv(data)
+        client.bulk_stream(
+            args.index, args.frame, rows, cols,
+            chunk_pairs=args.chunk_pairs, arrow=args.arrow,
+        )
+        total += len(rows)
+    print(f"streamed {total} bits into {args.index}/{args.frame} via /bulk")
+    return 0
+
+
+def cmd_export(args) -> int:
+    from pilosa_tpu_torch.server.client import Client, ClientError
+
+    client = Client(args.host)
+    max_slice = client.max_slices().get(args.index, 0)
+    if getattr(args, "format", "csv") == "arrow":
+        # Arrow egress is a byte stream (one IPC stream per slice),
+        # concatenated to the output; stdout gets the binary buffer.
+        out = sys.stdout.buffer if args.output == "-" else open(args.output, "wb")
+        try:
+            for slice_i in range(max_slice + 1):
+                try:
+                    out.write(
+                        client.export_arrow(args.index, args.frame, args.view, slice_i)
+                    )
+                except ClientError as e:
+                    if e.status != 404:
+                        raise
+                    print(
+                        f"warning: slice {slice_i} not on {args.host} (404); "
+                        "export may be partial — run against each cluster node",
+                        file=sys.stderr,
+                    )
+        finally:
+            if out is not sys.stdout.buffer:
+                out.close()
+        return 0
+    out = sys.stdout if args.output == "-" else open(args.output, "w")
+    try:
+        for slice_i in range(max_slice + 1):
+            try:
+                out.write(client.export_csv(args.index, args.frame, args.view, slice_i))
+            except ClientError as e:
+                # Slices the local node doesn't hold 404 (sparse frames,
+                # cluster peers own them); anything else is a real failure.
+                if e.status != 404:
+                    raise
+                print(
+                    f"warning: slice {slice_i} not on {args.host} (404); "
+                    "export may be partial — run against each cluster node",
+                    file=sys.stderr,
+                )
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    return 0
+
+
+# -- backup/restore (ctl/backup.go, ctl/restore.go) -------------------------
+
+def cmd_backup(args) -> int:
+    from pilosa_tpu_torch.server.client import Client
+
+    client = Client(args.host)
+    max_slice = client.max_slices().get(args.index, 0)
+    views = client.frame_views(args.index, args.frame)
+    with tarfile.open(args.output, "w") as tar:
+        for view in views:
+            for slice_i in range(max_slice + 1):
+                data = client.fragment_data(args.index, args.frame, view, slice_i)
+                if data is None:
+                    continue
+                info = tarfile.TarInfo(name=f"{view}/{slice_i}")
+                info.size = len(data)
+                tar.addfile(info, io.BytesIO(data))
+    print(f"backed up {args.index}/{args.frame} to {args.output}")
+    return 0
+
+
+def cmd_restore(args) -> int:
+    from pilosa_tpu_torch.server.client import Client
+
+    client = Client(args.host)
+    n = 0
+    with tarfile.open(args.input) as tar:
+        for member in tar.getmembers():
+            view, slice_s = member.name.split("/", 1)
+            data = tar.extractfile(member).read()
+            client.restore_fragment(args.index, args.frame, view, int(slice_s), data)
+            n += 1
+    print(f"restored {n} fragments into {args.index}/{args.frame}")
+    return 0
+
+
+# -- bench (ctl/bench.go:71-102) --------------------------------------------
+
+def cmd_bench(args) -> int:
+    from pilosa_tpu_torch.server.client import Client
+
+    client = Client(args.host)
+    rng = np.random.default_rng(args.seed)
+    rows = rng.integers(0, args.max_row_id, size=args.n)
+    cols = rng.integers(0, args.max_column_id, size=args.n)
+    if args.operation != "set-bit":
+        print(f"unknown bench op: {args.operation!r}", file=sys.stderr)
+        return 1
+    start = time.perf_counter()
+    batch = []
+    for r, c in zip(rows.tolist(), cols.tolist()):
+        batch.append(f'SetBit(rowID={r}, frame="{args.frame}", columnID={c})')
+        if len(batch) >= args.batch_size:
+            client.execute_query(args.index, " ".join(batch))
+            batch = []
+    if batch:
+        client.execute_query(args.index, " ".join(batch))
+    elapsed = time.perf_counter() - start
+    print(json.dumps({"n": args.n, "seconds": round(elapsed, 3), "ops_per_sec": round(args.n / elapsed, 1)}))
+    return 0
+
+
+# -- check/inspect (ctl/check.go, ctl/inspect.go) ----------------------------
+
+def cmd_check(args) -> int:
+    from pilosa_tpu_torch.roaring import Bitmap
+
+    rc = 0
+    for path in args.paths:
+        try:
+            with open(path, "rb") as f:
+                bm = Bitmap.from_bytes(f.read())
+            bm.check()
+            print(f"{path}: ok ({bm.count()} bits, {len(bm.containers)} containers)")
+        except Exception as e:
+            print(f"{path}: FAILED: {e}", file=sys.stderr)
+            rc = 1
+    return rc
+
+
+def cmd_inspect(args) -> int:
+    from pilosa_tpu_torch.roaring import Bitmap
+
+    for path in args.paths:
+        with open(path, "rb") as f:
+            bm = Bitmap.from_bytes(f.read())
+        n_array = sum(1 for c in bm.containers.values() if c.is_array)
+        n_bitmap = len(bm.containers) - n_array
+        print(f"{path}:")
+        print(f"  bits:       {bm.count()}")
+        print(f"  containers: {len(bm.containers)} ({n_array} array, {n_bitmap} bitmap)")
+        print(f"  ops logged: {bm.op_n}")
+        if args.verbose:
+            for key in bm.sorted_keys():
+                c = bm.containers[key]
+                kind = "array" if c.is_array else "bitmap"
+                print(f"    key={key:<8} type={kind:<6} n={c.n}")
+    return 0
+
+
+# -- sort (ctl/sort.go) ------------------------------------------------------
+
+def cmd_sort(args) -> int:
+    from pilosa_tpu_torch.pilosa import SLICE_WIDTH
+
+    rows = []
+    f = sys.stdin if args.path == "-" else open(args.path)
+    for line in f:
+        line = line.strip()
+        if not line:
+            continue
+        parts = line.split(",")
+        rows.append((int(parts[0]), int(parts[1]), line))
+    if f is not sys.stdin:
+        f.close()
+    rows.sort(key=lambda t: (t[1] // SLICE_WIDTH, t[0], t[1]))
+    for _, _, line in rows:
+        print(line)
+    return 0
+
+
+# -- config (ctl/config.go) --------------------------------------------------
+
+def cmd_config(args) -> int:
+    cfg = _load_config(args)
+    print(cfg.to_toml(), end="")
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="pilosa_tpu_torch", description="distributed bitmap index on PyTorch and CUDA"
+    )
+    p.add_argument("--config", help="path to TOML config file")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    s = sub.add_parser("server", help="run the server")
+    s.add_argument("--data-dir", help="data directory")
+    s.add_argument("--host", help="host:port to bind")
+    s.add_argument(
+        "--profile.cpu", dest="profile_cpu", metavar="PATH",
+        help="write a CPU profile (pstats format) to PATH on shutdown "
+             "(cmd/server.go:100 parity)",
+    )
+    s.add_argument("--test-exit", action="store_true", help=argparse.SUPPRESS)
+    s.set_defaults(fn=cmd_server)
+
+    s = sub.add_parser(
+        "lockstep",
+        help="serve queries SPMD-lockstep over a multi-process job (not ported yet: ROADMAP Queue 1.6)",
+    )
+    s.add_argument("--data-dir", help="holder data directory (identical data on every rank)")
+    s.add_argument("--host", help="rank-0 HTTP bind host:port")
+    s.add_argument("--control", default="127.0.0.1:14100", help="control-plane host:port (all ranks)")
+    s.add_argument("--coordinator", help="process-group coordinator host:port")
+    s.add_argument("--num-processes", type=int, help="job size (with --coordinator)")
+    s.add_argument("--process-id", type=int, help="this rank (with --coordinator)")
+    s.add_argument("--local-devices", type=int, help="virtual CPU devices per process (dev rigs)")
+    s.add_argument(
+        "--group",
+        help="replica serving-group identity for this job: name[@epoch] "
+             "([replica] group / PILOSA_TPU_REPLICA_GROUP)",
+    )
+    s.set_defaults(fn=cmd_lockstep)
+
+    s = sub.add_parser(
+        "replica-router",
+        help="route reads across replica serving groups; sequence writes to all",
+    )
+    s.add_argument("--host", help="router bind host:port (port part ignored; see --port)")
+    s.add_argument(
+        "--groups",
+        help="comma-separated group front doors: host:port or name=host:port "
+             "([replica] groups / PILOSA_TPU_REPLICA_GROUPS)",
+    )
+    s.add_argument("--port", type=int, help="router bind port ([replica] router-port)")
+    s.add_argument(
+        "--wal-dir", dest="wal_dir",
+        help="durable write-ahead-log directory ([replica] wal-dir; "
+             "omit for an in-memory log)",
+    )
+    s.add_argument(
+        "--probe-interval", dest="probe_interval", type=float,
+        help="base health-probe interval in seconds, doubled with jitter "
+             "per failed probe ([replica] probe-interval)",
+    )
+    s.add_argument(
+        "--anti-entropy-interval", dest="anti_entropy_interval", type=float,
+        help="cross-group digest-compare sweep interval in seconds, "
+             "jittered; 0 disables ([replica] anti-entropy-interval)",
+    )
+    s.add_argument(
+        "--shards", type=int,
+        help="partition the slice space into N shards, splitting --groups "
+             "into N consecutive replica sets ([replica] shards)",
+    )
+    s.add_argument(
+        "--shard-map", dest="shard_map",
+        help="explicit shard map: 'name=lo-hi:g,g;...' with hi omitted on "
+             "the open-ended tail ([replica] shard-map; wins over --shards)",
+    )
+    s.add_argument(
+        "--shard-span", dest="shard_span", type=int,
+        help="slices per shard under --shards auto-split "
+             "([replica] shard-span)",
+    )
+    s.add_argument("--test-exit", action="store_true", help=argparse.SUPPRESS)
+    s.set_defaults(fn=cmd_replica_router)
+
+    s = sub.add_parser(
+        "ingest",
+        help="stream CSV row,col bits through the columnar /ingest door "
+             "(resumable packed-uint64 chunks; QoS write-class backpressure)",
+    )
+    s.add_argument("--host", default="localhost:10101")
+    s.add_argument("--index", required=True)
+    s.add_argument("--frame", required=True)
+    s.add_argument(
+        "--chunk-pairs", type=int, default=65536,
+        help="(row, col) pairs per streamed chunk (chunk bytes = 8 + 16*pairs)",
+    )
+    s.add_argument("paths", nargs="+")
+    s.set_defaults(fn=cmd_ingest)
+
+    s = sub.add_parser(
+        "bulk",
+        help="stream CSV row,col bits through the device-build /bulk door "
+             "(sort/segment/scatter plane build on device, lazy roaring "
+             "materialization; --arrow ships Arrow IPC chunks)",
+    )
+    s.add_argument("--host", default="localhost:10101")
+    s.add_argument("--index", required=True)
+    s.add_argument("--frame", required=True)
+    s.add_argument(
+        "--chunk-pairs", type=int, default=65536,
+        help="(row, col) pairs per streamed chunk",
+    )
+    s.add_argument(
+        "--arrow", action="store_true",
+        help="encode chunks as Arrow IPC record batches instead of "
+             "packed-uint64 framing (needs pyarrow on both ends)",
+    )
+    s.add_argument("paths", nargs="+")
+    s.set_defaults(fn=cmd_bulk)
+
+    s = sub.add_parser("import", help="bulk-import CSV row,col[,timestamp] bits")
+    s.add_argument("--host", default="localhost:10101")
+    s.add_argument("--index", required=True, dest="index")
+    s.add_argument("--frame", required=True)
+    s.add_argument("--buffer-size", type=int, default=10_000_000)
+    s.add_argument("paths", nargs="+")
+    s.set_defaults(fn=cmd_import)
+
+    s = sub.add_parser("export", help="export a frame as CSV or Arrow")
+    s.add_argument("--host", default="localhost:10101")
+    s.add_argument("--index", required=True)
+    s.add_argument("--frame", required=True)
+    s.add_argument("--view", default="standard")
+    s.add_argument(
+        "--format", choices=("csv", "arrow"), default="csv",
+        help="csv row,col lines or Arrow IPC record batches "
+             "(one stream per slice, concatenated)",
+    )
+    s.add_argument("-o", "--output", default="-")
+    s.set_defaults(fn=cmd_export)
+
+    s = sub.add_parser("backup", help="backup a frame to a tar archive")
+    s.add_argument("--host", default="localhost:10101")
+    s.add_argument("--index", required=True)
+    s.add_argument("--frame", required=True)
+    s.add_argument("-o", "--output", required=True)
+    s.set_defaults(fn=cmd_backup)
+
+    s = sub.add_parser("restore", help="restore a frame from a tar archive")
+    s.add_argument("--host", default="localhost:10101")
+    s.add_argument("--index", required=True)
+    s.add_argument("--frame", required=True)
+    s.add_argument("-i", "--input", required=True)
+    s.set_defaults(fn=cmd_restore)
+
+    s = sub.add_parser("bench", help="run a benchmark against a server")
+    s.add_argument("--host", default="localhost:10101")
+    s.add_argument("--index", required=True)
+    s.add_argument("--frame", required=True)
+    s.add_argument("-o", "--operation", default="set-bit")
+    s.add_argument("-n", type=int, default=1000, dest="n")
+    s.add_argument("--max-row-id", type=int, default=1000)
+    s.add_argument("--max-column-id", type=int, default=1000)
+    s.add_argument("--batch-size", type=int, default=100)
+    s.add_argument("--seed", type=int, default=0)
+    s.set_defaults(fn=cmd_bench)
+
+    s = sub.add_parser("check", help="verify fragment file consistency")
+    s.add_argument("paths", nargs="+")
+    s.set_defaults(fn=cmd_check)
+
+    s = sub.add_parser("inspect", help="dump fragment container stats")
+    s.add_argument("-v", "--verbose", action="store_true")
+    s.add_argument("paths", nargs="+")
+    s.set_defaults(fn=cmd_inspect)
+
+    s = sub.add_parser("sort", help="pre-sort an import CSV by slice position")
+    s.add_argument("path")
+    s.set_defaults(fn=cmd_sort)
+
+    s = sub.add_parser("config", help="print the effective configuration")
+    s.add_argument("--data-dir", help="data directory")
+    s.add_argument("--host", help="host:port")
+    s.set_defaults(fn=cmd_config)
+
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    try:
+        return args.fn(args)
+    except KeyboardInterrupt:
+        return 130
+    except Exception as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1

@@ -1,0 +1,601 @@
+"""Server configuration.
+
+Reference analog: config.go — TOML `Config` with data dir, host, cluster
+section (ReplicaN, type, hosts, internal hosts, polling interval, gossip
+seed), anti-entropy interval, max-writes-per-request, log path
+(config.go:37-64); defaults port 10101, internal port 14000
+(config.go:19-34).  Precedence (cmd/root.go:89-153): flags > env
+(PILOSA_*) > TOML file > defaults.
+"""
+
+from __future__ import annotations
+
+import os
+
+try:
+    import tomllib
+except ImportError:  # Python < 3.11: the API-compatible backport
+    import tomli as tomllib
+from dataclasses import dataclass, field
+
+DEFAULT_HOST = "localhost:10101"
+DEFAULT_INTERNAL_PORT = 14000
+DEFAULT_ANTI_ENTROPY_INTERVAL = 600.0  # 10 min (server.go:186)
+DEFAULT_POLLING_INTERVAL = 60.0  # max-slice poll (server.go:221)
+DEFAULT_MAX_WRITES_PER_REQUEST = 5000
+
+CLUSTER_TYPE_STATIC = "static"
+CLUSTER_TYPE_HTTP = "http"
+CLUSTER_TYPE_GOSSIP = "gossip"
+
+
+@dataclass
+class ClusterConfig:
+    replica_n: int = 1
+    type: str = CLUSTER_TYPE_STATIC
+    hosts: list[str] = field(default_factory=list)
+    internal_hosts: list[str] = field(default_factory=list)
+    polling_interval: float = DEFAULT_POLLING_INTERVAL
+    internal_port: int = DEFAULT_INTERNAL_PORT
+    gossip_seed: str = ""
+
+
+@dataclass
+class Config:
+    data_dir: str = "~/.pilosa_tpu_torch"
+    host: str = DEFAULT_HOST
+    cluster: ClusterConfig = field(default_factory=ClusterConfig)
+    anti_entropy_interval: float = DEFAULT_ANTI_ENTROPY_INTERVAL
+    max_writes_per_request: int = DEFAULT_MAX_WRITES_PER_REQUEST
+    log_path: str = ""
+    # "auto" or "torch": TorchEngine on the CUDA card (raises without
+    # one); "numpy": the host engine; "torch:cpu": TorchEngine on the CPU
+    # (the kernels' plain versions — for tests).  Anything else raises.
+    engine: str = "auto"
+    # "expvar" (default; served at /debug/vars), "statsd[:host[:port]]"
+    # (datadog-compatible UDP), "nop" to disable (stats.go:33-54 analog).
+    stats: str = "expvar"
+    # Executor serve-state LRU capacity: one entry per (index, frame)
+    # dashboard kept armed for the single-call native serve lane.  Size
+    # for the number of frames a workload alternates between.
+    serve_state_cache: int = 4
+    # Warm-state repair budget in dirty rows: write bursts touching at
+    # most this many distinct rows PATCH the warm serving state (pool
+    # row rewrite + rank-k Gram repair) instead of rebuilding it; 0
+    # disables repair outright (the bench A/B lever).
+    repair_rows_max: int = 64
+    # Row ceiling for the cached all-pairs Gram strategy (4096 rows = a
+    # 64 MiB Gram; raise on host-attached hardware).
+    gram_rows_max: int = 4096
+    # -- executor strategy knobs (top-level, like gram-rows-max) ----------
+    # These route the executor's remaining raw-env tuning knobs through
+    # the one precedence chain (CLI > env > config file > default).  The
+    # bare env spellings (PILOSA_TPU_NO_GRAM, _STREAM_BYTES, _SLICE_CHUNK,
+    # _MATRIX_CACHE_ENTRIES, _MATRIX_ROWS_MAX) are DEPRECATED: still read
+    # by directly-constructed executors, but the configured server passes
+    # these fields and new deployments should set them here.
+    no_gram: bool = False
+    stream_bytes: int = 1 << 31
+    slice_chunk: int = 2048
+    matrix_cache_entries: int = 4
+    matrix_rows_max: int = 1024
+    # -- cost-based planner ([planner] TOML section) ----------------------
+    # Closes the cost-ledger loop: per-(index, fingerprint) strategy-lane
+    # selection from measured EWMA costs (static ladder until confident),
+    # background serve-state pre-arming, and ledger-derived budgets.
+    # Requires the ledger (PILOSA_TPU_COSTS not disabled) to do anything.
+    planner_enabled: bool = True
+    # Observations every lane needs before a cost-based pick engages.
+    planner_min_samples: int = 3
+    # Fractional EWMA advantage a challenger lane must show to displace
+    # the incumbent (anti-flap band).
+    planner_hysteresis: float = 0.15
+    # Every Nth consult of an under-sampled key explores its least-
+    # sampled lane (deterministic — a counter modulus, no RNG).
+    planner_explore_every: int = 16
+    # Pin every decision to one lane ("gram"/"rmgather"); the debugging
+    # and bench-baseline lever.  "" = adaptive.
+    planner_pin_lane: str = ""
+    # Per-cycle wall budget for background serve-state re-arming after
+    # invalidating writes; 0 disables the pre-armer (the default: it
+    # burns device time speculatively).
+    planner_prearm_budget_ms: float = 0.0
+    # Derive qcache admission floor / catch-up drain batch / resync chunk
+    # size from measured costs instead of their static values.
+    planner_adaptive_budgets: bool = True
+    # -- HTTP serving ([server] TOML section) -----------------------------
+    # Connection worker-pool bound: accepted connections queue to this
+    # many pre-spawned handler threads (brief overflow wait, then a
+    # 503 + Retry-After shed).  0 = legacy unbounded thread-per-
+    # connection.
+    server_max_threads: int = 32
+    # Multi-process SO_REUSEPORT worker count for GIL builds (the CLI
+    # forks N-1 extra server processes sharing one port; free-threaded
+    # CPython serves N cores from one process via the pool instead).
+    # 0 or 1 = single process.
+    server_workers: int = 0
+    # -- query result cache ([qcache] TOML section) ----------------------
+    # Generation-keyed whole-query result cache in front of the
+    # executor: exact (any write to a touched fragment bumps a
+    # generation and misses the entry), byte-bounded, cost-admitted.
+    qcache_enabled: bool = True
+    qcache_max_bytes: int = 256 << 20
+    # Admission floor: only results whose measured execution cost is at
+    # least this many ms are stored (cheaper requests would pay more in
+    # cache bookkeeping than a hit saves).
+    qcache_min_cost_ms: float = 1.0
+    # -- rank-cache tuning ([cache] TOML section) ------------------------
+    # Debounce on RankCache invalidation (ranked TopN caches recalculate
+    # at most once per this many seconds; cache.go:219-226's hard-coded
+    # 10 s, promoted).
+    ranking_debounce_s: float = 10.0
+    # -- request-lifecycle QoS ([qos] TOML section) ----------------------
+    # Default per-request time budget in ms when the client sends no
+    # X-Pilosa-Deadline-Ms header; 0 = unbounded (pre-QoS behavior).
+    default_deadline_ms: float = 0.0
+    # Per-class admission depths (max concurrently executing requests;
+    # an equal number may wait briefly at the door).  0 = unbounded.
+    qos_read_depth: int = 64
+    qos_write_depth: int = 32
+    qos_admin_depth: int = 16
+    # How long a request may wait at a full door before shedding, and
+    # the Retry-After hint returned with a 429/503.
+    qos_queue_wait_ms: float = 100.0
+    qos_retry_after_ms: float = 250.0
+    # -- request tracing ([trace] TOML section) --------------------------
+    # Head-sampling rate for the request-scoped span tracer (0.0 = only
+    # X-Pilosa-Trace-forced requests trace; 1.0 = every request).
+    trace_sample_rate: float = 0.0
+    # Slow-query threshold in ms: requests slower than this land in the
+    # /debug/traces ring REGARDLESS of sampling and emit one structured
+    # line on the pilosa_tpu_torch.slowquery logger.  0 = disabled.
+    trace_slow_ms: float = 0.0
+    # Bounded in-memory ring of finished traces served at /debug/traces.
+    trace_ring: int = 256
+    # -- replicated serving groups ([replica] TOML section) --------------
+    # This server's serving-group identity ("g0" or "g0@3" with an
+    # explicit epoch) behind the replica router; "" = not in a group.
+    replica_group: str = ""
+    # Router: the group front doors to fan over ("host:port" or
+    # "name=host:port"; names default to g0, g1, ...).
+    replica_groups: list[str] = field(default_factory=list)
+    # Router bind port (the front door clients talk to).
+    replica_router_port: int = 10111
+    # One-shot read failover to a sibling group on connect/5xx failure
+    # (reads are side-effect-free, so the retry is always safe).
+    replica_failover: bool = True
+    # Health-probe cadence for down/lagging groups: the base interval,
+    # doubled (with jitter) per failed probe up to the cap and reset on
+    # recovery — a dead group is not hammered in lockstep by every
+    # router.
+    replica_probe_interval: float = 1.0
+    replica_probe_max_interval: float = 30.0
+    # Router write-ahead log directory ("" = in-memory: same sequence /
+    # abort / replay semantics, no crash durability) and the backlog
+    # bound: a laggard that would pin the log past wal-max-bytes is
+    # declared stale (operator resync) instead of growing it unbounded.
+    replica_wal_dir: str = ""
+    replica_wal_max_bytes: int = 64 << 20
+    # Cross-group anti-entropy sweep interval in seconds (jittered;
+    # 0 = off, the default — tests and single-group rigs don't want a
+    # background digest walker).  Healthy groups' content digests are
+    # compared and any silently diverged fragment is repaired from the
+    # majority copy.
+    replica_anti_entropy_interval: float = 0.0
+    # Chunk size of the resync fragment stream (each chunk CRC-framed
+    # and individually acked, so a killed transfer resumes at the
+    # staged offset).
+    replica_resync_chunk_bytes: int = 256 << 10
+    # Columnar resync negotiation: movers may fetch a fragment the
+    # laggard lacks entirely as Arrow record batches (donor
+    # /export?format=arrow) and push it through the laggard's
+    # device-build /bulk door; any refusal degrades to the roaring
+    # byte stream.  Off by default — both sides must speak the /bulk
+    # chunk wire for the fast path to engage.
+    replica_resync_columnar: bool = False
+    # Partitioned replica groups (the 2-D slice-shard x replica mesh).
+    # shards = N splits the flat group list into N consecutive chunks,
+    # shard i owning slices [i*shard-span, (i+1)*shard-span) (last
+    # open-ended); shard-map is the explicit form
+    # ("s0=0-4:g0=h:p,g1=h:p;s1=4-:g2=h:p,g3=h:p") and wins over
+    # shards when both are set.  1 + "" = the single-shard default:
+    # byte-for-byte the pre-shard router.
+    replica_shards: int = 1
+    replica_shard_map: str = ""
+    replica_shard_span: int = 256
+    # -- streaming columnar ingest ([ingest] TOML section) ----------------
+    # Per-chunk byte ceiling at the streaming bulk-ingest door
+    # (POST /index/<i>/frame/<f>/ingest): a chunk past it answers 413
+    # instead of buffering an unbounded request body.
+    ingest_chunk_bytes: int = 4 << 20
+    # -- device bulk build ([bulk] TOML section) --------------------------
+    # Slice planes committed per fragment batch at the bulk build door
+    # (POST /index/<i>/frame/<f>/bulk): bounds the per-commit lock hold
+    # and the transient plane allocation, like gram-rows-max bounds the
+    # Gram working set.
+    bulk_batch_slices: int = 8
+    # Time budget (ms) for the opportunistic overlay->roaring drain at
+    # bulk transfer completion.  0 = fully lazy: containers materialize
+    # only on a roaring-shaped touch (snapshot/digest/mutation/export).
+    bulk_materialize_budget_ms: float = 0.0
+    # -- HTTP client ([client] TOML section) ------------------------------
+    # Retry budget for door sheds (429/503 — both issued BEFORE any
+    # execution, so writes are safe to retry): total extra attempts per
+    # logical request, deadline-aware, decorrelated-jitter backoff.
+    client_retry_budget: int = 2
+    # -- lockstep service ([lockstep] TOML section) ----------------------
+    # Rank-0 wait for a worker's receipt ack (control-plane latency +
+    # scheduling, not execution) and a worker's connect retry window at
+    # startup — both previously hard-coded in parallel/service.py.
+    lockstep_ack_timeout: float = 120.0
+    lockstep_connect_timeout: float = 60.0
+    # Bound on rank 0's arrival queue: requests beyond this shed with
+    # 429 instead of growing the coalescing queue without limit.
+    lockstep_queue_depth: int = 256
+    # -- multi-tenant isolation ([tenancy] TOML section) ------------------
+    # Off by default: every enforcement seam (admission doors, qcache,
+    # ingest pacer) takes its pre-tenancy path byte-identically.
+    tenancy_enabled: bool = False
+    # "gold=4,free=1" — fair-share weights; unlisted tenants get
+    # default-weight.
+    tenancy_weights: str = ""
+    tenancy_default_weight: float = 1.0
+    # "idx_a=gold,idx_b=free" — explicit index→tenant table; unmapped
+    # indexes bill to their own name.
+    tenancy_map: str = ""
+    # qcache byte quota: a bare fraction ("0.5") applied to every
+    # tenant, or per-tenant overrides ("gold=0.75,free=0.1").  Empty =
+    # no per-tenant cache quota.
+    tenancy_qcache_share: str = ""
+    # Aggregate ingest/bulk chunk bandwidth split by weight across
+    # active tenants; 0 disables the pacer.
+    tenancy_ingest_bytes_per_s: int = 0
+
+    @classmethod
+    def from_toml(cls, path: str) -> "Config":
+        with open(path, "rb") as f:
+            raw = tomllib.load(f)
+        return cls.from_dict(raw)
+
+    @classmethod
+    def from_dict(cls, raw: dict) -> "Config":
+        cfg = cls()
+        cfg.data_dir = raw.get("data-dir", cfg.data_dir)
+        cfg.host = raw.get("host", cfg.host)
+        cfg.anti_entropy_interval = _interval(
+            raw.get("anti-entropy", {}).get("interval"), cfg.anti_entropy_interval
+        )
+        cfg.max_writes_per_request = raw.get(
+            "max-writes-per-request", cfg.max_writes_per_request
+        )
+        cfg.log_path = raw.get("log-path", cfg.log_path)
+        cfg.engine = raw.get("engine", cfg.engine)
+        cfg.stats = raw.get("stats", cfg.stats)
+        cfg.serve_state_cache = int(
+            raw.get("serve-state-cache", cfg.serve_state_cache)
+        )
+        cfg.repair_rows_max = int(raw.get("repair-rows-max", cfg.repair_rows_max))
+        cfg.gram_rows_max = int(raw.get("gram-rows-max", cfg.gram_rows_max))
+        cfg.no_gram = bool(raw.get("no-gram", cfg.no_gram))
+        cfg.stream_bytes = int(raw.get("stream-bytes", cfg.stream_bytes))
+        cfg.slice_chunk = int(raw.get("slice-chunk", cfg.slice_chunk))
+        cfg.matrix_cache_entries = int(
+            raw.get("matrix-cache-entries", cfg.matrix_cache_entries)
+        )
+        cfg.matrix_rows_max = int(raw.get("matrix-rows-max", cfg.matrix_rows_max))
+        pl = raw.get("planner", {})
+        cfg.planner_enabled = bool(pl.get("enabled", cfg.planner_enabled))
+        cfg.planner_min_samples = int(pl.get("min-samples", cfg.planner_min_samples))
+        cfg.planner_hysteresis = float(pl.get("hysteresis", cfg.planner_hysteresis))
+        cfg.planner_explore_every = int(
+            pl.get("explore-every", cfg.planner_explore_every)
+        )
+        cfg.planner_pin_lane = str(pl.get("pin-lane", cfg.planner_pin_lane))
+        cfg.planner_prearm_budget_ms = float(
+            pl.get("prearm-budget-ms", cfg.planner_prearm_budget_ms)
+        )
+        cfg.planner_adaptive_budgets = bool(
+            pl.get("adaptive-budgets", cfg.planner_adaptive_budgets)
+        )
+        srv = raw.get("server", {})
+        cfg.server_max_threads = int(srv.get("max-threads", cfg.server_max_threads))
+        cfg.server_workers = int(srv.get("workers", cfg.server_workers))
+        qc = raw.get("qcache", {})
+        cfg.qcache_enabled = bool(qc.get("enabled", cfg.qcache_enabled))
+        cfg.qcache_max_bytes = int(qc.get("max-bytes", cfg.qcache_max_bytes))
+        cfg.qcache_min_cost_ms = float(qc.get("min-cost-ms", cfg.qcache_min_cost_ms))
+        cache = raw.get("cache", {})
+        cfg.ranking_debounce_s = _interval(
+            cache.get("ranking-debounce-s"), cfg.ranking_debounce_s
+        )
+        qos = raw.get("qos", {})
+        cfg.default_deadline_ms = 1000.0 * _interval(
+            qos.get("default-deadline"), cfg.default_deadline_ms / 1000.0
+        )
+        cfg.qos_read_depth = int(qos.get("read-depth", cfg.qos_read_depth))
+        cfg.qos_write_depth = int(qos.get("write-depth", cfg.qos_write_depth))
+        cfg.qos_admin_depth = int(qos.get("admin-depth", cfg.qos_admin_depth))
+        cfg.qos_queue_wait_ms = 1000.0 * _interval(
+            qos.get("queue-wait"), cfg.qos_queue_wait_ms / 1000.0
+        )
+        cfg.qos_retry_after_ms = 1000.0 * _interval(
+            qos.get("retry-after"), cfg.qos_retry_after_ms / 1000.0
+        )
+        tr = raw.get("trace", {})
+        cfg.trace_sample_rate = float(tr.get("sample-rate", cfg.trace_sample_rate))
+        cfg.trace_slow_ms = float(tr.get("slow-ms", cfg.trace_slow_ms))
+        cfg.trace_ring = int(tr.get("ring", cfg.trace_ring))
+        rep = raw.get("replica", {})
+        cfg.replica_group = str(rep.get("group", cfg.replica_group))
+        cfg.replica_groups = list(rep.get("groups", cfg.replica_groups))
+        cfg.replica_router_port = int(rep.get("router-port", cfg.replica_router_port))
+        cfg.replica_failover = bool(rep.get("failover", cfg.replica_failover))
+        cfg.replica_probe_interval = _interval(
+            rep.get("probe-interval"), cfg.replica_probe_interval
+        )
+        cfg.replica_probe_max_interval = _interval(
+            rep.get("probe-max-interval"), cfg.replica_probe_max_interval
+        )
+        cfg.replica_wal_dir = str(rep.get("wal-dir", cfg.replica_wal_dir))
+        cfg.replica_wal_max_bytes = int(
+            rep.get("wal-max-bytes", cfg.replica_wal_max_bytes)
+        )
+        cfg.replica_anti_entropy_interval = _interval(
+            rep.get("anti-entropy-interval"), cfg.replica_anti_entropy_interval
+        )
+        cfg.replica_resync_chunk_bytes = int(
+            rep.get("resync-chunk-bytes", cfg.replica_resync_chunk_bytes)
+        )
+        cfg.replica_resync_columnar = bool(
+            rep.get("resync-columnar", cfg.replica_resync_columnar)
+        )
+        cfg.replica_shards = int(rep.get("shards", cfg.replica_shards))
+        cfg.replica_shard_map = str(rep.get("shard-map", cfg.replica_shard_map))
+        cfg.replica_shard_span = int(
+            rep.get("shard-span", cfg.replica_shard_span)
+        )
+        ing = raw.get("ingest", {})
+        cfg.ingest_chunk_bytes = int(ing.get("chunk-bytes", cfg.ingest_chunk_bytes))
+        blk = raw.get("bulk", {})
+        cfg.bulk_batch_slices = int(blk.get("batch-slices", cfg.bulk_batch_slices))
+        cfg.bulk_materialize_budget_ms = float(
+            blk.get("materialize-budget-ms", cfg.bulk_materialize_budget_ms)
+        )
+        cli = raw.get("client", {})
+        cfg.client_retry_budget = int(
+            cli.get("retry-budget", cfg.client_retry_budget)
+        )
+        ls = raw.get("lockstep", {})
+        cfg.lockstep_ack_timeout = _interval(
+            ls.get("ack-timeout"), cfg.lockstep_ack_timeout
+        )
+        cfg.lockstep_connect_timeout = _interval(
+            ls.get("connect-timeout"), cfg.lockstep_connect_timeout
+        )
+        cfg.lockstep_queue_depth = int(
+            ls.get("queue-depth", cfg.lockstep_queue_depth)
+        )
+        ten = raw.get("tenancy", {})
+        cfg.tenancy_enabled = bool(ten.get("enabled", cfg.tenancy_enabled))
+        cfg.tenancy_weights = str(ten.get("weights", cfg.tenancy_weights))
+        cfg.tenancy_default_weight = float(
+            ten.get("default-weight", cfg.tenancy_default_weight)
+        )
+        cfg.tenancy_map = str(ten.get("map", cfg.tenancy_map))
+        cfg.tenancy_qcache_share = str(
+            ten.get("qcache-share", cfg.tenancy_qcache_share)
+        )
+        cfg.tenancy_ingest_bytes_per_s = int(
+            ten.get("ingest-bytes-per-s", cfg.tenancy_ingest_bytes_per_s)
+        )
+        cl = raw.get("cluster", {})
+        cfg.cluster.replica_n = cl.get("replicas", cfg.cluster.replica_n)
+        cfg.cluster.type = cl.get("type", cfg.cluster.type)
+        cfg.cluster.hosts = list(cl.get("hosts", cfg.cluster.hosts))
+        cfg.cluster.internal_hosts = list(cl.get("internal-hosts", cfg.cluster.internal_hosts))
+        cfg.cluster.polling_interval = _interval(
+            cl.get("polling-interval"), cfg.cluster.polling_interval
+        )
+        cfg.cluster.internal_port = cl.get("internal-port", cfg.cluster.internal_port)
+        cfg.cluster.gossip_seed = cl.get("gossip-seed", cfg.cluster.gossip_seed)
+        return cfg
+
+    def apply_env(self, env=None) -> "Config":
+        """PILOSA_* environment overrides (cmd/root.go:118-134 analog)."""
+        env = env if env is not None else os.environ
+        self.data_dir = env.get("PILOSA_DATA_DIR", self.data_dir)
+        self.host = env.get("PILOSA_HOST", self.host)
+        if "PILOSA_CLUSTER_HOSTS" in env:
+            self.cluster.hosts = [h.strip() for h in env["PILOSA_CLUSTER_HOSTS"].split(",") if h.strip()]
+        if "PILOSA_CLUSTER_REPLICAS" in env:
+            self.cluster.replica_n = int(env["PILOSA_CLUSTER_REPLICAS"])
+        if "PILOSA_CLUSTER_TYPE" in env:
+            self.cluster.type = env["PILOSA_CLUSTER_TYPE"]
+        if "PILOSA_ENGINE" in env:
+            self.engine = env["PILOSA_ENGINE"]
+        if "PILOSA_STATS" in env:
+            self.stats = env["PILOSA_STATS"]
+        if "PILOSA_SERVE_STATE_CACHE" in env:
+            self.serve_state_cache = int(env["PILOSA_SERVE_STATE_CACHE"])
+        if "PILOSA_TPU_REPAIR_ROWS_MAX" in env:
+            self.repair_rows_max = int(env["PILOSA_TPU_REPAIR_ROWS_MAX"])
+        if "PILOSA_TPU_GRAM_ROWS_MAX" in env:
+            self.gram_rows_max = int(env["PILOSA_TPU_GRAM_ROWS_MAX"])
+        if "PILOSA_TPU_NO_GRAM" in env:
+            self.no_gram = env["PILOSA_TPU_NO_GRAM"].lower() in ("1", "true", "yes")
+        if "PILOSA_TPU_STREAM_BYTES" in env:
+            self.stream_bytes = int(env["PILOSA_TPU_STREAM_BYTES"])
+        if "PILOSA_TPU_SLICE_CHUNK" in env:
+            self.slice_chunk = int(env["PILOSA_TPU_SLICE_CHUNK"])
+        if "PILOSA_TPU_MATRIX_CACHE_ENTRIES" in env:
+            self.matrix_cache_entries = int(env["PILOSA_TPU_MATRIX_CACHE_ENTRIES"])
+        if "PILOSA_TPU_MATRIX_ROWS_MAX" in env:
+            self.matrix_rows_max = int(env["PILOSA_TPU_MATRIX_ROWS_MAX"])
+        if "PILOSA_TPU_PLANNER" in env:
+            self.planner_enabled = env["PILOSA_TPU_PLANNER"].lower() in (
+                "1", "true", "yes",
+            )
+        if "PILOSA_TPU_PLANNER_MIN_SAMPLES" in env:
+            self.planner_min_samples = int(env["PILOSA_TPU_PLANNER_MIN_SAMPLES"])
+        if "PILOSA_TPU_PLANNER_HYSTERESIS" in env:
+            self.planner_hysteresis = float(env["PILOSA_TPU_PLANNER_HYSTERESIS"])
+        if "PILOSA_TPU_PLANNER_EXPLORE_EVERY" in env:
+            self.planner_explore_every = int(env["PILOSA_TPU_PLANNER_EXPLORE_EVERY"])
+        if "PILOSA_TPU_PLANNER_PIN_LANE" in env:
+            self.planner_pin_lane = env["PILOSA_TPU_PLANNER_PIN_LANE"]
+        if "PILOSA_TPU_PLANNER_PREARM_BUDGET_MS" in env:
+            self.planner_prearm_budget_ms = float(
+                env["PILOSA_TPU_PLANNER_PREARM_BUDGET_MS"]
+            )
+        if "PILOSA_TPU_PLANNER_ADAPTIVE_BUDGETS" in env:
+            self.planner_adaptive_budgets = env[
+                "PILOSA_TPU_PLANNER_ADAPTIVE_BUDGETS"
+            ].lower() in ("1", "true", "yes")
+        if "PILOSA_TPU_SERVER_MAX_THREADS" in env:
+            self.server_max_threads = int(env["PILOSA_TPU_SERVER_MAX_THREADS"])
+        if "PILOSA_TPU_SERVER_WORKERS" in env:
+            self.server_workers = int(env["PILOSA_TPU_SERVER_WORKERS"])
+        if "PILOSA_TPU_QCACHE" in env:
+            self.qcache_enabled = env["PILOSA_TPU_QCACHE"].lower() in ("1", "true", "yes")
+        if "PILOSA_TPU_QCACHE_MAX_BYTES" in env:
+            self.qcache_max_bytes = int(env["PILOSA_TPU_QCACHE_MAX_BYTES"])
+        if "PILOSA_TPU_QCACHE_MIN_COST_MS" in env:
+            self.qcache_min_cost_ms = float(env["PILOSA_TPU_QCACHE_MIN_COST_MS"])
+        if "PILOSA_TPU_RANKING_DEBOUNCE_S" in env:
+            self.ranking_debounce_s = float(env["PILOSA_TPU_RANKING_DEBOUNCE_S"])
+        if "PILOSA_TPU_DEADLINE_MS" in env:
+            self.default_deadline_ms = float(env["PILOSA_TPU_DEADLINE_MS"])
+        if "PILOSA_TPU_QOS_READ_DEPTH" in env:
+            self.qos_read_depth = int(env["PILOSA_TPU_QOS_READ_DEPTH"])
+        if "PILOSA_TPU_QOS_WRITE_DEPTH" in env:
+            self.qos_write_depth = int(env["PILOSA_TPU_QOS_WRITE_DEPTH"])
+        if "PILOSA_TPU_QOS_ADMIN_DEPTH" in env:
+            self.qos_admin_depth = int(env["PILOSA_TPU_QOS_ADMIN_DEPTH"])
+        if "PILOSA_TPU_QOS_QUEUE_WAIT_MS" in env:
+            self.qos_queue_wait_ms = float(env["PILOSA_TPU_QOS_QUEUE_WAIT_MS"])
+        if "PILOSA_TPU_QOS_RETRY_AFTER_MS" in env:
+            self.qos_retry_after_ms = float(env["PILOSA_TPU_QOS_RETRY_AFTER_MS"])
+        if "PILOSA_TPU_TRACE_SAMPLE_RATE" in env:
+            self.trace_sample_rate = float(env["PILOSA_TPU_TRACE_SAMPLE_RATE"])
+        if "PILOSA_TPU_TRACE_SLOW_MS" in env:
+            self.trace_slow_ms = float(env["PILOSA_TPU_TRACE_SLOW_MS"])
+        if "PILOSA_TPU_TRACE_RING" in env:
+            self.trace_ring = int(env["PILOSA_TPU_TRACE_RING"])
+        if "PILOSA_TPU_REPLICA_GROUP" in env:
+            self.replica_group = env["PILOSA_TPU_REPLICA_GROUP"]
+        if "PILOSA_TPU_REPLICA_GROUPS" in env:
+            self.replica_groups = [
+                g.strip() for g in env["PILOSA_TPU_REPLICA_GROUPS"].split(",")
+                if g.strip()
+            ]
+        if "PILOSA_TPU_REPLICA_ROUTER_PORT" in env:
+            self.replica_router_port = int(env["PILOSA_TPU_REPLICA_ROUTER_PORT"])
+        if "PILOSA_TPU_REPLICA_FAILOVER" in env:
+            self.replica_failover = env["PILOSA_TPU_REPLICA_FAILOVER"].lower() in (
+                "1", "true", "yes",
+            )
+        if "PILOSA_TPU_REPLICA_PROBE_INTERVAL" in env:
+            self.replica_probe_interval = float(
+                env["PILOSA_TPU_REPLICA_PROBE_INTERVAL"]
+            )
+        if "PILOSA_TPU_REPLICA_PROBE_MAX_INTERVAL" in env:
+            self.replica_probe_max_interval = float(
+                env["PILOSA_TPU_REPLICA_PROBE_MAX_INTERVAL"]
+            )
+        if "PILOSA_TPU_REPLICA_WAL_DIR" in env:
+            self.replica_wal_dir = env["PILOSA_TPU_REPLICA_WAL_DIR"]
+        if "PILOSA_TPU_REPLICA_WAL_MAX_BYTES" in env:
+            self.replica_wal_max_bytes = int(env["PILOSA_TPU_REPLICA_WAL_MAX_BYTES"])
+        if "PILOSA_TPU_REPLICA_ANTI_ENTROPY_INTERVAL" in env:
+            self.replica_anti_entropy_interval = float(
+                env["PILOSA_TPU_REPLICA_ANTI_ENTROPY_INTERVAL"]
+            )
+        if "PILOSA_TPU_REPLICA_RESYNC_CHUNK_BYTES" in env:
+            self.replica_resync_chunk_bytes = int(
+                env["PILOSA_TPU_REPLICA_RESYNC_CHUNK_BYTES"]
+            )
+        if "PILOSA_TPU_REPLICA_RESYNC_COLUMNAR" in env:
+            self.replica_resync_columnar = env[
+                "PILOSA_TPU_REPLICA_RESYNC_COLUMNAR"
+            ].lower() in ("1", "true", "yes")
+        if "PILOSA_TPU_REPLICA_SHARDS" in env:
+            self.replica_shards = int(env["PILOSA_TPU_REPLICA_SHARDS"])
+        if "PILOSA_TPU_REPLICA_SHARD_MAP" in env:
+            self.replica_shard_map = env["PILOSA_TPU_REPLICA_SHARD_MAP"]
+        if "PILOSA_TPU_REPLICA_SHARD_SPAN" in env:
+            self.replica_shard_span = int(env["PILOSA_TPU_REPLICA_SHARD_SPAN"])
+        if "PILOSA_TPU_INGEST_CHUNK_BYTES" in env:
+            self.ingest_chunk_bytes = int(env["PILOSA_TPU_INGEST_CHUNK_BYTES"])
+        if "PILOSA_TPU_BULK_BATCH_SLICES" in env:
+            self.bulk_batch_slices = int(env["PILOSA_TPU_BULK_BATCH_SLICES"])
+        if "PILOSA_TPU_BULK_MATERIALIZE_BUDGET_MS" in env:
+            self.bulk_materialize_budget_ms = float(
+                env["PILOSA_TPU_BULK_MATERIALIZE_BUDGET_MS"]
+            )
+        if "PILOSA_TPU_CLIENT_RETRY_BUDGET" in env:
+            self.client_retry_budget = int(env["PILOSA_TPU_CLIENT_RETRY_BUDGET"])
+        if "PILOSA_TPU_LOCKSTEP_ACK_TIMEOUT" in env:
+            self.lockstep_ack_timeout = float(env["PILOSA_TPU_LOCKSTEP_ACK_TIMEOUT"])
+        if "PILOSA_TPU_LOCKSTEP_CONNECT_TIMEOUT" in env:
+            self.lockstep_connect_timeout = float(
+                env["PILOSA_TPU_LOCKSTEP_CONNECT_TIMEOUT"]
+            )
+        if "PILOSA_TPU_LOCKSTEP_QUEUE_DEPTH" in env:
+            self.lockstep_queue_depth = int(env["PILOSA_TPU_LOCKSTEP_QUEUE_DEPTH"])
+        if "PILOSA_TPU_TENANCY" in env:
+            self.tenancy_enabled = env["PILOSA_TPU_TENANCY"].lower() in (
+                "1", "true", "yes",
+            )
+        if "PILOSA_TPU_TENANCY_WEIGHTS" in env:
+            self.tenancy_weights = env["PILOSA_TPU_TENANCY_WEIGHTS"]
+        if "PILOSA_TPU_TENANCY_DEFAULT_WEIGHT" in env:
+            self.tenancy_default_weight = float(
+                env["PILOSA_TPU_TENANCY_DEFAULT_WEIGHT"]
+            )
+        if "PILOSA_TPU_TENANCY_MAP" in env:
+            self.tenancy_map = env["PILOSA_TPU_TENANCY_MAP"]
+        if "PILOSA_TPU_TENANCY_QCACHE_SHARE" in env:
+            self.tenancy_qcache_share = env["PILOSA_TPU_TENANCY_QCACHE_SHARE"]
+        if "PILOSA_TPU_TENANCY_INGEST_BYTES_PER_S" in env:
+            self.tenancy_ingest_bytes_per_s = int(
+                env["PILOSA_TPU_TENANCY_INGEST_BYTES_PER_S"]
+            )
+        return self
+
+    def to_toml(self) -> str:
+        lines = [
+            f'data-dir = "{self.data_dir}"',
+            f'host = "{self.host}"',
+            f'stats = "{self.stats}"',
+            "",
+            "[cluster]",
+            f'  type = "{self.cluster.type}"',
+            f"  replicas = {self.cluster.replica_n}",
+            f"  hosts = [{', '.join(repr(h) for h in self.cluster.hosts)}]".replace("'", '"'),
+            f"  internal-port = {self.cluster.internal_port}",
+            "",
+            "[anti-entropy]",
+            f'  interval = "{int(self.anti_entropy_interval)}s"',
+        ]
+        return "\n".join(lines) + "\n"
+
+
+def _interval(v, default: float) -> float:
+    """Parse '10m'/'600s'/number into seconds."""
+    if v is None:
+        return default
+    if isinstance(v, (int, float)):
+        return float(v)
+    v = str(v).strip()
+    try:
+        if v.endswith("ms"):
+            return float(v[:-2]) / 1000
+        if v.endswith("s") and not v.endswith("ms"):
+            return float(v[:-1])
+        if v.endswith("m"):
+            return float(v[:-1]) * 60
+        if v.endswith("h"):
+            return float(v[:-1]) * 3600
+        return float(v)
+    except ValueError:
+        return default

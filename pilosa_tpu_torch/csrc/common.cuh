@@ -22,6 +22,13 @@ __device__ __forceinline__ int apply_op(int a, int b) {
   return a;
 }
 
+// The op applied to each of four words.
+template <int OP>
+__device__ __forceinline__ int4 op4(int4 a, int4 b) {
+  return make_int4(apply_op<OP>(a.x, b.x), apply_op<OP>(a.y, b.y), apply_op<OP>(a.z, b.z),
+                   apply_op<OP>(a.w, b.w));
+}
+
 template <int OP>
 __device__ __forceinline__ int popc_op4(int4 a, int4 b) {
   return __popc(apply_op<OP>(a.x, b.x)) + __popc(apply_op<OP>(a.y, b.y)) +

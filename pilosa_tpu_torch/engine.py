@@ -430,7 +430,7 @@ class TorchEngine:
         return self._counts(self.gather_count_multi_dev(op, row_matrix, idx))
 
     def gather_count_multi_dev(self, op: str, row_matrix, idx):
-        return dispatch.gather_count_multi(op, row_matrix, idx).long()
+        return dispatch.gather_count_multi(op, row_matrix.contiguous(), idx).long()
 
     def gather_count_or_multi(self, row_matrix, idx) -> np.ndarray:
         return self.gather_count_multi("or", row_matrix, idx)
@@ -439,7 +439,7 @@ class TorchEngine:
         return self._counts(self.gather_count_tree_dev(row_matrix, leaves, opc))
 
     def gather_count_tree_dev(self, row_matrix, leaves, opc):
-        return dispatch.gather_count_tree(row_matrix, leaves, opc).long()
+        return dispatch.gather_count_tree(row_matrix.contiguous(), leaves, opc).long()
 
     # -- row-major lane (kernels not ported: CPU plain versions only) -----
 
@@ -593,9 +593,12 @@ class TorchEngine:
 
 def new_engine(name: str = "auto"):
     """Engine factory: "torch" and "auto" are ``TorchEngine("cuda")`` (which
-    raises without CUDA), "numpy" the host engine."""
+    raises without CUDA), "numpy" the host engine, and "torch:cpu" the
+    torch engine on the CPU (plain versions; only when asked for)."""
     if name in ("auto", "torch"):
         return TorchEngine("cuda")
+    if name == "torch:cpu":
+        return TorchEngine("cpu")
     if name == "numpy":
         return NumpyEngine()
     raise ValueError(f"unknown engine: {name!r}")

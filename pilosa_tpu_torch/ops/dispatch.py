@@ -7,9 +7,11 @@ version (each wrapper in ``ops/kernels.py`` makes that choice itself).
 What this module decides is WHICH kernel serves a call — the resident
 or the gather pair kernel — and the Gram gate the executor imports.
 
-Lanes whose kernels are not ported yet (the K-operand multi fold, the
-tree fold, and the row-major gather) run their plain versions on the
-CPU and raise ``NotImplementedError`` on a CUDA tensor (ROADMAP Queue 2).
+The row-major lanes, whose kernels are not ported yet, run their plain
+versions on the CPU and raise ``NotImplementedError`` on a CUDA tensor
+(ROADMAP Queue 2).  The multi and tree folds read their ids from global
+memory, so unlike the TPU dispatch no batch is cut into id chunks: any
+B and K run in one launch.
 """
 
 from __future__ import annotations
@@ -76,16 +78,13 @@ def _not_ported(t: torch.Tensor, lane: str) -> None:
 
 def gather_count_multi(op: str, row_matrix: torch.Tensor, idx):
     """K-operand left-fold counts (N-operand Intersect/Union/Difference,
-    Range covers) -> int32[B].  CPU only until its kernel is ported."""
-    _not_ported(row_matrix, "gather_count_multi")
-    return bitwise.gather_count_multi(op, row_matrix, idx)
+    Range covers) -> int32[B]."""
+    return kernels.gather_count_multi(op, row_matrix, idx)
 
 
 def gather_count_tree(row_matrix: torch.Tensor, leaves, opc):
-    """Perfect-tree opcode-fold counts (nested Count trees) -> int32[B].
-    CPU only until its kernel is ported."""
-    _not_ported(row_matrix, "gather_count_tree")
-    return bitwise.gather_count_tree(row_matrix, leaves, opc)
+    """Perfect-tree opcode-fold counts (nested Count trees) -> int32[B]."""
+    return kernels.gather_count_tree(row_matrix, leaves, opc)
 
 
 def gather_count_rowmajor(op: str, row_major: torch.Tensor, pairs):

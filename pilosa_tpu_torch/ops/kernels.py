@@ -17,11 +17,13 @@ Every wrapper:
 - adds one to ``LAUNCHES[name]`` where it launches its kernel, and
   nowhere else.
 
-The four kernels replace the Pallas kernels on the executor's Count and
+The six kernels replace the Pallas kernels on the executor's Count and
 TopN path (pilosa_tpu/ops/pallas_kernels.py): fused_count1 and
 fused_count2 (``count_rows``), fused_resident_count2
-(``resident_count2``), fused_gather_count2 (``gather_count2``), and
-fused_gather_src_counts (``gather_src_counts``).  All four are bound by
+(``resident_count2``), fused_gather_count2 (``gather_count2``),
+fused_gather_src_counts (``gather_src_counts``), fused_gather_count_multi
+with fused_gather_count_or (``gather_count_multi``), and
+fused_gather_count_tree (``gather_count_tree``).  All six are bound by
 device-memory bytes on this card; each source says what its design does
 about that.
 """
@@ -48,7 +50,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-KERNELS = ("count_rows", "resident_count2", "gather_count2", "gather_src_counts")
+KERNELS = (
+    "count_rows", "resident_count2", "gather_count2", "gather_src_counts",
+    "gather_count_multi", "gather_count_tree",
+)
 
 # Launch counters: one per kernel, bumped only where the kernel launches.
 LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -67,6 +72,8 @@ _ARGTYPES = {
     "resident_count2": ("pk_resident_count2", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "gather_count2": ("pk_gather_count2", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "gather_src_counts": ("pk_gather_src_counts", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "gather_count_multi": ("pk_gather_count_multi", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "gather_count_tree": ("pk_gather_count_tree", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 _build_mu = threading.Lock()
@@ -172,14 +179,21 @@ def _words(t: torch.Tensor, what: str, ndim: int) -> None:
         raise ValueError(f"{what}: rows must be 16-byte aligned (W % 4 == 0)")
 
 
+def _ints(a, device) -> torch.Tensor:
+    """Host ints (numpy, list or CPU tensor) as a contiguous int32 tensor
+    on the card: staged in pinned memory and copied on the current stream
+    without waiting for it (no implicit device sync in a wrapper)."""
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def _ids(ids, n_rows: int, device, what: str) -> torch.Tensor:
-    """Host row ids (numpy or list) as a contiguous int32 tensor on
-    ``device``, bounds-checked before upload: a kernel would read out of
-    bounds."""
+    """Host row ids as a contiguous int32 tensor on ``device``,
+    bounds-checked before upload: a kernel would read out of bounds."""
     a = np.ascontiguousarray(ids, dtype=np.int32)
     if a.size and (a.min() < 0 or a.max() >= n_rows):
         raise IndexError(f"{what}: row id out of range [0, {n_rows})")
-    return torch.from_numpy(a).to(device)
+    return _ints(a, device)
 
 
 # ---------------------------------------------------------------------------
@@ -343,3 +357,76 @@ def gather_src_counts(row_matrix: torch.Tensor, pos, src_stack: torch.Tensor) ->
     LAUNCHES["gather_src_counts"] += 1
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# gather_count_multi (fused_gather_count_multi, fused_gather_count_or)
+# ---------------------------------------------------------------------------
+
+MULTI_OPS = ("and", "or", "andnot")
+
+
+def gather_count_multi_plain(op: str, row_matrix, idx):
+    return bitwise.gather_count_multi(op, row_matrix, idx)
+
+
+def gather_count_multi(op: str, row_matrix: torch.Tensor, idx) -> torch.Tensor:
+    """Per-query ``sum_s popcount(fold_j rm[s, idx[q, j]])`` -> int32[B]
+    for a left fold of K >= 1 gathered rows (and / or / andnot, andnot
+    folding ``acc & ~row``); any B and K run in one launch."""
+    if op not in MULTI_OPS:
+        raise ValueError(f"unsupported multi-op {op!r}")
+    if _on_cpu(row_matrix):
+        return gather_count_multi_plain(op, row_matrix, idx)
+    _words(row_matrix, "gather_count_multi matrix", 3)
+    s, r, w = row_matrix.shape
+    ix = _ids(idx, r, row_matrix.device, "gather_count_multi idx")
+    if ix.dim() != 2 or ix.shape[1] < 1:
+        raise ValueError(f"gather_count_multi: idx shape {tuple(ix.shape)}, want [B, K >= 1]")
+    b, k = ix.shape
+    out = torch.zeros(b, dtype=torch.int32, device=row_matrix.device)
+    err = _fn("gather_count_multi")(
+        row_matrix.data_ptr(), ix.data_ptr(), out.data_ptr(), s, r, w, b, k, OPS[op],
+        _stream(row_matrix),
+    )
+    _check(err, "gather_count_multi")
+    LAUNCHES["gather_count_multi"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# gather_count_tree (fused_gather_count_tree)
+# ---------------------------------------------------------------------------
+
+# Leaf counts the tree kernel is built for: depths 1-4 (the executor's
+# _TREE_DEPTH_MAX is 4).
+TREE_LEAVES = (2, 4, 8, 16)
+
+
+def gather_count_tree_plain(row_matrix, leaves, opc):
+    return bitwise.gather_count_tree(row_matrix, leaves, opc)
+
+
+def gather_count_tree(row_matrix: torch.Tensor, leaves, opc) -> torch.Tensor:
+    """Per-query ``sum_s popcount(tree(rm[s, leaves[q]]))`` -> int32[B] for
+    a perfect tree of K = 2^D leaves and K - 1 opcodes, level-major
+    bottom-up (``bitwise.gather_count_tree`` gives the encoding)."""
+    if _on_cpu(row_matrix):
+        return gather_count_tree_plain(row_matrix, leaves, opc)
+    _words(row_matrix, "gather_count_tree matrix", 3)
+    s, r, w = row_matrix.shape
+    lv = _ids(leaves, r, row_matrix.device, "gather_count_tree leaves")
+    oc = _ints(opc, row_matrix.device)
+    if lv.dim() != 2 or lv.shape[1] not in TREE_LEAVES:
+        raise ValueError(f"gather_count_tree: leaves shape {tuple(lv.shape)}, want [B, K in {TREE_LEAVES}]")
+    b, k = lv.shape
+    if tuple(oc.shape) != (b, k - 1):
+        raise ValueError(f"gather_count_tree: opc shape {tuple(oc.shape)}, want {(b, k - 1)}")
+    out = torch.zeros(b, dtype=torch.int32, device=row_matrix.device)
+    err = _fn("gather_count_tree")(
+        row_matrix.data_ptr(), lv.data_ptr(), oc.data_ptr(), out.data_ptr(), s, r, w, b, k,
+        _stream(row_matrix),
+    )
+    _check(err, "gather_count_tree")
+    LAUNCHES["gather_count_tree"] += 1
+    return out

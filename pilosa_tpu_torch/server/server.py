@@ -1,0 +1,539 @@
+"""Server composition: holder + executor + handler + cluster + loops.
+
+Reference analog: server.go (wiring + lifecycle server.go:42-158) and
+server/server.go (cluster-type selection).  Background loops:
+
+- anti-entropy every ``anti_entropy_interval`` (default 10 min,
+  server.go:186-218) via HolderSyncer,
+- max-slice polling of peers every ``polling_interval`` (default 60 s,
+  server.go:221-256) so reads span slices created elsewhere,
+- rank-cache flush every 60 s (holder.go:324-358).
+
+Broadcast receive (server.go:259-304): schema mutations arriving from
+peers are applied to the local holder.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Optional
+
+from pilosa_tpu_torch import broadcast as bc
+from pilosa_tpu_torch.cluster import Cluster, Node
+from pilosa_tpu_torch.config import (
+    CLUSTER_TYPE_GOSSIP,
+    CLUSTER_TYPE_HTTP,
+    CLUSTER_TYPE_STATIC,
+    Config,
+)
+from pilosa_tpu_torch.core.frame import FrameOptions
+from pilosa_tpu_torch.core.holder import CACHE_FLUSH_INTERVAL, Holder
+from pilosa_tpu_torch.core.index import IndexOptions
+from pilosa_tpu_torch.executor import Executor
+import logging
+
+from pilosa_tpu_torch.pilosa import PilosaError
+from pilosa_tpu_torch.server.client import Client
+from pilosa_tpu_torch.server.handler import Handler, serve
+from pilosa_tpu_torch.syncer import HolderSyncer
+
+_logger = logging.getLogger("pilosa_tpu_torch")
+
+
+class Server:
+    def __init__(self, config: Optional[Config] = None, stats=None):
+        from pilosa_tpu_torch.stats import new_stats_client
+
+        self.config = config or Config()
+        if stats is None:
+            stats = new_stats_client(self.config.stats)
+        self.stats = stats
+        self.host = self.config.host
+        self.data_dir = os.path.expanduser(self.config.data_dir)
+
+        # [cache] ranking-debounce-s threads through holder construction
+        # (Holder -> Index -> Frame -> View -> Fragment), never a module
+        # global — two servers in one process keep independent settings.
+        self.holder = Holder(
+            self.data_dir,
+            stats=stats,
+            ranking_debounce_s=self.config.ranking_debounce_s,
+        )
+        self.cluster = self._build_cluster()
+        # Peer clients inherit the configured retry budget ([client]
+        # retry-budget) and count their retries into this server's stats.
+        self.client_factory = lambda host: Client(
+            host, retry_budget=self.config.client_retry_budget, stats=stats
+        )
+        # Multi-tenant isolation ([tenancy]): the shared resolution seam
+        # + fair-share/quota/pacer state handed to the admission doors,
+        # the qcache, and the handler.  None (the default) keeps every
+        # seam on its pre-tenancy path byte-identically.
+        from pilosa_tpu_torch import tenancy as tenancy_mod
+
+        self.tenancy = tenancy_mod.from_config(self.config, stats=stats)
+        # Generation-keyed query result cache ([qcache]): sits in front
+        # of the executor's read paths; None = disabled.
+        from pilosa_tpu_torch.qcache import QueryCache
+
+        self.qcache = (
+            QueryCache(
+                max_bytes=self.config.qcache_max_bytes,
+                min_cost_ms=self.config.qcache_min_cost_ms,
+                stats=stats,
+                tenancy=self.tenancy,
+            )
+            if self.config.qcache_enabled
+            else None
+        )
+        # Device-side cost attribution + per-fingerprint cost ledger
+        # (costs.py): the meter instruments the executor's engine
+        # dispatch seams, the ledger folds finished traces and serves
+        # /debug/costs.  PILOSA_TPU_COSTS=0 disables both (the bench
+        # overhead gate's A/B lever).
+        from pilosa_tpu_torch import costs as costs_mod
+
+        self.costs = (
+            costs_mod.CostLedger(stats=stats)
+            if costs_mod.enabled_from_env()
+            else None
+        )
+        # Cost-based adaptive planner ([planner]): turns the ledger from
+        # telemetry into control flow — per-fingerprint lane selection
+        # (consulted by the handler front door, applied by the executor),
+        # ledger-derived budgets, and optional background pre-arming.
+        # All three require the ledger; PILOSA_TPU_COSTS=0 or [planner]
+        # enabled=false keeps the pre-planner static behavior exactly.
+        self.planner = None
+        self.budgets = None
+        self.prearmer = None
+        if self.costs is not None and self.config.planner_enabled:
+            from pilosa_tpu_torch import planner as planner_mod
+
+            self.planner = planner_mod.Planner(
+                self.costs,
+                min_samples=self.config.planner_min_samples,
+                hysteresis=self.config.planner_hysteresis,
+                explore_every=self.config.planner_explore_every,
+                pin=self.config.planner_pin_lane,
+                stats=stats,
+            )
+            if self.config.planner_adaptive_budgets:
+                self.budgets = planner_mod.AdaptiveBudgets(
+                    self.costs,
+                    qcache_min_cost_ms=self.config.qcache_min_cost_ms,
+                    resync_chunk_bytes=self.config.replica_resync_chunk_bytes,
+                    stats=stats,
+                )
+                if self.qcache is not None:
+                    self.qcache.budgets = self.budgets
+            if self.config.planner_prearm_budget_ms > 0:
+                self.prearmer = planner_mod.PreArmer(
+                    budget_ms=self.config.planner_prearm_budget_ms,
+                    stats=stats,
+                )
+        self.executor = Executor(
+            self.holder,
+            engine=self.config.engine,
+            cluster=self.cluster if len(self.cluster.nodes) > 1 else None,
+            client_factory=self.client_factory,
+            host=self.host,
+            max_writes_per_request=self.config.max_writes_per_request,
+            serve_state_cache=self.config.serve_state_cache,
+            repair_rows_max=self.config.repair_rows_max,
+            gram_rows_max=self.config.gram_rows_max,
+            no_gram=self.config.no_gram,
+            stream_bytes=self.config.stream_bytes,
+            slice_chunk=self.config.slice_chunk,
+            matrix_cache_entries=self.config.matrix_cache_entries,
+            matrix_rows_max=self.config.matrix_rows_max,
+            qcache=self.qcache,
+            # Server ingest routes singleton SetBits through the
+            # group-commit queue (concurrent clients batch into one
+            # fragment pass + WAL append); opt out via env for A/B runs.
+            write_queue=os.environ.get("PILOSA_TPU_WRITE_QUEUE", "1").lower()
+            not in ("0", "false", "no"),
+            stats=stats if self.costs is not None else None,
+        )
+        # The executor APPLIES plans (ExecOptions.plan) and folds
+        # outcomes back; it never consults — see executor.__init__.
+        self.executor.planner = self.planner
+        self.executor.prearmer = self.prearmer
+        self.broadcaster, self.receiver = self._build_broadcast()
+        # Request-scoped span tracer ([trace] sample-rate / slow-ms /
+        # ring).  Always constructed: the zero-rate default costs one
+        # header lookup per request and keeps the X-Pilosa-Trace force
+        # override (and the slow-query log, when slow-ms is set) live.
+        from pilosa_tpu_torch import trace as trace_mod
+
+        self.tracer = trace_mod.from_config(self.config, stats=stats,
+                                            costs=self.costs)
+        from pilosa_tpu_torch.qos import CLASS_ADMIN, CLASS_READ, CLASS_WRITE, AdmissionController
+
+        self.admission = AdmissionController(
+            depths={
+                CLASS_READ: self.config.qos_read_depth,
+                CLASS_WRITE: self.config.qos_write_depth,
+                CLASS_ADMIN: self.config.qos_admin_depth,
+            },
+            queue_wait_ms=self.config.qos_queue_wait_ms,
+            retry_after_ms=self.config.qos_retry_after_ms,
+            stats=stats,
+            tenancy=self.tenancy,
+        )
+        # Replica durability: a group-tagged server persists its
+        # last-applied router write sequence next to the data, so a
+        # RESTARTED group reports where it left off and the router
+        # replays exactly the missed WAL suffix (replica/catchup.py).
+        from pilosa_tpu_torch.replica.catchup import AppliedSeq
+
+        self.applied_seq = (
+            AppliedSeq(os.path.join(self.data_dir, "applied_seq"))
+            if self.config.replica_group
+            else None
+        )
+        self.handler = Handler(
+            self.holder,
+            self.executor,
+            cluster=self.cluster,
+            host=self.host,
+            broadcaster=bc.SchemaBroadcaster(self.broadcaster),
+            stats=stats,
+            client_factory=self.client_factory,
+            admission=self.admission,
+            default_deadline_ms=self.config.default_deadline_ms,
+            tracer=self.tracer,
+            # [replica] group: this server's serving-group identity
+            # behind the replica router (X-Pilosa-Group on responses).
+            group=self.config.replica_group,
+            applied_seq=self.applied_seq,
+            # [ingest] chunk-bytes: the streaming bulk-ingest door's
+            # per-chunk ceiling.
+            ingest_chunk_bytes=self.config.ingest_chunk_bytes,
+            costs=self.costs,
+            # [planner]: the front-door consultation point (plan_for per
+            # query request) and the /debug/planner payload.
+            planner=self.planner,
+            # [bulk]: device bulk build door (POST .../bulk) commit
+            # batching + lazy-materialization drain budget.
+            bulk_batch_slices=self.config.bulk_batch_slices,
+            bulk_materialize_budget_ms=self.config.bulk_materialize_budget_ms,
+            # [tenancy]: resolution + fair-share enforcement state (None
+            # = isolation off).
+            tenancy=self.tenancy,
+        )
+        self.syncer = HolderSyncer(
+            self.holder, self.cluster, self.host, self.client_factory, stats=stats
+        )
+
+        self._httpd = None
+        self._closing = threading.Event()
+        self._threads: list[threading.Thread] = []
+        # Distinct (kind, name) items already warned about during status
+        # merges — a steady-state bad peer item logs once, not per sync.
+        self._merge_warned: set[tuple] = set()
+
+    # -- wiring ----------------------------------------------------------
+
+    def _build_cluster(self) -> Cluster:
+        hosts = self.config.cluster.hosts or [self.config.host]
+        internal = self.config.cluster.internal_hosts
+        nodes = [
+            Node(host=h, internal_host=internal[i] if i < len(internal) else "")
+            for i, h in enumerate(hosts)
+        ]
+        return Cluster(nodes=nodes, replica_n=self.config.cluster.replica_n)
+
+    def _build_broadcast(self):
+        ctype = self.config.cluster.type
+        # Gossip membership is dynamic — a single configured host still
+        # gossips; the other types need a static peer list to matter.
+        if ctype == CLUSTER_TYPE_STATIC or (
+            ctype != CLUSTER_TYPE_GOSSIP and len(self.cluster.nodes) <= 1
+        ):
+            return bc.NopBroadcaster(), None
+        if ctype == CLUSTER_TYPE_HTTP:
+            me = self.cluster.node_by_host(self.host)
+            my_internal = me.internal_host if me else ""
+            internal_hosts = [n.internal_host or n.host for n in self.cluster.nodes]
+            broadcaster = bc.HTTPBroadcaster(internal_hosts, self_host=my_internal, stats=self.stats)
+            port = 0
+            if my_internal and ":" in my_internal:
+                port = int(my_internal.rsplit(":", 1)[1])
+            receiver = bc.HTTPBroadcastReceiver(port)
+            return broadcaster, receiver
+        if ctype == CLUSTER_TYPE_GOSSIP:
+            # SWIM gossip: UDP probe/piggyback + TCP push/pull, with this
+            # server as the StatusHandler (gossip/gossip.go, server.go:310-391).
+            from pilosa_tpu_torch.gossip import GossipNodeSet
+
+            me = self.cluster.node_by_host(self.host)
+            bind = (me.internal_host if me and me.internal_host else "127.0.0.1:0")
+            nodeset = GossipNodeSet(
+                name=self.host,
+                bind=bind,
+                seed=self.config.cluster.gossip_seed,
+                status_handler=self,
+                stats=self.stats,
+            )
+            return nodeset, nodeset
+        raise ValueError(f"unknown cluster type: {ctype}")
+
+    # -- lifecycle (server.go:92-158) --------------------------------------
+
+    def open(self) -> None:
+        os.makedirs(self.data_dir, exist_ok=True)
+        self.holder.open()
+        self.holder.on_new_fragment = self._on_new_fragment
+        host, port = self._split_host(self.host)
+        # workers > 1 implies SO_REUSEPORT so sibling worker processes
+        # (spawned at the CLI level on GIL builds) can share the port.
+        self._httpd = serve(
+            self.handler, host=host, port=port,
+            max_threads=self.config.server_max_threads,
+            reuse_port=self.config.server_workers > 1,
+            retry_after_s=self.config.qos_retry_after_ms / 1000.0,
+        )
+        actual_port = self._httpd.server_address[1]
+        if port == 0:
+            self.host = f"{host}:{actual_port}"
+            self.handler.host = self.host
+            self.executor.host = self.host
+            self.syncer.host = self.host
+            if self.cluster.nodes and self.cluster.nodes[0].host == self.config.host:
+                self.cluster.nodes[0].host = self.host
+        if self.receiver is not None:
+            if hasattr(self.receiver, "name"):
+                # Gossip members are named by the resolved API host — an
+                # ephemeral ":0" config port must not leak into the name.
+                self.receiver.name = self.host
+            self.receiver.start(self.receive_message)
+            if hasattr(self.receiver, "open"):
+                self.receiver.open()  # gossip: bind sockets + join seed
+        self._start_loop(self._monitor_anti_entropy, self.config.anti_entropy_interval)
+        self._start_loop(self._monitor_max_slices, self.config.cluster.polling_interval)
+        self._start_loop(self._flush_caches, CACHE_FLUSH_INTERVAL)
+        if self.prearmer is not None:
+            self.prearmer.start()
+
+    def close(self) -> None:
+        self._closing.set()
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            # Release the listening socket and stop the pool workers
+            # (a REUSEPORT sibling must not inherit a half-dead port).
+            self._httpd.server_close()
+            self._httpd = None
+        if self.receiver is not None:
+            self.receiver.close()
+        if self.prearmer is not None:
+            self.prearmer.close()
+        self.holder.close()
+
+    @staticmethod
+    def _split_host(host: str) -> tuple[str, int]:
+        host = host.replace("http://", "")
+        if ":" in host:
+            name, port = host.rsplit(":", 1)
+            return name or "localhost", int(port)
+        return host, 10101
+
+    @property
+    def port(self) -> int:
+        return self._httpd.server_address[1] if self._httpd else 0
+
+    def _log_merge_skip(self, key: tuple, msg: str) -> None:
+        """Warn once per distinct (item, error) — steady-state bad peers
+        don't spam every sync, but a NEW failure mode for the same item
+        still surfaces."""
+        if key in self._merge_warned:
+            return
+        if len(self._merge_warned) > 1024:
+            self._merge_warned.clear()
+        self._merge_warned.add(key)
+        _logger.warning(msg)
+
+    # -- background loops ---------------------------------------------------
+
+    def _start_loop(self, fn, interval: float) -> None:
+        def loop():
+            while not self._closing.wait(interval):
+                try:
+                    fn()
+                except Exception:
+                    # A failed monitor pass (anti-entropy, max-slice poll)
+                    # retries next tick; make the failures countable.
+                    self.stats.count("server.monitor_errors")
+
+        t = threading.Thread(target=loop, daemon=True)
+        t.start()
+        self._threads.append(t)
+
+    def _monitor_anti_entropy(self) -> None:
+        if len(self.cluster.nodes) > 1:
+            self.syncer.sync_holder()
+
+    def _monitor_max_slices(self) -> None:
+        """Poll peers' /slices/max so local reads span remote slices
+        (server.go:221-256)."""
+        if len(self.cluster.nodes) <= 1:
+            return
+        for node in self.cluster.nodes:
+            if node.host == self.host:
+                continue
+            client = self.client_factory(node.host)
+            try:
+                maxes = client.max_slices()
+                inverse_maxes = client.max_slices(inverse=True)
+            except Exception:
+                self.stats.count("server.monitor_peer_errors")
+                continue
+            for index_name, max_slice in maxes.items():
+                idx = self.holder.index(index_name)
+                if idx is not None:
+                    idx.set_remote_max_slice(max_slice)
+            for index_name, max_slice in inverse_maxes.items():
+                idx = self.holder.index(index_name)
+                if idx is not None:
+                    idx.set_remote_max_inverse_slice(max_slice)
+
+    def _flush_caches(self) -> None:
+        self.holder.flush_caches()
+
+    # -- broadcast integration ----------------------------------------------
+
+    def _on_new_fragment(self, index: str, frame: str, view: str, slice_i: int) -> None:
+        """New max slice created locally → async CreateSliceMessage
+        (view.go:219-254)."""
+        from pilosa_tpu_torch.core.view import VIEW_INVERSE
+
+        try:
+            self.broadcaster.send_async(
+                bc.encode_create_slice(index, slice_i, is_inverse=(view == VIEW_INVERSE))
+            )
+        except Exception:
+            self.stats.count("server.broadcast_errors")
+
+    # -- StatusHandler (server.go:310-391, carried by gossip push/pull) -----
+
+    def local_status(self) -> bytes:
+        """Encode this node's schema + owned slices as internal.NodeStatus
+        (server.go:310-327)."""
+        from pilosa_tpu_torch import wire
+
+        indexes = []
+        for name, idx in sorted(self.holder.indexes.items()):
+            max_slice = idx.max_slice()
+            indexes.append({
+                "name": name,
+                "meta": {"columnLabel": idx.column_label, "timeQuantum": idx.time_quantum},
+                "maxSlice": max_slice,
+                "frames": [
+                    {"name": fname, "meta": fr.schema_json()}
+                    for fname, fr in sorted(idx.frames.items())
+                ],
+                "slices": self.cluster.owns_slices(name, max_slice, self.host),
+            })
+        return wire.encode_node_status(self.host, "UP", indexes)
+
+    def handle_remote_status(self, buf: bytes) -> None:
+        """Merge a peer's NodeStatus: create missing indexes/frames, track
+        remote max slices (server.go:355-391)."""
+        from pilosa_tpu_torch import wire
+
+        ns = wire.decode_node_status(buf)
+        node = self.cluster.node_by_host(ns.get("host", ""))
+        if node is not None and ns.get("state"):
+            node.state = ns["state"]
+        for idx_status in ns.get("indexes", []):
+            # Per-item isolation: one peer-advertised index/frame with
+            # invalid options (e.g. persisted by an older node) must not
+            # abort the REST of the merge — later entries and remote
+            # max-slice tracking still apply.
+            try:
+                name = idx_status["name"]
+                meta = idx_status.get("meta", {}) or {}
+                idx = self.holder.create_index_if_not_exists(
+                    name,
+                    IndexOptions(
+                        column_label=meta.get("columnLabel", ""),
+                        time_quantum=meta.get("timeQuantum", ""),
+                    ),
+                )
+            except (PilosaError, KeyError, TypeError, AttributeError) as e:
+                # Invalid options OR a structurally-malformed item from a
+                # different-version peer: skip it, keep merging the rest.
+                self._log_merge_skip(
+                    ("index", str(idx_status.get("name")), str(e)),
+                    f"status merge: skipping index {idx_status.get('name')!r}: {e}",
+                )
+                continue
+            for fr in idx_status.get("frames", []):
+                try:
+                    fmeta = fr.get("meta", {}) or {}
+                    idx.create_frame_if_not_exists(
+                        fr["name"],
+                        FrameOptions(
+                            row_label=fmeta.get("rowLabel", ""),
+                            inverse_enabled=fmeta.get("inverseEnabled", False),
+                            cache_type=fmeta.get("cacheType", ""),
+                            cache_size=fmeta.get("cacheSize", 0),
+                            time_quantum=fmeta.get("timeQuantum", ""),
+                        ),
+                    )
+                except (PilosaError, KeyError, TypeError, AttributeError) as e:
+                    self._log_merge_skip(
+                        ("frame", name, str(fr.get("name") if hasattr(fr, "get") else fr), str(e)),
+                        f"status merge: skipping frame {name}/{fr!r}: {e}",
+                    )
+            if idx_status.get("maxSlice", 0) > idx.max_slice():
+                idx.set_remote_max_slice(idx_status["maxSlice"])
+
+    def receive_message(self, data: bytes) -> None:
+        """Apply a peer's schema mutation (server.go:259-304)."""
+        typ, msg = bc.decode_message(data)
+        if typ == bc.MESSAGE_TYPE_CREATE_SLICE:
+            idx = self.holder.index(msg["index"])
+            if idx is not None:
+                if msg.get("isInverse"):
+                    idx.set_remote_max_inverse_slice(msg["slice"])
+                else:
+                    idx.set_remote_max_slice(msg["slice"])
+        elif typ == bc.MESSAGE_TYPE_CREATE_INDEX:
+            meta = msg.get("meta", {})
+            self.holder.create_index_if_not_exists(
+                msg["index"],
+                IndexOptions(
+                    column_label=meta.get("columnLabel", ""),
+                    time_quantum=meta.get("timeQuantum", ""),
+                ),
+            )
+        elif typ == bc.MESSAGE_TYPE_DELETE_INDEX:
+            try:
+                self.holder.delete_index(msg["index"])
+            except Exception:
+                # Remote delete for an index this node never created:
+                # already converged, but keep the count honest.
+                self.stats.count("server.receive_message_errors")
+        elif typ == bc.MESSAGE_TYPE_CREATE_FRAME:
+            idx = self.holder.index(msg["index"])
+            if idx is not None:
+                meta = msg.get("meta", {})
+                idx.create_frame_if_not_exists(
+                    msg["frame"],
+                    FrameOptions(
+                        row_label=meta.get("rowLabel", ""),
+                        inverse_enabled=meta.get("inverseEnabled", False),
+                        cache_type=meta.get("cacheType", ""),
+                        cache_size=meta.get("cacheSize", 0),
+                        time_quantum=meta.get("timeQuantum", ""),
+                    ),
+                )
+        elif typ == bc.MESSAGE_TYPE_DELETE_FRAME:
+            idx = self.holder.index(msg["index"])
+            if idx is not None:
+                try:
+                    idx.delete_frame(msg["frame"])
+                except Exception:
+                    self.stats.count("server.receive_message_errors")

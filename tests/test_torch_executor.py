@@ -8,8 +8,12 @@ executor (JaxEngine on the CPU) and the port's executor
 the cached Gram and the native lookup lane, a ``no_gram`` executor, single
 Counts, TopN with and without ids, and writes followed by re-queries
 (the pool patch and the Gram repair).  Results must be equal, and so must
-every fragment's checksum.
+every fragment's checksum.  A second test sends N-ary, nested,
+multi-operand Xor and time-range Count batches, which reach the multi-fold
+and tree-fold lanes (``dispatch.gather_count_multi`` / ``_tree``).
 """
+
+from datetime import datetime
 
 import numpy as np
 import pytest
@@ -21,6 +25,7 @@ from pilosa_tpu_torch.core.frame import FrameOptions
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.engine import TorchEngine
 from pilosa_tpu_torch.executor import Executor
+from pilosa_tpu_torch.ops import dispatch
 from pilosa_tpu_torch.pilosa import PilosaError, SLICE_WIDTH
 
 PQL = {"and": "Intersect", "or": "Union", "andnot": "Difference", "xor": "Xor"}
@@ -145,6 +150,128 @@ def test_executor_sequence_matches_jax(pair):
         jf = jh.fragment("i", "f", "standard", s)
         tf = th.fragment("i", "f", "standard", s)
         assert tf.checksum() == jf.checksum(), s
+
+
+# Time-quantum data as bench.py stamps it: 48 stamps in 2017 (months 1-12
+# x days {1, 15} x hours {0, 12}); Range spans from its dashboard pool.
+STAMPS = [datetime(2017, m, d, hh) for m in range(1, 13) for d in (1, 15) for hh in (0, 12)]
+SPANS = [
+    ("2017-01-01T00:00", "2018-01-01T00:00"),
+    ("2017-02-01T00:00", "2017-07-15T12:00"),
+    ("2017-03-01T00:00", "2017-04-01T00:00"),
+    ("2017-06-10T00:00", "2017-06-20T00:00"),
+    ("2017-01-05T00:00", "2017-01-20T00:00"),
+    ("2017-01-27T00:00", "2017-02-16T00:00"),
+]
+
+
+def _load_time(holder, frame_options, n_slices, n_rows, bits, seed):
+    """Frame ``t`` (quantum YMD) beside frame ``f``: ``bits`` stamped
+    bits per row per slice."""
+    holder.index("i").create_frame("t", frame_options(time_quantum="YMD"))
+    fr = holder.index("i").frame("t")
+    rng = np.random.default_rng(seed + 50)
+    rows = np.repeat(np.arange(n_rows, dtype=np.uint64), bits * n_slices)
+    cols = (rng.integers(0, SLICE_WIDTH, size=len(rows))
+            + np.tile(np.repeat(np.arange(n_slices) * SLICE_WIDTH, bits), n_rows)).astype(np.uint64)
+    fr.import_bits(rows, cols, [STAMPS[i] for i in rng.integers(0, len(STAMPS), size=len(rows))])
+
+
+def _bm(r, frame="f"):
+    return f'Bitmap(rowID={int(r)}, frame="{frame}")'
+
+
+def _nary_body(rng, n_rows, n):
+    """Count over 3-5 operand Intersect / Union / Difference."""
+    calls = []
+    for i in range(n):
+        op = ("Intersect", "Union", "Difference")[i % 3]
+        k = 3 + i % 3
+        calls.append(f"Count({op}({', '.join(_bm(r) for r in rng.integers(0, n_rows, size=k))}))")
+    return " ".join(calls)
+
+
+def _tree_body(rng, n_rows, n):
+    """Nested Counts of depth 2-4 (two or more depth buckets)."""
+    def b():
+        return _bm(rng.integers(0, n_rows))
+    shapes = [
+        lambda: f"Intersect(Union({b()}, {b()}), Difference({b()}, {b()}))",
+        lambda: f"Union(Intersect(Xor({b()}, {b()}), {b()}), Difference({b()}, Union({b()}, {b()})))",
+        lambda: (f"Xor(Union(Intersect(Xor({b()}, {b()}), {b()}), {b()}), "
+                 f"Difference({b()}, Intersect({b()}, Union({b()}, {b()}))))"),
+        lambda: f"Difference(Union({b()}, {b()}, {b()}), {b()})",
+    ]
+    return " ".join(f"Count({shapes[i % len(shapes)]()})" for i in range(n))
+
+
+def _xor_body(rng, n_rows, n):
+    """Multi-operand Xor (3-5 operands): the tree lane."""
+    return " ".join(
+        f"Count(Xor({', '.join(_bm(r) for r in rng.integers(0, n_rows, size=3 + i % 3))}))"
+        for i in range(n)
+    )
+
+
+def _range_body(rng, n_rows, n):
+    return " ".join(
+        f'Count(Range(rowID={int(r)}, frame="t", start="{SPANS[j][0]}", end="{SPANS[j][1]}"))'
+        for r, j in zip(rng.integers(0, n_rows, size=n), rng.integers(0, len(SPANS), size=n))
+    )
+
+
+@pytest.fixture
+def tq_pair(tmp_path):
+    n_slices, n_rows, seed = 2, 8, 5
+    jh = JHolder(str(tmp_path / "jax"))
+    jh.open()
+    th = Holder(str(tmp_path / "torch"))
+    th.open()
+    for h, fo in ((jh, JFrameOptions), (th, FrameOptions)):
+        _load(h, fo, n_slices, n_rows, 200, seed)
+        _load_time(h, fo, n_slices, n_rows, 60, seed)
+    yield jh, th, n_rows, seed
+    jh.close()
+    th.close()
+
+
+@pytest.mark.parametrize(
+    "kind,lane",
+    [("nary", "multi"), ("tree", "tree"), ("xor", "tree"), ("range", "multi")],
+)
+def test_fold_lanes_match_jax(tq_pair, monkeypatch, kind, lane):
+    """N-ary, nested, multi-Xor and Count(Range) batches: the port's
+    executor on TorchEngine("cpu") answers exactly as the JAX executor,
+    through the multi-fold or tree-fold lane; a write then a re-query
+    covers the Range matrix's rebuild on a generation change."""
+    jh, th, n_rows, seed = tq_pair
+    calls = {"multi": 0, "tree": 0}
+    for name, key in (("gather_count_multi", "multi"), ("gather_count_tree", "tree")):
+        def spy(*a, _o=getattr(dispatch, name), _k=key, **k):
+            calls[_k] += 1
+            return _o(*a, **k)
+
+        monkeypatch.setattr(dispatch, name, spy)
+    ej, et = JExecutor(jh), Executor(th, engine=TorchEngine("cpu"))
+    body = {"nary": _nary_body, "tree": _tree_body, "xor": _xor_body, "range": _range_body}[kind]
+    rng = np.random.default_rng([seed, len(kind)])
+
+    def same(q):
+        want = _norm(ej.execute("i", q))
+        got = _norm(et.execute("i", q))
+        assert got == want, q[:160]
+
+    for _ in range(2):
+        same(body(rng, n_rows, 12))
+    reached = calls[lane]
+    assert reached > 0, calls
+    col = int(rng.integers(0, 2 * SLICE_WIDTH))
+    if kind == "range":
+        same(f'SetBit(rowID=1, frame="t", columnID={col}, timestamp="2017-01-15T00:00")')
+    else:
+        same(f'SetBit(rowID=1, frame="f", columnID={col})')
+    same(body(rng, n_rows, 12))
+    assert calls[lane] > reached, calls
 
 
 @pytest.mark.parametrize("pair", [(2, 6, 50, 3)], indirect=True)

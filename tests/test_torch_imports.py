@@ -75,6 +75,9 @@ def test_importing_the_port_loads_no_jax_or_reference_module():
     assert out.returncode == 0, out.stderr[-2000:]
     new = json.loads(out.stdout.strip().splitlines()[-1])
     assert "pilosa_tpu_torch.executor" in new and "chip_smoke" in new
+    for m in ("server", "server.server", "server.handler", "cli", "cli.main", "planner",
+              "costs", "trace", "ingest", "config", "qos", "tenancy", "wire", "replica.catchup"):
+        assert f"pilosa_tpu_torch.{m}" in new, m
     assert not [m for m in new if _forbidden(m)]
 
 

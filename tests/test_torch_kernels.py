@@ -2,9 +2,11 @@
 versions) against the JAX package's Pallas kernels in interpret mode.
 
 Same seeded numpy inputs through both; integer counts, so every
-comparison is exact (tolerance 0).  Rows 1-5 of the TPU kernel table:
-fused_count1, fused_count2, fused_resident_count2, fused_gather_count2,
-fused_gather_src_counts — plus pair_gram against the JAX Gram.
+comparison is exact (tolerance 0).  The ported rows of the TPU kernel
+table: fused_count1, fused_count2, fused_resident_count2,
+fused_gather_count2, fused_gather_src_counts, fused_gather_count_multi
+(with fused_gather_count_or) and fused_gather_count_tree — plus
+pair_gram against the JAX Gram.
 """
 
 import numpy as np
@@ -185,6 +187,55 @@ def test_plain_gather_count_multi_matches_jax(op):
     np.testing.assert_array_equal(_np(dispatch.gather_count_multi(op, _t(rm), idx)), want)
 
 
+def _pad_multi(rng, idx, op, width):
+    """Pad each query's ids to ``width`` the way the executor does: repeat
+    an operand the fold ignores (and/or: any; andnot: any but the first)."""
+    b, k = idx.shape
+    lo = 1 if (op == "andnot" and k > 1) else 0
+    extra = idx[np.arange(b)[:, None], rng.integers(lo, k, size=(b, width - k))]
+    return np.concatenate([idx, extra], axis=1).astype(np.int32)
+
+
+@pytest.mark.parametrize("w", [1024, 2048])
+@pytest.mark.parametrize("k", [2, 3, 5])
+@pytest.mark.parametrize("op", kernels.MULTI_OPS)
+def test_gather_count_multi_matches_pallas(op, k, w):
+    """The plain version of the multi fold against the Pallas kernel
+    (``acc & ~row`` left fold for andnot, ``a & ~(b | c | ...)`` in the
+    plain version), unpadded and padded the executor's way."""
+    rng = np.random.default_rng([kernels.MULTI_OPS.index(op), k, w])
+    s, r, b = 2, 12, 7
+    rm = _words(rng, (s, r, w))
+    idx = rng.integers(0, r, size=(b, k), dtype=np.int32)
+    padded = _pad_multi(rng, idx, op, k + 3)
+    want = np.asarray(pk.fused_gather_count_multi(op, jnp.asarray(rm), jnp.asarray(idx), interpret=True))
+    np.testing.assert_array_equal(
+        np.asarray(pk.fused_gather_count_multi(op, jnp.asarray(rm), jnp.asarray(padded), interpret=True)),
+        want)
+    for ids in (idx, padded):
+        np.testing.assert_array_equal(_np(kernels.gather_count_multi(op, _t(rm), ids)), want)
+        np.testing.assert_array_equal(_np(dispatch.gather_count_multi(op, _t(rm), ids)), want)
+    if op == "or":
+        np.testing.assert_array_equal(
+            np.asarray(pk.fused_gather_count_or(jnp.asarray(rm), jnp.asarray(idx), interpret=True)), want)
+
+
+@pytest.mark.parametrize("k", kernels.TREE_LEAVES)
+def test_gather_count_tree_matches_pallas(k):
+    """Perfect trees of depth 1-4 with opcodes drawn from 0-5 (4 and 5
+    pass the left child)."""
+    rng = np.random.default_rng(100 + k)
+    s, r, b, w = 2, 12, 6, 1024
+    rm = _words(rng, (s, r, w))
+    leaves = rng.integers(0, r, size=(b, k), dtype=np.int32)
+    opc = rng.integers(0, 6, size=(b, k - 1), dtype=np.int32)
+    want = np.asarray(pk.fused_gather_count_tree(
+        jnp.asarray(rm), jnp.asarray(leaves), jnp.asarray(opc), interpret=True))
+    np.testing.assert_array_equal(_np(kernels.gather_count_tree(_t(rm), leaves, opc)), want)
+    np.testing.assert_array_equal(_np(dispatch.gather_count_tree(_t(rm), leaves, opc)), want)
+    np.testing.assert_array_equal(jbw.np_gather_count_tree(rm, leaves, opc), want)
+
+
 def test_plain_gather_count_tree_matches_jax():
     rng = np.random.default_rng(11)
     rm = _words(rng, (2, 10, 1024))
@@ -196,15 +247,36 @@ def test_plain_gather_count_tree_matches_jax():
 
 
 def test_unported_lanes_raise_off_the_cpu():
-    """Lanes without a CUDA kernel raise on any non-CPU tensor (a meta
-    tensor stands in for the card here) instead of running plain code."""
+    """The row-major lanes have no CUDA kernel yet: they raise on any
+    non-CPU tensor (a meta tensor stands in for the card here) instead of
+    running plain code."""
     rm = torch.empty((2, 4, 1024), dtype=torch.int32, device="meta")
-    idx = np.zeros((2, 3), dtype=np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        dispatch.gather_count_multi("or", rm, idx)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        dispatch.gather_count_tree(rm, np.zeros((2, 4), np.int32), np.zeros((2, 3), np.int32))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
         dispatch.gather_count_rowmajor("and", rm, np.zeros((2, 2), np.int32))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+        dispatch.gather_count_multi_rowmajor("or", rm, np.zeros((2, 3), np.int32))
     with pytest.raises(ValueError, match="device meta"):
         kernels.count_rows(rm[0])
+
+
+@pytest.mark.parametrize("lane", ["multi", "or_multi", "tree"])
+def test_ported_lanes_reach_their_kernel_off_the_cpu(lane):
+    """The multi and tree lanes no longer stop in dispatch: a non-CPU
+    tensor reaches the kernel wrapper, which raises its device error (a
+    CUDA tensor would launch the kernel)."""
+    from pilosa_tpu_torch.engine import TorchEngine
+
+    rm = torch.empty((2, 4, 1024), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device meta"):
+        if lane == "multi":
+            dispatch.gather_count_multi("and", rm, np.zeros((2, 3), np.int32))
+        elif lane == "or_multi":
+            TorchEngine("cpu").gather_count_or_multi(rm, np.zeros((2, 3), np.int32))
+        else:
+            dispatch.gather_count_tree(rm, np.zeros((2, 4), np.int32), np.zeros((2, 3), np.int32))
+
+
+def test_kernel_wrappers_check_their_arguments():
+    rm = torch.zeros((2, 4, 1024), dtype=torch.int32)
+    with pytest.raises(ValueError, match="multi-op"):
+        kernels.gather_count_multi("xor", rm, np.zeros((1, 2), np.int32))
