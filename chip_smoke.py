@@ -4,24 +4,29 @@
 
 1. Probes the card (fails without CUDA) and prints its name and power
    limit as nvidia-smi reports them.
-2. Builds the six CUDA kernels from ``pilosa_tpu_torch/csrc`` with nvcc
+2. Builds the nine CUDA kernels from ``pilosa_tpu_torch/csrc`` with nvcc
    (one process per source, all started together), and beside them
-   compiles the two fold kernels once more with ``-Xptxas -v`` to report
-   their registers and shared memory.
+   compiles the fold, row-major and TopN kernels once more with
+   ``-Xptxas -v`` to report their registers and shared memory.
 3. Holds each kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it, for every op variant; exact
-   equality (integer counts), and times both with CUDA events beside the
-   kernel's memory bound.
-4. Drives the executor path — ``Executor.execute`` over a ``Holder`` — at
+   the shapes its path gives it, for every op variant; exact equality
+   (integer counts), and times both with CUDA events beside the kernel's
+   memory bound.  The row-major kernels are also timed against the
+   slice-major ones on the transposed matrix with the same ids.
+4. The diffcheck path: the differential sweep ``ops/diffcheck.py`` over
+   every lane on the card (its ``topn_counts`` lane is that kernel's path).
+5. Drives the executor path — ``Executor.execute`` over a ``Holder`` — at
    64 slices x 256 rows (the default 2 GiB row-pool budget holds all of
    them) with 2,000 seeded random bits per row per slice: batched pair
    Counts (direct resident kernel, then the cached Gram and the native
-   lookup lane), pair Counts on a ``no_gram`` executor (gather kernel),
-   Counts that reach the sequential path (count kernel), and a TopN with
-   a source bitmap (both TopN kernels).  Every answer is checked against
-   the same port's ``Executor(engine="numpy")`` on the same holder (for
-   pair requests, a seeded 16-query subset of each request).
-5. Drives the HTTP path on the same data directory, which also holds a
+   lookup lane), pair Counts on a ``no_gram`` executor (slice-major or
+   row-major gather, as the pool's size decides), a no-Gram body mixing
+   pair and nested Counts (slice-major gather and tree kernels), Counts
+   that reach the sequential path (count kernel), and a TopN with a source
+   bitmap (both TopN kernels).  Every answer is checked against the same
+   port's ``Executor(engine="numpy")`` on the same holder (for batches, a
+   seeded 16-query subset of each request).
+6. Drives the HTTP path on the same data directory, which also holds a
    time-quantum frame ``t`` (YMD, 64 slices x 8 rows x 2,000 stamped bits
    per row per slice): the port's ``Server`` with its default config
    (engine on the card) on an ephemeral port, ``POST /index/i/query``
@@ -30,12 +35,21 @@
    (tree-fold kernel), and two ``Count(Range(...))`` batches (multi-fold
    kernel over the multi-view matrix).  A seeded 16-query subset of each
    answer is checked against ``Executor(srv.holder, engine="numpy")``.
-6. Fails unless every kernel's launch counter moved during its path: the
+7. Drives the tall path in a data directory of its own: 32 slices x 1,024
+   rows x 1,000 distinct bits per row per slice, 4 GiB dense, twice what
+   the default 2 GiB pool holds.  Pair and N-ary batches naming every row
+   page through the executor's row-major pool in parts, one Union over
+   640 rows streams its slices through row-major transients, a write
+   refreshes the pool's resident planes, and a planner pinned to the
+   "rmgather" lane serves a batch from it; each checked against the numpy
+   engine.
+8. Fails unless every kernel's launch counter moved during its path: the
    counters are set to 0 just before each path and read just after it.
 
-Prints a ptxas line, a ``{"card": ..., "requests": [...]}`` line per
-path, a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
-{...}}``.  Any failure raises.
+Prints a ptxas line, a ``{"card": ..., "layout": [...]}`` line, a
+``{"card": ..., "requests": [...]}`` line per path, a ``{"kernels":
+[...]}`` line, and last ``{"ok": true, "device": {...}}``.  Any failure
+raises.
 """
 
 from __future__ import annotations
@@ -78,6 +92,19 @@ STAMPS = [datetime(2017, m, d, hh) for m in range(1, 13) for d in (1, 15) for hh
 FOLD_BATCH = 64
 RANGE_BATCH = 128
 
+# The tall path: 32 slices x 1,024 rows x 128 KiB = 4 GiB, twice the
+# default pool budget (which holds 512 rows at 32 slices), so batches
+# naming every row page through the pool in parts.  Pair batches name
+# every row once; the N-ary body cycles Intersect of 3, Union of 4 and
+# Difference of 3 with every fifth call a pair Xor; one Union names more
+# rows than the pool holds.
+TALL_SLICES = 32
+TALL_ROWS = 1024
+TALL_BITS = 1000
+TALL_NARY = 256
+TALL_XOR = 64
+WIDE_UNION = 640
+
 # H100 SXM published peaks (NVIDIA data sheet) used for the bounds: HBM3
 # bandwidth, and the 32-bit non-tensor-core rate for the integer word ops.
 PEAK_BYTES_S = 3.35e12
@@ -92,21 +119,31 @@ SOURCES = {
     "gather_src_counts": "pilosa_tpu_torch/csrc/gather_src_counts.cu",
     "gather_count_multi": "pilosa_tpu_torch/csrc/gather_count_multi.cu",
     "gather_count_tree": "pilosa_tpu_torch/csrc/gather_count_tree.cu",
+    "gather_count2_rowmajor": "pilosa_tpu_torch/csrc/gather_count2_rowmajor.cu",
+    "gather_count_multi_rowmajor": "pilosa_tpu_torch/csrc/gather_count_multi_rowmajor.cu",
+    "topn_counts": "pilosa_tpu_torch/csrc/topn_counts.cu",
 }
+# The def line of each Pallas kernel in pilosa_tpu/ops/pallas_kernels.py.
 REPLACES = {
-    "count_rows": "pilosa_tpu/ops/pallas_kernels.py:82",  # fused_count2 (+ fused_count1 :668)
-    "resident_count2": "pilosa_tpu/ops/pallas_kernels.py:186",
-    "gather_count2": "pilosa_tpu/ops/pallas_kernels.py:240",
-    "gather_src_counts": "pilosa_tpu/ops/pallas_kernels.py:342",
+    "count_rows": "pilosa_tpu/ops/pallas_kernels.py:83",  # fused_count2 (+ fused_count1 :669)
+    "resident_count2": "pilosa_tpu/ops/pallas_kernels.py:187",
+    "gather_count2": "pilosa_tpu/ops/pallas_kernels.py:241",
+    "gather_src_counts": "pilosa_tpu/ops/pallas_kernels.py:343",
     # fused_gather_count_multi (+ fused_gather_count_or :592)
     "gather_count_multi": "pilosa_tpu/ops/pallas_kernels.py:554",
     "gather_count_tree": "pilosa_tpu/ops/pallas_kernels.py:626",
+    "gather_count2_rowmajor": "pilosa_tpu/ops/pallas_kernels.py:415",
+    "gather_count_multi_rowmajor": "pilosa_tpu/ops/pallas_kernels.py:490",
+    "topn_counts": "pilosa_tpu/ops/pallas_kernels.py:293",
 }
-# Which path must launch each kernel: the executor path keeps the four pair/TopN kernels;
-# the HTTP path carries the two fold kernels.
+# Which path must launch each kernel: the executor path keeps the four
+# pair/TopN kernels, the HTTP path the two fold kernels, the tall path the
+# two row-major kernels, and the differential sweep the whole-row scorer.
 PATH_OF = {
     "count_rows": "executor", "resident_count2": "executor", "gather_count2": "executor",
     "gather_src_counts": "executor", "gather_count_multi": "http", "gather_count_tree": "http",
+    "gather_count2_rowmajor": "tall", "gather_count_multi_rowmajor": "tall",
+    "topn_counts": "diffcheck",
 }
 PAIR_OPS = ("and", "or", "xor", "andnot")
 PQL_OPS = {"and": "Intersect", "or": "Union", "andnot": "Difference", "xor": "Xor"}
@@ -207,19 +244,21 @@ def ptxas_usage(names) -> dict:
             text = p.communicate()[0].decode(errors="replace")
             if p.returncode != 0:
                 raise RuntimeError(f"nvcc -Xptxas -v failed for {name}.cu:\n{text}")
-            entries, fn = [], None
+            # Per entry, ptxas prints its spill line before its register line.
+            entries, fn, spill = [], None, None
             for line in text.splitlines():
                 m = re.search(r"Compiling entry function '(\S+)'", line)
                 if m:
-                    fn = m.group(1)
+                    fn, spill = m.group(1), None
+                m = re.search(r"(\d+) bytes spill stores", line)
+                if m:
+                    spill = int(m.group(1))
                 m = re.search(r"Used (\d+) registers", line)
                 if m and fn:
                     smem = re.search(r"(\d+) bytes smem", line)
                     entries.append({"entry": fn, "registers": int(m.group(1)),
-                                    "smem_bytes": int(smem.group(1)) if smem else 0})
-                m = re.search(r"(\d+) bytes spill stores", line)
-                if m and entries:
-                    entries[-1]["spill_store_bytes"] = int(m.group(1))
+                                    "smem_bytes": int(smem.group(1)) if smem else 0,
+                                    "spill_store_bytes": spill})
             out[name] = entries
     return out
 
@@ -256,9 +295,10 @@ def _rand_words(gen, shape) -> torch.Tensor:
     return torch.randint(-(2**31), 2**31, shape, dtype=torch.int32, device="cuda", generator=gen)
 
 
-def check_kernels() -> dict:
+def check_kernels() -> tuple[dict, list]:
     """Every kernel == its plain version on the card for every op
-    variant, at the main path's shapes; returns per-kernel timings."""
+    variant, at the main path's shapes; returns per-kernel timings and
+    the slice-major vs row-major comparison."""
     gen = _gen(SEED)
     rm = _rand_words(gen, (N_SLICES, N_ROWS, W))
     stack = _rand_words(gen, (N_SLICES, W))
@@ -341,11 +381,15 @@ def check_kernels() -> dict:
         bound_ms=nb, bound_by=by,
     )
     res.update(time_fold_kernels(rm, fold_cases))
+    del fold_cases
+    torch.cuda.empty_cache()
+    tall, layout = check_tall_kernels(rm, stack, rng, diff)
+    res.update(tall)
     for name in res:
         res[name]["max_abs_err"] = err[name]
-    del rm, stack, rows, fold_cases
+    del rm, stack, rows
     torch.cuda.empty_cache()
-    return res
+    return res, layout
 
 
 # Queries per plain-version call in the fold checks: the plain versions
@@ -473,6 +517,102 @@ def time_fold_kernels(rm, cases) -> dict:
     return out
 
 
+def check_tall_kernels(rm, stack, rng, diff) -> tuple[dict, list]:
+    """The row-major kernels at the tall path's shape — row-major
+    [1024, 32, W], 512 pairs naming every row once (all four ops) and
+    K = 3, 4, 16 folds (and / or / andnot, padded and unpadded) — and
+    topn_counts at the pool's [64, 256, W] against a [64, W] src, each
+    against its plain version exactly.  Returns their timings, and the
+    slice-major kernels timed against the row-major ones on the same
+    ids over the [32, 1024, W] transpose (ABBA order, L2 flushed)."""
+    rmr = _rand_words(_gen(SEED + 5), (TALL_ROWS, TALL_SLICES, W))
+    pairs = rng.permutation(TALL_ROWS).reshape(-1, 2).astype(np.int32)
+    b = len(pairs)
+    for op in PAIR_OPS:
+        diff("gather_count2_rowmajor", kernels.gather_count2_rowmajor(op, rmr, pairs),
+             _chunked(lambda x, _op=op: kernels.gather_count2_rowmajor_plain(_op, rmr, x), pairs))
+    folds = []
+    for k, line_op in ((3, "and"), (4, "or"), (16, "andnot")):
+        idx = rng.integers(0, TALL_ROWS, size=(b, k)).astype(np.int32)
+        for op in kernels.MULTI_OPS:
+            got = kernels.gather_count_multi_rowmajor(op, rmr, idx)
+            diff("gather_count_multi_rowmajor", got, _chunked(
+                lambda x, _op=op: kernels.gather_count_multi_rowmajor_plain(_op, rmr, x), idx))
+            lo = 1 if op == "andnot" else 0
+            pad = idx[np.arange(b)[:, None], rng.integers(lo, k, size=(b, 3))]
+            diff("gather_count_multi_rowmajor",
+                 kernels.gather_count_multi_rowmajor(op, rmr, np.concatenate([idx, pad], 1)), got)
+        folds.append((line_op, idx))
+
+    def topn_plain():
+        return torch.cat([kernels.topn_counts_plain(rm[:, i:i + 64], stack)
+                          for i in range(0, rm.shape[1], 64)])
+
+    diff("topn_counts", kernels.topn_counts(rm, stack), topn_plain())
+    torch.cuda.synchronize()
+
+    row_b = W * 4
+    res = {}
+    nb, by = bound(TALL_SLICES * len(np.unique(pairs)) * row_b + pairs.nbytes + b * 4,
+                   TALL_SLICES * b * W * OPS_PER_WORD)
+    res["gather_count2_rowmajor"] = dict(
+        shape=f"row-major rm [{TALL_ROWS}, {TALL_SLICES}, {W}], {b} pairs, and",
+        ms=cuda_ms(lambda: kernels.gather_count2_rowmajor("and", rmr, pairs)),
+        plain_ms=cuda_ms(lambda: _chunked(
+            lambda x: kernels.gather_count2_rowmajor_plain("and", rmr, x), pairs), reps=2, warm=1),
+        bound_ms=nb, bound_by=by,
+    )
+    multi = []
+    for op, idx in folds:
+        k = idx.shape[1]
+        nb, by = bound(TALL_SLICES * len(np.unique(idx)) * row_b + idx.nbytes + b * 4,
+                       b * TALL_SLICES * W * (k + 1))
+        multi.append(dict(
+            shape=f"row-major rm [{TALL_ROWS}, {TALL_SLICES}, {W}], B={b}, K={k}, {op}",
+            ms=cuda_ms(lambda: kernels.gather_count_multi_rowmajor(op, rmr, idx)),
+            plain_ms=cuda_ms(lambda: _chunked(
+                lambda x: kernels.gather_count_multi_rowmajor_plain(op, rmr, x), idx),
+                reps=2, warm=1),
+            bound_ms=nb, bound_by=by,
+            gathered_bound_ms=b * TALL_SLICES * k * row_b / PEAK_BYTES_S * 1e3,
+        ))
+    res["gather_count_multi_rowmajor"] = dict(multi[0], shapes=multi[1:])
+    s, r = rm.shape[:2]
+    nb, by = bound(s * r * row_b + s * row_b + r * 4, s * r * W * OPS_PER_WORD)
+    res["topn_counts"] = dict(
+        shape=f"rm [{s}, {r}, {W}] & src [{s}, {W}]",
+        ms=cuda_ms(lambda: kernels.topn_counts(rm, stack)),
+        plain_ms=cuda_ms(topn_plain, reps=2, warm=1),
+        bound_ms=nb, bound_by=by,
+    )
+
+    # Slice-major vs row-major on identical inputs: the same rows and ids.
+    sm = rmr.transpose(0, 1).contiguous()
+    cases = [("pair, and", lambda: kernels.gather_count2("and", sm, pairs),
+              lambda: kernels.gather_count2_rowmajor("and", rmr, pairs), pairs)]
+    for op, idx in folds:
+        cases.append((f"K={idx.shape[1]}, {op}",
+                      lambda _o=op, _i=idx: kernels.gather_count_multi(_o, sm, _i),
+                      lambda _o=op, _i=idx: kernels.gather_count_multi_rowmajor(_o, rmr, _i), idx))
+    layout = []
+    for what, slice_major, row_major, ids in cases:
+        if not torch.equal(slice_major(), row_major()):
+            raise AssertionError(f"layout {what}: slice-major and row-major counts differ")
+        a1 = cuda_ms(slice_major)
+        b1 = cuda_ms(row_major)
+        b2 = cuda_ms(row_major)
+        a2 = cuda_ms(slice_major)
+        layout.append({
+            "case": f"B={b}, {what}", "slice_major": f"[{TALL_SLICES}, {TALL_ROWS}, {W}]",
+            "row_major": f"[{TALL_ROWS}, {TALL_SLICES}, {W}]",
+            "slice_major_ms": [a1, a2], "row_major_ms": [b1, b2],
+            "unique_rows": int(len(np.unique(ids))),
+        })
+    del rmr, sm
+    torch.cuda.empty_cache()
+    return res, layout
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path through Executor.execute
 # ---------------------------------------------------------------------------
@@ -500,17 +640,46 @@ def build_holder(path: str, n_slices: int, n_rows: int, bits: int, seed: int):
     return h
 
 
-def _pair_body(op: str, pairs) -> str:
-    f = PQL_OPS[op]
-    return "".join(
-        f'Count({f}(Bitmap(rowID={a}, frame="f"), Bitmap(rowID={b}, frame="f")))'
-        for a, b in pairs
-    )
-
-
 def _norm(res):
     """Results as plain values (TopN pairs -> (id, count) tuples)."""
     return [[(p.id, p.count) for p in r] if isinstance(r, list) else r for r in res]
+
+
+def run_request(records, name, ex, ex_ref, calls, sub=None, expect=(), sync=lambda: None,
+                opt=None):
+    """Execute the PQL ``calls`` as one request on ``ex``; check the
+    answers at positions ``sub`` (all when None) against ``ex_ref`` run on
+    those calls alone; append a record (wall ms, launches by kernel, bytes
+    the engine uploaded).  Returns the answers."""
+    before = dict(kernels.LAUNCHES)
+    up0 = ex.engine.stat_upload_bytes
+    t0 = time.perf_counter()
+    got = _norm(ex.execute("i", " ".join(calls), opt=opt))
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    upload = ex.engine.stat_upload_bytes - up0
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in before if kernels.LAUNCHES[k] > before[k]}
+    pick = list(range(len(calls))) if sub is None else sub
+    want = _norm(ex_ref.execute("i", " ".join(calls[i] for i in pick)))
+    cmp = [got[i] for i in pick]
+    if cmp != want:
+        raise AssertionError(f"{name}: port answers differ from the numpy engine: {cmp[:4]} vs {want[:4]}")
+    for k in expect:
+        if not launched.get(k):
+            raise AssertionError(f"{name}: expected {k} to launch, launches {launched}")
+    records.append({"request": name, "ms": ms, "checked": len(cmp), "launches": launched,
+                    "upload_bytes": upload})
+    return got
+
+
+def _subset(rng, n: int) -> list[int]:
+    return sorted(rng.choice(n, size=min(SUBSET, n), replace=False).tolist())
+
+
+def _pair_calls(ops, pairs) -> list[str]:
+    """One pair Count per row pair, the ops cycling in the given order."""
+    return [f"Count({PQL_OPS[ops[i % len(ops)]]}({_bm(a)}, {_bm(b)}))"
+            for i, (a, b) in enumerate(pairs)]
 
 
 def main_path(ex, ex_nogram, ex_ref, n_rows: int, sync=lambda: None) -> list[dict]:
@@ -519,22 +688,8 @@ def main_path(ex, ex_nogram, ex_ref, n_rows: int, sync=lambda: None) -> list[dic
     rng = np.random.default_rng(SEED + 1)
     records = []
 
-    def run(name, executor, body, ref_body=None, pick=None, expect=()):
-        before = dict(kernels.LAUNCHES)
-        t0 = time.perf_counter()
-        got = _norm(executor.execute("i", body))
-        sync()
-        ms = (time.perf_counter() - t0) * 1e3
-        launched = {k: kernels.LAUNCHES[k] - before[k] for k in before if kernels.LAUNCHES[k] > before[k]}
-        want = _norm(ex_ref.execute("i", ref_body if ref_body is not None else body))
-        cmp = [got[i] for i in pick] if pick is not None else got
-        if cmp != want:
-            raise AssertionError(f"{name}: port answers differ from the numpy engine: {cmp[:4]} vs {want[:4]}")
-        for k in expect:
-            if not launched.get(k):
-                raise AssertionError(f"{name}: expected {k} to launch, launches {launched}")
-        records.append({"request": name, "ms": ms, "checked": len(cmp), "launches": launched})
-        return got
+    def run(name, executor, calls, sub=None, expect=()):
+        return run_request(records, name, executor, ex_ref, calls, sub, expect, sync)
 
     def pair_request(name, executor, op, n, expect=()):
         # Full batches name every row (first operands walk a permutation),
@@ -543,8 +698,7 @@ def main_path(ex, ex_nogram, ex_ref, n_rows: int, sync=lambda: None) -> list[dic
         pairs = rng.integers(0, n_rows, size=(n, 2))
         if n >= n_rows:
             pairs[:, 0] = np.resize(rng.permutation(n_rows), n)
-        sub = sorted(rng.choice(n, size=min(SUBSET, n), replace=False).tolist())
-        run(name, executor, _pair_body(op, pairs), _pair_body(op, pairs[sub]), sub, expect)
+        run(name, executor, _pair_calls((op,), pairs), _subset(rng, n), expect)
 
     # Batched pair Counts: the first takes the direct resident kernel;
     # once the pool entry has 2 hits the Gram builds and answers, then
@@ -552,18 +706,29 @@ def main_path(ex, ex_nogram, ex_ref, n_rows: int, sync=lambda: None) -> list[dic
     pair_request("pairs-1 Intersect", ex, "and", PAIR_BATCH, expect=("resident_count2",))
     pair_request("pairs-2 Union", ex, "or", PAIR_BATCH)
     pair_request("pairs-3 Difference", ex, "andnot", PAIR_BATCH)
-    # A no-Gram executor: small batches against a taller pool -> gather.
-    pair_request("gather-1 Xor", ex_nogram, "xor", GATHER_BATCH, expect=("gather_count2",))
-    pair_request("gather-2 Intersect", ex_nogram, "and", GATHER_BATCH, expect=("gather_count2",))
+    # A no-Gram executor: small batches against a taller pool gather.
+    # Whether a batch pages through the slice-major or the row-major pool
+    # depends on its distinct rows and the pool's capacity
+    # (engine.prefer_rowmajor), so no kernel is fixed here; the record
+    # says which ran.
+    pair_request("gather-1 Xor", ex_nogram, "xor", GATHER_BATCH)
+    pair_request("gather-2 Intersect", ex_nogram, "and", GATHER_BATCH)
+    # Pair and nested Counts in one no-Gram body: a part carrying a tree
+    # group keeps every group slice-major, so the pairs gather from the
+    # slice-major pool.
+    calls = _pair_calls(PAIR_OPS, rng.integers(0, n_rows, size=(GATHER_BATCH, 2)))
+    calls += [_tree_call(rng, n_rows, i) for i in range(8)]
+    run("gather-3 mixed", ex_nogram, calls, _subset(rng, len(calls)),
+        expect=("gather_count2", "gather_count_tree"))
     # Single Counts take the sequential path (count kernel): the flat
     # lane fuses only multi-call bodies, and a write in the body keeps
     # the fused lanes off it.
     a, b = (int(x) for x in rng.integers(0, n_rows, size=2))
     one = f'Count(Intersect(Bitmap(rowID={a}, frame="f"), Bitmap(rowID={b}, frame="f")))'
-    run("count-single", ex, one, expect=("count_rows",))
+    run("count-single", ex, [one], expect=("count_rows",))
     col = int(rng.integers(0, SLICE_WIDTH))
-    got = run("setbit+count", ex, f'SetBit(rowID={a}, frame="f", columnID={col}) ' + one,
-              ref_body=one, pick=[1], expect=("count_rows",))
+    got = run("setbit+count", ex, [f'SetBit(rowID={a}, frame="f", columnID={col})', one],
+              sub=[1], expect=("count_rows",))
     if not isinstance(got[0], bool):
         raise AssertionError(f"setbit+count: SetBit answered {got[0]!r}")
     # After the write: the pool patches the written row and repairs the
@@ -572,7 +737,7 @@ def main_path(ex, ex_nogram, ex_ref, n_rows: int, sync=lambda: None) -> list[dic
     # TopN with a source bitmap: phase 1 scores each slice's candidates
     # (count kernel, shared src); the merged-id refetch asked by a second
     # slice upgrades to one all-slice launch (gather_src_counts).
-    run("topn", ex, 'TopN(Bitmap(rowID=0, frame="f"), frame="f", n=10)',
+    run("topn", ex, ['TopN(Bitmap(rowID=0, frame="f"), frame="f", n=10)'],
         expect=("count_rows", "gather_src_counts"))
     return records
 
@@ -643,7 +808,7 @@ def http_path(host: str, ex_ref, n_rows: int, time_rows: int, engine) -> list[di
         got = json.loads(body)["results"]
         if len(got) != len(calls):
             raise AssertionError(f"{name}: {len(got)} answers for {len(calls)} calls")
-        sub = sorted(rng.choice(len(calls), size=min(SUBSET, len(calls)), replace=False).tolist())
+        sub = _subset(rng, len(calls))
         want = ex_ref.execute("i", " ".join(calls[i] for i in sub))
         cmp = [got[i] for i in sub]
         if cmp != want:
@@ -677,15 +842,126 @@ def http_path(host: str, ex_ref, n_rows: int, time_rows: int, engine) -> list[di
     return records
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the tall path (row-major pool paging and slice streaming)
+# ---------------------------------------------------------------------------
+
+def _rm_pool(ex):
+    """Paging counters of the executor's row-major pool (lane "rmgather")."""
+    pools = [p for key, p in list(ex._matrix_cache.items()) if key[-1] == "rmgather"]
+    if len(pools) != 1:
+        raise AssertionError(f"expected one row-major pool, found {len(pools)}")
+    p = pools[0]
+    return {"cap": p.cap, "misses": p.stat_misses, "evictions": p.stat_evictions,
+            "repairs": p.stat_repairs, "patch_planes": p.stat_patch_planes}
+
+
+def tall_path(ex, ex_ref, n_rows: int, sync=lambda: None) -> list[dict]:
+    """Drive a working set taller than one pool through the executor's
+    row-major lane; check each answer against ``ex_ref``.  Returns
+    per-request records, each with the row-major pool's counters after
+    it."""
+    from pilosa_tpu_torch.costs import CostLedger
+    from pilosa_tpu_torch.executor import ExecOptions
+    from pilosa_tpu_torch.planner import Planner
+
+    rng = np.random.default_rng(SEED + 6)
+    records = []
+
+    def run(name, calls, sub=None, expect=(), opt=None):
+        got = run_request(records, name, ex, ex_ref, calls, sub, expect, sync, opt)
+        records[-1]["rm_pool"] = _rm_pool(ex)
+        return got
+
+    # 512 pair Counts naming every row once: the flat pair lane pages
+    # them through the row-major pool in parts of at most 512 rows.
+    pair_calls = _pair_calls(PAIR_OPS, rng.permutation(n_rows).reshape(-1, 2))
+    run("tall-pairs", pair_calls, _subset(rng, len(pair_calls)), expect=("gather_count2_rowmajor",))
+    if not records[-1]["rm_pool"]["evictions"]:
+        raise AssertionError(f"tall-pairs: the pool never paged: {records[-1]}")
+    # N-ary Counts with pair Xors among them, operands walking a
+    # permutation of the rows: the AST fused path, paging in parts.
+    walk = iter(np.resize(rng.permutation(n_rows), 4 * (TALL_NARY + TALL_XOR)))
+    shapes = (("Intersect", 3), ("Union", 4), ("Difference", 3))
+    calls, last = [], []
+    for i in range(TALL_NARY + TALL_XOR):
+        op, k = ("Xor", 2) if i % 5 == 4 else shapes[(i - i // 5) % 3]
+        last = [int(next(walk)) for _ in range(k)]
+        calls.append(f"Count({op}({', '.join(_bm(r) for r in last)}))")
+    run("tall-nary", calls, _subset(rng, len(calls)),
+        expect=("gather_count_multi_rowmajor", "gather_count2_rowmajor"))
+    # One Union over more rows than the pool holds streams its slices
+    # through row-major transients, one launch per slice chunk; checked
+    # whole.  A pair Count rides beside it: the fused path takes bodies of
+    # two or more Counts, and the pair is a part of its own.
+    rows = rng.choice(n_rows, size=WIDE_UNION, replace=False)
+    run("tall-wide-union", [f"Count(Union({', '.join(_bm(r) for r in rows)}))",
+                            f"Count(Union({_bm(rows[0])}, {_bm(rows[1])}))"],
+        expect=("gather_count_multi_rowmajor",))
+    if records[-1]["launches"]["gather_count_multi_rowmajor"] < 2:
+        raise AssertionError(f"tall-wide-union: no slice streaming: {records[-1]}")
+    # A write to a row the pool holds, then the pair batch again: the pool
+    # patches the written plane of its resident row before paging.
+    col = int(rng.integers(0, SLICE_WIDTH))
+    ex.execute("i", f'SetBit(rowID={last[-1]}, frame="f", columnID={col})')
+    patched = records[-1]["rm_pool"]["patch_planes"]
+    run("tall-pairs after write", pair_calls, _subset(rng, len(pair_calls)),
+        expect=("gather_count2_rowmajor",))
+    if records[-1]["rm_pool"]["patch_planes"] <= patched:
+        raise AssertionError(f"tall-pairs after write: no plane refreshed: {records[-1]}")
+    # The planner pinned to "rmgather": a batch whose rows fit one pool
+    # (the static ladder would hand it to the Gram) runs row-major, and
+    # the planner's ledger records that lane.
+    planner = Planner(CostLedger(), pin="rmgather")
+    half = pair_calls[len(pair_calls) // 2:]
+    plan = planner.plan_for("i", " ".join(half).encode())
+    ex.planner = planner
+    try:
+        run("tall-pinned rmgather", half, _subset(rng, len(half)),
+            expect=("gather_count2_rowmajor",), opt=ExecOptions(plan=plan))
+    finally:
+        ex.planner = None
+    seen = planner.ledger.peek(index="i", frame="", fp=plan["fp"], lane="rmgather")
+    if plan["lane"] != "rmgather" or not seen:
+        raise AssertionError(f"planner: plan {plan}, ledger {seen}")
+    return records
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the differential sweep
+# ---------------------------------------------------------------------------
+
+def diffcheck_path() -> dict:
+    """``ops/diffcheck.py`` on the card: every lane over 24 seeded cases,
+    each equal to its numpy ground truth."""
+    from pilosa_tpu_torch.ops import diffcheck
+
+    t0 = time.perf_counter()
+    failures = diffcheck.run_lanes(seed=2026, cases_per_lane=24, device="cuda")
+    torch.cuda.synchronize()
+    if failures:
+        raise AssertionError(f"diffcheck: {len(failures)} failures: {failures[:8]}")
+    return {"lanes": len(diffcheck.lane_names()), "cases": 24, "failures": 0,
+            "s": time.perf_counter() - t0}
+
+
 def main() -> int:
     card = probe()
     t0 = time.perf_counter()
     per_source = kernels.build()
     print(f"build_s {time.perf_counter() - t0:.3f} per-source {json.dumps(per_source)}", flush=True)
-    print(json.dumps({"ptxas": ptxas_usage(("gather_count_multi", "gather_count_tree"))}), flush=True)
+    print(json.dumps({"ptxas": ptxas_usage((
+        "gather_count_multi", "gather_count_tree", "gather_count2_rowmajor",
+        "gather_count_multi_rowmajor", "topn_counts"))}), flush=True)
 
-    timings = check_kernels()
+    timings, layout = check_kernels()
     print("kernels match their plain versions on the card", flush=True)
+    print(json.dumps({"card": card, "layout": layout}), flush=True)
+
+    kernels.reset_launches()
+    sweep = diffcheck_path()
+    launches = {"diffcheck": dict(kernels.LAUNCHES)}
+    print(json.dumps({"card": card, "diffcheck": sweep}), flush=True)
 
     from pilosa_tpu_torch.config import Config
     from pilosa_tpu_torch.executor import Executor
@@ -704,9 +980,11 @@ def main() -> int:
         ex_ref = Executor(h, engine="numpy")
         if ex.engine.name != "torch" or ex.engine.device.type != "cuda":
             raise AssertionError(f"default engine is {ex.engine.name} on {ex.engine.device}")
+        if not ex.engine.supports_row_major_gather:
+            raise AssertionError("TorchEngine on the card must take the row-major lane")
         kernels.reset_launches()
         records = main_path(ex, ex_nogram, ex_ref, N_ROWS, sync=torch.cuda.synchronize)
-        launches = {"executor": dict(kernels.LAUNCHES)}
+        launches["executor"] = dict(kernels.LAUNCHES)
         h.close()
         del ex, ex_nogram, ex_ref
         torch.cuda.empty_cache()
@@ -726,6 +1004,24 @@ def main() -> int:
             launches["http"] = dict(kernels.LAUNCHES)
         finally:
             srv.close()
+        del srv, ex_ref
+        torch.cuda.empty_cache()
+
+    # The tall path, in a data directory of its own.
+    with tempfile.TemporaryDirectory() as d2:
+        t0 = time.perf_counter()
+        h2 = build_holder(d2, TALL_SLICES, TALL_ROWS, TALL_BITS, SEED + 5)
+        print(f"tall_holder_s {time.perf_counter() - t0:.3f} ({TALL_SLICES} slices x {TALL_ROWS} rows)",
+              flush=True)
+        ex2 = Executor(h2)
+        ex2_ref = Executor(h2, engine="numpy")
+        kernels.reset_launches()
+        tall_records = tall_path(ex2, ex2_ref, TALL_ROWS, sync=torch.cuda.synchronize)
+        launches["tall"] = dict(kernels.LAUNCHES)
+        h2.close()
+        del ex2, ex2_ref
+        torch.cuda.empty_cache()
+
     missing = [k for k, path in PATH_OF.items() if launches[path][k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing} ({launches})")
@@ -747,6 +1043,7 @@ def main() -> int:
         line.append(entry)
     print(json.dumps({"card": card, "path": "executor", "requests": records}), flush=True)
     print(json.dumps({"card": card, "path": "http", "requests": http_records}), flush=True)
+    print(json.dumps({"card": card, "path": "tall", "requests": tall_records}), flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -341,9 +341,6 @@ class TorchEngine:
     name = "torch"
     # Eager torch does not recompile per shape: exact dispatch shapes.
     wants_static_shapes = False
-    # The row-major gather kernels are not ported yet (ROADMAP Queue 2):
-    # the executor then never picks the "rmgather" lane.
-    supports_row_major_gather = False
     # TopN candidate scoring: phase-1 chunks score one slice; a candidate
     # set asked again by a second slice upgrades to one all-slice launch.
     row_scorer_all_slices = True
@@ -441,19 +438,34 @@ class TorchEngine:
     def gather_count_tree_dev(self, row_matrix, leaves, opc):
         return dispatch.gather_count_tree(row_matrix.contiguous(), leaves, opc).long()
 
-    # -- row-major lane (kernels not ported: CPU plain versions only) -----
+    # -- row-major gather lane (tall working sets) -----------------------
+
+    @property
+    def supports_row_major_gather(self) -> bool:
+        """True exactly where the row-major kernels run (a CUDA device).
+        On the CPU the lane would only transpose back to slice-major per
+        call, so the executor keeps slice-major matrices there."""
+        return self.device.type == "cuda"
 
     def matrix_rows(self, host_matrix: np.ndarray):
         """Upload a ROW-MAJOR [R, S, W] host block."""
         return self._up(host_matrix)
 
     def rowmajor_ok(self, n_slices: int, words: int, k: int = 2) -> bool:
-        return False
+        return dispatch.rowmajor_ok(n_slices, words, k)
 
     def prefer_rowmajor(
         self, n_rows: int, n_slices: int, words: int, n_pairs: int, max_k: int
     ) -> bool:
-        return False
+        """Whether a resident working set of ``n_rows`` rows should live
+        in a ROW-MAJOR pool: exactly when dispatch would pick the gather
+        kernel for its pair groups (the resident predicate says no) and
+        the row-major kernels take this slice count.  Multi-fold groups
+        always gather, so parts without pair groups prefer row-major
+        whenever the gate allows."""
+        return not dispatch.resident_strategy(n_rows, words, n_pairs) and self.rowmajor_ok(
+            n_slices, words, max_k
+        )
 
     def gather_count_rowmajor_dev(self, op: str, row_major, pairs):
         return dispatch.gather_count_rowmajor(op, row_major, pairs).long()

@@ -2301,9 +2301,9 @@ class Executor:
                     # Tall working sets relative to the request batch hit
                     # the GATHER kernels: engines with row-major kernels
                     # page those parts through a ROW-MAJOR pool lane (each
-                    # operand row's slices contiguous) instead (the torch
-                    # engine has none yet: supports_row_major_gather).  The Gram never engages at these row
-                    # counts (its all-pairs work would dwarf the batch).
+                    # operand row's slices contiguous) instead.  The Gram
+                    # never engages at these row counts (its all-pairs
+                    # work would dwarf the batch).
                     n_pairs = sum(
                         len(v) for (_o, kb), v in groups.items() if kb == 2
                     )

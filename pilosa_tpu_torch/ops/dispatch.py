@@ -5,11 +5,9 @@ The choice is the tensor's device and nothing else: there is no probe,
 no ``try`` and no environment switch between a kernel and its plain
 version (each wrapper in ``ops/kernels.py`` makes that choice itself).
 What this module decides is WHICH kernel serves a call — the resident
-or the gather pair kernel — and the Gram gate the executor imports.
-
-The row-major lanes, whose kernels are not ported yet, run their plain
-versions on the CPU and raise ``NotImplementedError`` on a CUDA tensor
-(ROADMAP Queue 2).  The multi and tree folds read their ids from global
+or the gather pair kernel — and the gates the engine and executor
+import: the Gram's slice bound and the row-major lane's
+(``rowmajor_ok``).  Every gather kernel reads its ids from global
 memory, so unlike the TPU dispatch no batch is cut into id chunks: any
 B and K run in one launch.
 """
@@ -18,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from pilosa_tpu_torch.ops import bitwise, kernels
+from pilosa_tpu_torch.ops import kernels
 
 
 def _rows2d(x: torch.Tensor) -> torch.Tensor:
@@ -68,14 +66,6 @@ def topn_scorer_counts(row_matrix: torch.Tensor, pos, src_stack: torch.Tensor):
     return kernels.gather_src_counts(row_matrix, pos, src_stack)
 
 
-def _not_ported(t: torch.Tensor, lane: str) -> None:
-    if t.device.type != "cpu":
-        raise NotImplementedError(
-            f"the {lane} kernel is not ported to CUDA yet (ROADMAP Queue 2); "
-            "its plain version runs on CPU tensors only"
-        )
-
-
 def gather_count_multi(op: str, row_matrix: torch.Tensor, idx):
     """K-operand left-fold counts (N-operand Intersect/Union/Difference,
     Range covers) -> int32[B]."""
@@ -87,15 +77,25 @@ def gather_count_tree(row_matrix: torch.Tensor, leaves, opc):
     return kernels.gather_count_tree(row_matrix, leaves, opc)
 
 
+def rowmajor_ok(n_slices: int, w: int, k: int = 2) -> bool:
+    """Whether the row-major kernels take a matrix of ``n_slices`` slices
+    of ``w`` words for folds of ``k`` operands.
+
+    The TPU gate was a VMEM bound: its kernels buffered ``k`` whole rows
+    (every slice) per pipeline slot, ``2 * k * S * W * 4 <= 8 MiB``
+    (S <= 16 at k = 2).  The CUDA kernels buffer no whole row — a block
+    streams one slice of its operands through registers, 16 bytes a
+    thread at a time — so neither ``w`` nor ``k`` bounds them.  What remains is the int32 count: a
+    full-density count is S * 2^20 bits per query, so S <= 2047
+    (``_GRAM_SLICES_MAX``)."""
+    return n_slices <= _GRAM_SLICES_MAX
+
+
 def gather_count_rowmajor(op: str, row_major: torch.Tensor, pairs):
-    """Pair counts over a ROW-MAJOR [R, S, W] matrix -> int32[B].  CPU
-    only until the row-major kernels are ported."""
-    _not_ported(row_major, "gather_count2_rowmajor")
-    return bitwise.gather_count(op, row_major.transpose(0, 1), pairs)
+    """Pair counts over a ROW-MAJOR [R, S, W] matrix -> int32[B]."""
+    return kernels.gather_count2_rowmajor(op, row_major, pairs)
 
 
 def gather_count_multi_rowmajor(op: str, row_major: torch.Tensor, idx):
-    """K-operand fold counts over a ROW-MAJOR [R, S, W] matrix.  CPU only
-    until the row-major kernels are ported."""
-    _not_ported(row_major, "gather_count_multi_rowmajor")
-    return bitwise.gather_count_multi(op, row_major.transpose(0, 1), idx)
+    """K-operand fold counts over a ROW-MAJOR [R, S, W] matrix -> int32[B]."""
+    return kernels.gather_count_multi_rowmajor(op, row_major, idx)

@@ -17,15 +17,17 @@ Every wrapper:
 - adds one to ``LAUNCHES[name]`` where it launches its kernel, and
   nowhere else.
 
-The six kernels replace the Pallas kernels on the executor's Count and
-TopN path (pilosa_tpu/ops/pallas_kernels.py): fused_count1 and
-fused_count2 (``count_rows``), fused_resident_count2
-(``resident_count2``), fused_gather_count2 (``gather_count2``),
-fused_gather_src_counts (``gather_src_counts``), fused_gather_count_multi
-with fused_gather_count_or (``gather_count_multi``), and
-fused_gather_count_tree (``gather_count_tree``).  All six are bound by
-device-memory bytes on this card; each source says what its design does
-about that.
+The nine kernels replace every Pallas kernel of
+pilosa_tpu/ops/pallas_kernels.py: fused_count1 and fused_count2
+(``count_rows``), fused_resident_count2 (``resident_count2``),
+fused_gather_count2 (``gather_count2``), fused_gather_src_counts
+(``gather_src_counts``), fused_gather_count_multi with
+fused_gather_count_or (``gather_count_multi``), fused_gather_count_tree
+(``gather_count_tree``), the row-major pair and fold counts
+fused_gather_count2_rowmajor (``gather_count2_rowmajor``) and
+fused_gather_count_multi_rowmajor (``gather_count_multi_rowmajor``), and
+fused_topn_counts (``topn_counts``).  All nine are bound by device-memory
+bytes on this card; each source says what its design does about that.
 """
 
 from __future__ import annotations
@@ -52,7 +54,8 @@ NVCC_FLAGS = (
 
 KERNELS = (
     "count_rows", "resident_count2", "gather_count2", "gather_src_counts",
-    "gather_count_multi", "gather_count_tree",
+    "gather_count_multi", "gather_count_tree", "gather_count2_rowmajor",
+    "gather_count_multi_rowmajor", "topn_counts",
 )
 
 # Launch counters: one per kernel, bumped only where the kernel launches.
@@ -74,6 +77,10 @@ _ARGTYPES = {
     "gather_src_counts": ("pk_gather_src_counts", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "gather_count_multi": ("pk_gather_count_multi", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "gather_count_tree": ("pk_gather_count_tree", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "gather_count2_rowmajor": ("pk_gather_count2_rowmajor", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "gather_count_multi_rowmajor": (
+        "pk_gather_count_multi_rowmajor", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "topn_counts": ("pk_topn_counts", [_P, _P, _P, _I, _I, _I, _P]),
 }
 
 _build_mu = threading.Lock()
@@ -429,4 +436,96 @@ def gather_count_tree(row_matrix: torch.Tensor, leaves, opc) -> torch.Tensor:
     )
     _check(err, "gather_count_tree")
     LAUNCHES["gather_count_tree"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# gather_count2_rowmajor (fused_gather_count2_rowmajor)
+# ---------------------------------------------------------------------------
+
+def gather_count2_rowmajor_plain(op: str, row_major, pairs):
+    return bitwise.gather_count(op, row_major.transpose(0, 1), pairs)
+
+
+def gather_count2_rowmajor(op: str, row_major: torch.Tensor, pairs) -> torch.Tensor:
+    """Per-pair ``sum_s popcount(op(rm[p0, s], rm[p1, s]))`` -> int32[B]
+    over a ROW-MAJOR int32[R, S, W] matrix (each row's slices contiguous)."""
+    if op not in OPS or op == "none":
+        raise ValueError(f"unknown pair op {op!r}")
+    if _on_cpu(row_major):
+        return gather_count2_rowmajor_plain(op, row_major, pairs)
+    _words(row_major, "gather_count2_rowmajor matrix", 3)
+    r, s, w = row_major.shape
+    p = _ids(pairs, r, row_major.device, "gather_count2_rowmajor pairs")
+    if p.dim() != 2 or p.shape[1] != 2:
+        raise ValueError(f"gather_count2_rowmajor: pairs shape {tuple(p.shape)}, want [B, 2]")
+    b = p.shape[0]
+    out = torch.zeros(b, dtype=torch.int32, device=row_major.device)
+    err = _fn("gather_count2_rowmajor")(
+        row_major.data_ptr(), p.data_ptr(), out.data_ptr(), r, s, w, b, OPS[op],
+        _stream(row_major),
+    )
+    _check(err, "gather_count2_rowmajor")
+    LAUNCHES["gather_count2_rowmajor"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# gather_count_multi_rowmajor (fused_gather_count_multi_rowmajor)
+# ---------------------------------------------------------------------------
+
+def gather_count_multi_rowmajor_plain(op: str, row_major, idx):
+    return bitwise.gather_count_multi(op, row_major.transpose(0, 1), idx)
+
+
+def gather_count_multi_rowmajor(op: str, row_major: torch.Tensor, idx) -> torch.Tensor:
+    """Per-query ``sum_s popcount(fold_j rm[idx[q, j], s])`` -> int32[B]
+    over a ROW-MAJOR int32[R, S, W] matrix: the left fold of K >= 1 rows
+    (and / or / andnot, andnot folding ``acc & ~row``); any B and K run in
+    one launch."""
+    if op not in MULTI_OPS:
+        raise ValueError(f"unsupported multi-op {op!r}")
+    if _on_cpu(row_major):
+        return gather_count_multi_rowmajor_plain(op, row_major, idx)
+    _words(row_major, "gather_count_multi_rowmajor matrix", 3)
+    r, s, w = row_major.shape
+    ix = _ids(idx, r, row_major.device, "gather_count_multi_rowmajor idx")
+    if ix.dim() != 2 or ix.shape[1] < 1:
+        raise ValueError(
+            f"gather_count_multi_rowmajor: idx shape {tuple(ix.shape)}, want [B, K >= 1]")
+    b, k = ix.shape
+    out = torch.zeros(b, dtype=torch.int32, device=row_major.device)
+    err = _fn("gather_count_multi_rowmajor")(
+        row_major.data_ptr(), ix.data_ptr(), out.data_ptr(), r, s, w, b, k, OPS[op],
+        _stream(row_major),
+    )
+    _check(err, "gather_count_multi_rowmajor")
+    LAUNCHES["gather_count_multi_rowmajor"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# topn_counts (fused_topn_counts)
+# ---------------------------------------------------------------------------
+
+def topn_counts_plain(row_matrix, src):
+    return bitwise.count(row_matrix & src[:, None]).sum(dim=0, dtype=torch.int32)
+
+
+def topn_counts(row_matrix: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``sum_s popcount(rm[s, r] & src[s])`` for every row r -> int32[R];
+    rm int32[S, R, W], src int32[S, W]."""
+    if _on_cpu(row_matrix):
+        return topn_counts_plain(row_matrix, src)
+    _words(row_matrix, "topn_counts matrix", 3)
+    _words(src, "topn_counts src", 2)
+    s, r, w = row_matrix.shape
+    if tuple(src.shape) != (s, w) or src.device != row_matrix.device:
+        raise ValueError(f"topn_counts: src {tuple(src.shape)} vs matrix {(s, r, w)}")
+    out = torch.zeros(r, dtype=torch.int32, device=row_matrix.device)
+    err = _fn("topn_counts")(
+        row_matrix.data_ptr(), src.data_ptr(), out.data_ptr(), s, r, w, _stream(row_matrix),
+    )
+    _check(err, "topn_counts")
+    LAUNCHES["topn_counts"] += 1
     return out

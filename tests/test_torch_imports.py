@@ -76,7 +76,8 @@ def test_importing_the_port_loads_no_jax_or_reference_module():
     new = json.loads(out.stdout.strip().splitlines()[-1])
     assert "pilosa_tpu_torch.executor" in new and "chip_smoke" in new
     for m in ("server", "server.server", "server.handler", "cli", "cli.main", "planner",
-              "costs", "trace", "ingest", "config", "qos", "tenancy", "wire", "replica.catchup"):
+              "costs", "trace", "ingest", "config", "qos", "tenancy", "wire", "replica.catchup",
+              "ops.diffcheck"):
         assert f"pilosa_tpu_torch.{m}" in new, m
     assert not [m for m in new if _forbidden(m)]
 

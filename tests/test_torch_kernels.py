@@ -6,7 +6,8 @@ comparison is exact (tolerance 0).  The ported rows of the TPU kernel
 table: fused_count1, fused_count2, fused_resident_count2,
 fused_gather_count2, fused_gather_src_counts, fused_gather_count_multi
 (with fused_gather_count_or) and fused_gather_count_tree — plus
-pair_gram against the JAX Gram.
+pair_gram against the JAX Gram.  The row-major kernels and
+fused_topn_counts are held in ``test_torch_rowmajor.py``.
 """
 
 import numpy as np
@@ -247,23 +248,25 @@ def test_plain_gather_count_tree_matches_jax():
 
 
 def test_unported_lanes_raise_off_the_cpu():
-    """The row-major lanes have no CUDA kernel yet: they raise on any
-    non-CPU tensor (a meta tensor stands in for the card here) instead of
-    running plain code."""
+    """No lane is left unported: every wrapper, the row-major ones
+    included, raises its device error on a tensor that is neither on the
+    CPU nor on the card (a meta tensor stands in) instead of running
+    plain code."""
     rm = torch.empty((2, 4, 1024), dtype=torch.int32, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        dispatch.gather_count_rowmajor("and", rm, np.zeros((2, 2), np.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        dispatch.gather_count_multi_rowmajor("or", rm, np.zeros((2, 3), np.int32))
+    with pytest.raises(ValueError, match="device meta"):
+        kernels.gather_count2_rowmajor("and", rm, np.zeros((2, 2), np.int32))
+    with pytest.raises(ValueError, match="device meta"):
+        kernels.gather_count_multi_rowmajor("or", rm, np.zeros((2, 3), np.int32))
     with pytest.raises(ValueError, match="device meta"):
         kernels.count_rows(rm[0])
 
 
-@pytest.mark.parametrize("lane", ["multi", "or_multi", "tree"])
+@pytest.mark.parametrize("lane", ["multi", "or_multi", "tree", "rmgather", "rmmulti", "topn"])
 def test_ported_lanes_reach_their_kernel_off_the_cpu(lane):
-    """The multi and tree lanes no longer stop in dispatch: a non-CPU
-    tensor reaches the kernel wrapper, which raises its device error (a
-    CUDA tensor would launch the kernel)."""
+    """The multi, tree, row-major and whole-row TopN lanes do not stop in
+    dispatch or the engine: a non-CPU tensor reaches the kernel wrapper,
+    which raises its device error (a CUDA tensor would launch the
+    kernel)."""
     from pilosa_tpu_torch.engine import TorchEngine
 
     rm = torch.empty((2, 4, 1024), dtype=torch.int32, device="meta")
@@ -272,11 +275,21 @@ def test_ported_lanes_reach_their_kernel_off_the_cpu(lane):
             dispatch.gather_count_multi("and", rm, np.zeros((2, 3), np.int32))
         elif lane == "or_multi":
             TorchEngine("cpu").gather_count_or_multi(rm, np.zeros((2, 3), np.int32))
-        else:
+        elif lane == "tree":
             dispatch.gather_count_tree(rm, np.zeros((2, 4), np.int32), np.zeros((2, 3), np.int32))
+        elif lane == "rmgather":
+            TorchEngine("cpu").gather_count_rowmajor_dev("xor", rm, np.zeros((2, 2), np.int32))
+        elif lane == "rmmulti":
+            TorchEngine("cpu").gather_count_multi_rowmajor_dev("andnot", rm, np.zeros((2, 3), np.int32))
+        else:
+            kernels.topn_counts(rm, rm[:, 0])
 
 
 def test_kernel_wrappers_check_their_arguments():
     rm = torch.zeros((2, 4, 1024), dtype=torch.int32)
     with pytest.raises(ValueError, match="multi-op"):
         kernels.gather_count_multi("xor", rm, np.zeros((1, 2), np.int32))
+    with pytest.raises(ValueError, match="multi-op"):
+        kernels.gather_count_multi_rowmajor("xor", rm, np.zeros((1, 2), np.int32))
+    with pytest.raises(ValueError, match="pair op"):
+        kernels.gather_count2_rowmajor("none", rm, np.zeros((1, 2), np.int32))
