@@ -4,15 +4,22 @@
 
 1. Probes the card (fails without CUDA) and prints its name and power
    limit as nvidia-smi reports them.
-2. Builds the nine CUDA kernels from ``pilosa_tpu_torch/csrc`` with nvcc
+2. Builds the ten CUDA kernels from ``pilosa_tpu_torch/csrc`` with nvcc
    (one process per source, all started together), and beside them
-   compiles the fold, row-major and TopN kernels once more with
-   ``-Xptxas -v`` to report their registers and shared memory.
+   compiles the resident, fold, row-major and TopN kernels once more
+   with ``-Xptxas -v`` to report their registers and shared memory.
 3. Holds each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it, for every op variant; exact equality
    (integer counts), and times both with CUDA events beside the kernel's
    memory bound.  The row-major kernels are also timed against the
-   slice-major ones on the transposed matrix with the same ids.
+   slice-major ones on the transposed matrix with the same ids.  The two
+   staged kernels (``resident_count2``, ``resident_count_tree``) are held
+   exactly on their edge cases — duplicate ids, self-pairs, unreferenced
+   rows, padded trees, ragged and multi-group batches, the resident
+   gate's edge — and timed: ``resident_count2`` at R = 64, 256, 400 and
+   B = 256 to 4,096, and both tree kernels on the same batches at B = 16,
+   32, 64 x K = 4, 8, 16 and at batches of 128 and 256 trees (a
+   "tree_gate" line, with each kernel's gathered bytes over its time).
 4. The diffcheck path: the differential sweep ``ops/diffcheck.py`` over
    every lane on the card (its ``topn_counts`` lane is that kernel's path).
 5. Drives the executor path — ``Executor.execute`` over a ``Holder`` — at
@@ -32,8 +39,10 @@
    (engine on the card) on an ephemeral port, ``POST /index/i/query``
    over urllib — a pair batch, N-ary Intersect / Union / Difference
    batches (multi-fold kernel), nested and multi-operand Xor Counts
-   (tree-fold kernel), and two ``Count(Range(...))`` batches (multi-fold
-   kernel over the multi-view matrix).  A seeded 16-query subset of each
+   (tree-fold kernel), two ``Count(Range(...))`` batches (multi-fold
+   kernel over the multi-view matrix), and "tree-wide": 256 nested Counts
+   whose K=16 bucket names its rows often enough for the staged tree
+   kernel.  A seeded 16-query subset of each
    answer is checked against ``Executor(srv.holder, engine="numpy")``.
 7. Drives the tall path in a data directory of its own: 32 slices x 1,024
    rows x 1,000 distinct bits per row per slice, 4 GiB dense, twice what
@@ -46,10 +55,18 @@
 8. Fails unless every kernel's launch counter moved during its path: the
    counters are set to 0 just before each path and read just after it.
 
-Prints a ptxas line, a ``{"card": ..., "layout": [...]}`` line, a
-``{"card": ..., "requests": [...]}`` line per path, a ``{"kernels":
-[...]}`` line, and last ``{"ok": true, "device": {...}}``.  Any failure
-raises.
+Prints a ptxas line, a staged-checks line, ``{"card": ..., "layout" /
+"tree_gate": [...]}`` lines, a ``{"card": ..., "requests": [...]}`` line
+per path, a ``{"kernels": [...]}`` line, and last ``{"ok": true,
+"device": {...}}``.  Any failure raises.
+
+    python3 chip_smoke.py --resident-against DIR
+
+times ``resident_count2`` of this checkout against that of the checkout
+at DIR (for example an earlier commit unpacked with ``git archive``) on
+the same inputs, S=64 R=256 at B = 256 to 4,096, in the order DIR, this,
+this, DIR, after checking that the two agree exactly; it prints one
+``{"card": ..., "resident_against": [...]}`` line.
 """
 
 from __future__ import annotations
@@ -91,6 +108,7 @@ TIME_ROWS = 8
 STAMPS = [datetime(2017, m, d, hh) for m in range(1, 13) for d in (1, 15) for hh in (0, 12)]
 FOLD_BATCH = 64
 RANGE_BATCH = 128
+TREE_WIDE_BATCH = 256
 
 # The tall path: 32 slices x 1,024 rows x 128 KiB = 4 GiB, twice the
 # default pool budget (which holds 512 rows at 32 slices), so batches
@@ -119,6 +137,7 @@ SOURCES = {
     "gather_src_counts": "pilosa_tpu_torch/csrc/gather_src_counts.cu",
     "gather_count_multi": "pilosa_tpu_torch/csrc/gather_count_multi.cu",
     "gather_count_tree": "pilosa_tpu_torch/csrc/gather_count_tree.cu",
+    "resident_count_tree": "pilosa_tpu_torch/csrc/resident_count_tree.cu",
     "gather_count2_rowmajor": "pilosa_tpu_torch/csrc/gather_count2_rowmajor.cu",
     "gather_count_multi_rowmajor": "pilosa_tpu_torch/csrc/gather_count_multi_rowmajor.cu",
     "topn_counts": "pilosa_tpu_torch/csrc/topn_counts.cu",
@@ -132,16 +151,19 @@ REPLACES = {
     # fused_gather_count_multi (+ fused_gather_count_or :592)
     "gather_count_multi": "pilosa_tpu/ops/pallas_kernels.py:554",
     "gather_count_tree": "pilosa_tpu/ops/pallas_kernels.py:626",
+    "resident_count_tree": "pilosa_tpu/ops/pallas_kernels.py:626",  # the staged variant
     "gather_count2_rowmajor": "pilosa_tpu/ops/pallas_kernels.py:415",
     "gather_count_multi_rowmajor": "pilosa_tpu/ops/pallas_kernels.py:490",
     "topn_counts": "pilosa_tpu/ops/pallas_kernels.py:293",
 }
 # Which path must launch each kernel: the executor path keeps the four
-# pair/TopN kernels, the HTTP path the two fold kernels, the tall path the
-# two row-major kernels, and the differential sweep the whole-row scorer.
+# pair/TopN kernels, the HTTP path the three fold kernels (the staged tree
+# kernel through the "tree-wide" request), the tall path the two row-major
+# kernels, and the differential sweep the whole-row scorer.
 PATH_OF = {
     "count_rows": "executor", "resident_count2": "executor", "gather_count2": "executor",
     "gather_src_counts": "executor", "gather_count_multi": "http", "gather_count_tree": "http",
+    "resident_count_tree": "http",
     "gather_count2_rowmajor": "tall", "gather_count_multi_rowmajor": "tall",
     "topn_counts": "diffcheck",
 }
@@ -230,6 +252,26 @@ def cover(span) -> list[str]:
     return views_by_time_range(VIEW_STANDARD, start, end, "YMD")
 
 
+def _entry_name(mangled: str) -> str:
+    """``kernel<args>`` for a mangled template kernel's name (its integer
+    template arguments), else the name as ptxas printed it.  The mangled
+    identifier is length-prefixed and may follow an anonymous namespace's
+    tag, whose hash can end in digits: the prefix is the digit run equal
+    to the length of what follows it."""
+    m = re.search(r"([A-Za-z0-9_]+_kernel)I((?:Li\d+E)+)E", mangled)
+    if not m:
+        return mangled
+    ident = m.group(1)
+    for i in range(len(ident)):
+        j = i
+        while j < len(ident) and ident[j].isdigit():
+            j += 1
+        if j > i and int(ident[i:j]) == len(ident) - j:
+            ident = ident[j:]
+            break
+    return f"{ident}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+
+
 def ptxas_usage(names) -> dict:
     """Registers, spills and shared memory per kernel of the given sources,
     as ``nvcc -Xptxas -v`` reports them (one nvcc per source, together)."""
@@ -256,7 +298,7 @@ def ptxas_usage(names) -> dict:
                 m = re.search(r"Used (\d+) registers", line)
                 if m and fn:
                     smem = re.search(r"(\d+) bytes smem", line)
-                    entries.append({"entry": fn, "registers": int(m.group(1)),
+                    entries.append({"entry": _entry_name(fn), "registers": int(m.group(1)),
                                     "smem_bytes": int(smem.group(1)) if smem else 0,
                                     "spill_store_bytes": spill})
             out[name] = entries
@@ -295,10 +337,10 @@ def _rand_words(gen, shape) -> torch.Tensor:
     return torch.randint(-(2**31), 2**31, shape, dtype=torch.int32, device="cuda", generator=gen)
 
 
-def check_kernels() -> tuple[dict, list]:
+def check_kernels() -> tuple[dict, list, list]:
     """Every kernel == its plain version on the card for every op
-    variant, at the main path's shapes; returns per-kernel timings and
-    the slice-major vs row-major comparison."""
+    variant, at the main path's shapes; returns per-kernel timings, the
+    slice-major vs row-major comparison and the tree gate's grid."""
     gen = _gen(SEED)
     rm = _rand_words(gen, (N_SLICES, N_ROWS, W))
     stack = _rand_words(gen, (N_SLICES, W))
@@ -334,6 +376,7 @@ def check_kernels() -> tuple[dict, list]:
          kernels.gather_src_counts_plain(rm, pos, stack))
     torch.cuda.synchronize()
     fold_cases = check_fold_kernels(rm, rng, diff)
+    check_staged_kernels(rm, diff)
 
     # Timings at the main path's shapes; bytes count each input the
     # function needs once (the rows this run's ids reference).
@@ -356,14 +399,6 @@ def check_kernels() -> tuple[dict, list]:
         plain_ms=cuda_ms(lambda: kernels.count_rows_plain(stack), reps=5),
         bound_ms=nb, bound_by=by,
     )
-    nb, by = bound(N_SLICES * uniq(pairs_r) * row_b + pairs_r.nbytes + PAIR_BATCH * 4,
-                   N_SLICES * PAIR_BATCH * W * OPS_PER_WORD)
-    res["resident_count2"] = dict(
-        shape=f"rm [{N_SLICES}, {N_ROWS}, {W}], {PAIR_BATCH} pairs, and",
-        ms=cuda_ms(lambda: kernels.resident_count2("and", rm, pairs_r)),
-        plain_ms=cuda_ms(lambda: kernels.resident_count2_plain("and", rm, pairs_r), reps=3),
-        bound_ms=nb, bound_by=by,
-    )
     nb, by = bound(N_SLICES * uniq(pairs_g) * row_b + pairs_g.nbytes + GATHER_BATCH * 4,
                    N_SLICES * GATHER_BATCH * W * OPS_PER_WORD)
     res["gather_count2"] = dict(
@@ -382,6 +417,8 @@ def check_kernels() -> tuple[dict, list]:
     )
     res.update(time_fold_kernels(rm, fold_cases))
     del fold_cases
+    staged, gate = time_staged_kernels(rm, pairs_r)
+    res.update(staged)
     torch.cuda.empty_cache()
     tall, layout = check_tall_kernels(rm, stack, rng, diff)
     res.update(tall)
@@ -389,7 +426,7 @@ def check_kernels() -> tuple[dict, list]:
         res[name]["max_abs_err"] = err[name]
     del rm, stack, rows
     torch.cuda.empty_cache()
-    return res, layout
+    return res, layout, gate
 
 
 # Queries per plain-version call in the fold checks: the plain versions
@@ -515,6 +552,218 @@ def time_fold_kernels(rm, cases) -> dict:
     out = {"gather_count_multi": dict(multi[0], shapes=multi[1:]),
            "gather_count_tree": dict(tree[2], shapes=tree[:2] + tree[3:])}
     return out
+
+
+# The staged kernels' exact checks use a generator of their own, so the
+# shapes every earlier check and timing draws stay as they were.
+STAGED_SEED = SEED + 7
+# The resident gate's edge at W = 32,768: the most rows resident_strategy
+# admits (452 rows x 512 + 4 x 230 pairs <= 232,448 bytes), over 8 slices.
+EDGE_ROWS, EDGE_PAIRS, EDGE_SLICES = 452, 230, 8
+# Shapes timed besides the main one, and the tree gate's grid: B x K, and
+# batches of more than one group of 64 trees (B, K, rows drawn from).
+RESIDENT_ROWS_TIMED = (64, 400)
+RESIDENT_BATCHES_TIMED = (512, 1024, 4096)
+TREE_GATE_BATCHES = (16, 32, 64)
+TREE_GATE_KS = (4, 8, 16)
+TREE_GATE_WIDE = ((128, 16, 256), (256, 16, 256), (128, 16, 96), (256, 16, 96),
+                  (128, 8, 128), (256, 8, 256), (256, 4, 64))
+
+
+def check_staged_kernels(rm, diff) -> None:
+    """resident_count2 and resident_count_tree against their plain
+    versions on the card, exactly, for every op and opcode: pairs naming
+    every row (64-word tiles), duplicate pairs and self-pairs (a, a), pools whose
+    rows are mostly unreferenced, batches that are not a multiple of the
+    warp count or span several pair groups, and R at the resident gate's
+    edge (one stage); trees of K = 2-16 leaves with opcodes 0-5 (pass
+    nodes), duplicate leaves, unreferenced rows, padded trees (a TREE_PASS
+    root), ragged and multi-group batches, and a batch whose distinct
+    leaves fit only one stage."""
+    from pilosa_tpu_torch.ops import bitwise, dispatch
+
+    rng = np.random.default_rng(STAGED_SEED)
+    r = N_ROWS
+    every = rng.integers(0, r, size=(PAIR_BATCH, 2))
+    every[:, 0] = np.resize(rng.permutation(r), PAIR_BATCH)
+    dup = rng.integers(0, r, size=(20, 2))[rng.integers(0, 20, size=240)]
+    dup[::3, 1] = dup[::3, 0]
+    pair_cases = {
+        "every row": every, "duplicates + self-pairs": dup,
+        "unreferenced rows": rng.integers(200, r, size=(PAIR_BATCH, 2)),
+        "B=250": rng.integers(0, r, size=(250, 2)), "B=600": rng.integers(0, r, size=(600, 2)),
+    }
+    for pairs in pair_cases.values():
+        pairs = pairs.astype(np.int32)
+        for op in PAIR_OPS:
+            diff("resident_count2", kernels.resident_count2(op, rm, pairs),
+                 kernels.resident_count2_plain(op, rm, pairs))
+    edge = _rand_words(_gen(STAGED_SEED), (EDGE_SLICES, EDGE_ROWS, W))
+    if not dispatch.resident_strategy(EDGE_ROWS, W, EDGE_PAIRS) or dispatch.resident_strategy(
+            EDGE_ROWS + 1, W, EDGE_PAIRS):
+        raise AssertionError("the resident gate's edge moved")
+    # Every row named (U = R: one stage), and a self-pair.
+    pairs = rng.integers(0, EDGE_ROWS, size=(EDGE_PAIRS, 2)).astype(np.int32)
+    pairs.reshape(-1)[:EDGE_ROWS] = rng.permutation(EDGE_ROWS)
+    pairs[-1] = [EDGE_ROWS - 1, EDGE_ROWS - 1]
+    tiling = kernels.resident_tiling(len(np.unique(pairs)), W, EDGE_PAIRS, EDGE_SLICES)
+    for op in PAIR_OPS:
+        diff("resident_count2", kernels.resident_count2(op, edge, pairs),
+             kernels.resident_count2_plain(op, edge, pairs))
+
+    def trees(b, k, lo=0, hi=r, rows=None):
+        if rows is None:
+            leaves = rng.integers(lo, hi, size=(b, k))
+        else:
+            leaves = rows[rng.integers(0, len(rows), size=(b, k))]
+        return leaves.astype(np.int32), rng.integers(0, 6, size=(b, k - 1)).astype(np.int32)
+
+    tree_cases = [(f"K={k}", rm, *trees(FOLD_BATCH, k)) for k in kernels.TREE_LEAVES]
+    lv, oc = trees(FOLD_BATCH, 16, rows=np.array([3, 7, 7, 200]))
+    tree_cases.append(("duplicates", rm, lv, oc))
+    tree_cases.append(("unreferenced rows", rm, *trees(FOLD_BATCH, 8, lo=192)))
+    lv, oc = trees(FOLD_BATCH, 8)
+    lv[:, 4:] = lv[:, :4]
+    oc[:, -1] = bitwise.TREE_PASS
+    tree_cases.append(("padded", rm, lv, oc))
+    tree_cases.append(("B=13", rm, *trees(13, 16)))
+    tree_cases.append(("B=300", rm, *trees(300, 4)))
+    tree_cases.append(("one stage", edge, *trees(1024, 16, hi=EDGE_ROWS)))
+    for _, m, lv, oc in tree_cases:
+        want = _chunked(lambda x, y, _m=m: kernels.resident_count_tree_plain(_m, x, y), lv, oc)
+        diff("resident_count_tree", kernels.resident_count_tree(m, lv, oc), want)
+    one = kernels.tree_tiling(len(np.unique(tree_cases[-1][2])), W, 16, EDGE_SLICES)
+    torch.cuda.synchronize()
+    del edge
+    torch.cuda.empty_cache()
+    print(json.dumps({"staged_checks": {
+        "resident_count2": sorted(pair_cases) + [f"gate edge R={EDGE_ROWS} B={EDGE_PAIRS}: tiling {tiling}"],
+        "resident_count_tree": [c[0] for c in tree_cases[:-1]] + [f"one stage: tiling {one}"]}}),
+        flush=True)
+
+
+def time_staged_kernels(rm, pairs_r) -> tuple[dict, list]:
+    """Times of the two staged kernels (CUDA events, L2 flushed): their
+    "kernels" line entries, and the tree gate's grid — both tree kernels
+    on the same batches — with each kernel's gathered bytes (B x S x K x
+    W x 4, a row named twice counted twice) over its time and the batch's
+    reuse (B x K over its distinct leaves)."""
+    from pilosa_tpu_torch.ops import dispatch
+
+    rng = np.random.default_rng(STAGED_SEED + 1)
+    row_b = W * 4
+    res = {}
+
+    def pair_entry(m, pairs):
+        s, r = m.shape[:2]
+        u = len(np.unique(pairs))
+        chunk, stages = kernels.resident_tiling(u, W, len(pairs), s)
+        nb, by = bound(s * u * row_b + pairs.nbytes + len(pairs) * 4,
+                       s * len(pairs) * W * OPS_PER_WORD)
+        return dict(
+            shape=f"rm [{s}, {r}, {W}], {len(pairs)} pairs ({u} distinct rows), and",
+            ms=cuda_ms(lambda: kernels.resident_count2("and", m, pairs)),
+            plain_ms=cuda_ms(lambda: _chunked_pairs("and", m, pairs), reps=3),
+            bound_ms=nb, bound_by=by, chunk_words=chunk, stages=stages,
+            smem_bytes=kernels.staged_smem_bytes(u, chunk, stages, kernels.pair_span_ints(len(pairs))))
+
+    main = pair_entry(rm, pairs_r)
+    shapes = []
+    for r in RESIDENT_ROWS_TIMED:
+        m = rm[:, :r].contiguous() if r <= N_ROWS else _rand_words(_gen(STAGED_SEED + r), (N_SLICES, r, W))
+        shapes.append(pair_entry(m, rng.integers(0, r, size=(PAIR_BATCH, 2)).astype(np.int32)))
+        del m
+        torch.cuda.empty_cache()
+    for b in RESIDENT_BATCHES_TIMED:
+        shapes.append(pair_entry(rm, rng.integers(0, N_ROWS, size=(b, 2)).astype(np.int32)))
+    res["resident_count2"] = dict(main, shapes=shapes)
+
+    gate, tree_entries = [], {}
+
+    def gate_entry(lv, oc):
+        b, k = lv.shape
+        u = len(np.unique(lv))
+        gathered = b * N_SLICES * k * row_b
+        g_ms = cuda_ms(lambda: kernels.gather_count_tree(rm, lv, oc))
+        s_ms = cuda_ms(lambda: kernels.resident_count_tree(rm, lv, oc))
+        return {
+            "B": b, "K": k, "distinct": u, "reuse": b * k / u, "gather_ms": g_ms,
+            "staged_ms": s_ms, "gather_gathered_tb_s": gathered / g_ms / 1e9,
+            "staged_gathered_tb_s": gathered / s_ms / 1e9,
+            "unique_bound_ms": N_SLICES * u * row_b / PEAK_BYTES_S * 1e3,
+            "staged_tiling": list(kernels.tree_tiling(u, W, k, N_SLICES)),
+            "dispatch": "staged" if dispatch.tree_strategy(u, W, b, k, N_SLICES) else "gather"}
+
+    for b in TREE_GATE_BATCHES:
+        for k in TREE_GATE_KS:
+            lv = rng.integers(0, N_ROWS, size=(b, k)).astype(np.int32)
+            oc = rng.integers(0, 4, size=(b, k - 1)).astype(np.int32)
+            gate.append(gate_entry(lv, oc))
+            if b == FOLD_BATCH:
+                tree_entries[k] = (lv, oc)
+    for b, k, rows in TREE_GATE_WIDE:
+        lv = rng.integers(0, rows, size=(b, k)).astype(np.int32)
+        gate.append(gate_entry(lv, rng.integers(0, 4, size=(b, k - 1)).astype(np.int32)))
+
+    entries = []
+    for k in (16, 8, 4):
+        lv, oc = tree_entries[k]
+        u = len(np.unique(lv))
+        chunk, stages = kernels.tree_tiling(u, W, k, N_SLICES)
+        nb, by = bound(N_SLICES * u * row_b + lv.nbytes + oc.nbytes + len(lv) * 4,
+                       len(lv) * N_SLICES * W * (k + 1))
+        entries.append(dict(
+            chunk_words=chunk, stages=stages, smem_bytes=kernels.staged_smem_bytes(
+                u, chunk, stages, kernels.tree_group_ints(k)),
+            shape=f"pool [{N_SLICES}, {N_ROWS}, {W}], B={len(lv)}, K={k} ({u} distinct rows)",
+            ms=cuda_ms(lambda: kernels.resident_count_tree(rm, lv, oc)),
+            plain_ms=cuda_ms(lambda: _chunked(
+                lambda x, y: kernels.resident_count_tree_plain(rm, x, y), lv, oc), reps=2, warm=1),
+            bound_ms=nb, bound_by=by, gathered_bound_ms=len(lv) * N_SLICES * k * row_b / PEAK_BYTES_S * 1e3))
+    res["resident_count_tree"] = dict(entries[0], shapes=entries[1:])
+    return res, gate
+
+
+def _chunked_pairs(op, m, pairs):
+    """resident_count2's plain version over PAIR_BATCH pairs at a time (it
+    materializes both gathered rows of every pair)."""
+    return torch.cat([kernels.resident_count2_plain(op, m, pairs[i:i + PAIR_BATCH])
+                      for i in range(0, len(pairs), PAIR_BATCH)])
+
+
+def _abba(fa, fb) -> tuple[list, list]:
+    """cuda_ms of two launches in the order a, b, b, a."""
+    a1, b1, b2, a2 = cuda_ms(fa), cuda_ms(fb), cuda_ms(fb), cuda_ms(fa)
+    return [a1, a2], [b1, b2]
+
+
+def resident_against(other_root: str) -> int:
+    """``resident_count2`` of this checkout against the one at
+    ``other_root`` on the same inputs: exact agreement, then ABBA times
+    (other, this, this, other) at S=64 R=256 for B = 256 to 4,096."""
+    import importlib.util
+
+    card = probe()
+    kernels.build()
+    path = os.path.join(other_root, "pilosa_tpu_torch", "ops", "kernels.py")
+    spec = importlib.util.spec_from_file_location("other_kernels", path)
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    other.build()
+    rm = _rand_words(_gen(SEED), (N_SLICES, N_ROWS, W))
+    rng = np.random.default_rng(SEED)
+    rows = []
+    for b in (PAIR_BATCH,) + RESIDENT_BATCHES_TIMED:
+        pairs = rng.integers(0, N_ROWS, size=(b, 2)).astype(np.int32)
+        for op in PAIR_OPS:
+            if not torch.equal(kernels.resident_count2(op, rm, pairs), other.resident_count2(op, rm, pairs)):
+                raise AssertionError(f"resident_count2 {op} B={b}: the checkouts disagree")
+        o_ms, ms = _abba(lambda: other.resident_count2("and", rm, pairs),
+                         lambda: kernels.resident_count2("and", rm, pairs))
+        rows.append({"S": N_SLICES, "R": N_ROWS, "B": b, "distinct": len(np.unique(pairs)),
+                     "other_ms": o_ms, "ms": ms})
+    print(json.dumps({"card": card, "other": other_root, "resident_against": rows}), flush=True)
+    return 0
 
 
 def check_tall_kernels(rm, stack, rng, diff) -> tuple[dict, list]:
@@ -839,6 +1088,11 @@ def http_path(host: str, ex_ref, n_rows: int, time_rows: int, engine) -> list[di
              for _ in range(RANGE_BATCH - 32)]
     calls += [_range_call(rng.integers(0, time_rows), fresh[i % len(fresh)]) for i in range(32)]
     run("range-2", [calls[i] for i in rng.permutation(len(calls))], expect=("gather_count_multi",))
+    # Nested Counts four times as many as "tree": buckets of 128 trees at
+    # K=4 and 64 at K=8 and K=16.  The K=16 bucket names its rows often
+    # enough for the staged tree kernel (dispatch.tree_strategy).
+    run("tree-wide", [_tree_call(rng, n_rows, i) for i in range(TREE_WIDE_BATCH)],
+        expect=("resident_count_tree",))
     return records
 
 
@@ -951,12 +1205,13 @@ def main() -> int:
     per_source = kernels.build()
     print(f"build_s {time.perf_counter() - t0:.3f} per-source {json.dumps(per_source)}", flush=True)
     print(json.dumps({"ptxas": ptxas_usage((
-        "gather_count_multi", "gather_count_tree", "gather_count2_rowmajor",
-        "gather_count_multi_rowmajor", "topn_counts"))}), flush=True)
+        "resident_count2", "gather_count_multi", "gather_count_tree", "resident_count_tree",
+        "gather_count2_rowmajor", "gather_count_multi_rowmajor", "topn_counts"))}), flush=True)
 
-    timings, layout = check_kernels()
+    timings, layout, gate = check_kernels()
     print("kernels match their plain versions on the card", flush=True)
     print(json.dumps({"card": card, "layout": layout}), flush=True)
+    print(json.dumps({"card": card, "tree_gate": gate}), flush=True)
 
     kernels.reset_launches()
     sweep = diffcheck_path()
@@ -1037,7 +1292,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "shape": t["shape"],
         }
-        for extra in ("count_path", "shapes", "gathered_bound_ms", "all_rows_floor_ms"):
+        for extra in ("count_path", "shapes", "gathered_bound_ms", "all_rows_floor_ms",
+                      "chunk_words", "stages", "smem_bytes"):
             if extra in t:
                 entry[extra] = t[extra]
         line.append(entry)
@@ -1054,4 +1310,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--resident-against"]:
+        sys.exit(resident_against(sys.argv[2]))
     sys.exit(main())

@@ -14,7 +14,10 @@ launch the hand-written kernels, on the CPU their plain PyTorch versions.
 Two consumers: ``tests/test_torch_diffcheck.py`` (CPU) and
 ``chip_smoke.py``'s diffcheck phase (the card).
 
-Two lanes of the JAX sweep have no counterpart here: ``count2_tiled:*``
+The port adds the staged tree kernel's lanes (``resident_tree:k{K}``,
+K = 2, 4, 8, 16; opcodes 0-5, so pass nodes too), drawn from a generator
+of their own so the shared lanes keep the JAX sweep's cases.  Two lanes
+of the JAX sweep have no counterpart here: ``count2_tiled:*``
 and ``dispatch4:*`` check the TPU's (8, 128)-tiled 4-D matrix form, and
 the port stores every matrix as plain ``[S, R, W]`` (``lane_names`` leaves
 them out).
@@ -37,6 +40,7 @@ SHAPES = [  # (n_slices, n_rows, words)
 ]
 B = 16  # queries per case
 KS = (2, 4)  # multi-fold operand buckets
+TREE_KS = (2, 4, 8, 16)  # staged tree lanes: leaves per tree
 PAIR_OPS = ("and", "or", "xor", "andnot")
 MULTI_OPS = ("and", "or", "andnot")
 
@@ -123,6 +127,7 @@ def run_lanes(seed: int, cases_per_lane: int, device="cuda") -> list[str]:
     dev = torch.device(device)
     failures: list[str] = []
     rng = np.random.default_rng(seed)
+    tree_rng = np.random.default_rng([seed, 1])
 
     def check(lane: str, case_i: int, got, want) -> None:
         got = np.asarray(got.cpu() if torch.is_tensor(got) else got)
@@ -160,6 +165,13 @@ def run_lanes(seed: int, cases_per_lane: int, device="cuda") -> list[str]:
         check(f"multi:{mop}:k{k}", ci, kernels.gather_count_multi(mop, rmd, idx[k]), want_multi)
         check(f"rmmulti:{mop}:k{k}", ci,
               kernels.gather_count_multi_rowmajor(mop, rmt, idx[k]), want_multi)
+        # The staged tree fold (its own generator: the draws above stay
+        # the JAX sweep's).
+        tk = TREE_KS[ci % len(TREE_KS)]
+        leaves = tree_rng.integers(0, r, size=(B, tk), dtype=np.int32)
+        opc = tree_rng.integers(0, 6, size=(B, tk - 1), dtype=np.int32)
+        check(f"resident_tree:k{tk}", ci, kernels.resident_count_tree(rmd, leaves, opc),
+              [int(v) for v in bw.np_gather_count_tree(rm, leaves, opc)])
         # TopN scorer over every row.
         check("topn", ci, kernels.topn_counts(rmd, srcd), np_topn_counts(rm, src))
 
@@ -191,6 +203,7 @@ def run_lanes(seed: int, cases_per_lane: int, device="cuda") -> list[str]:
 def lane_names() -> set[str]:
     """The lane identifiers run_lanes covers (for coverage assertions)."""
     lanes = {"count1", "topn", "gram_oneshot", "gram_scan", "gram_chunked"}
+    lanes |= tree_lane_names()
     for op in PAIR_OPS:
         lanes |= {f"count2:{op}", f"resident:{op}", f"gather:{op}", f"rmgather:{op}",
                   f"gram_pairs:{op}", f"dispatch:{op}", f"dispatch_gram:{op}"}
@@ -199,3 +212,9 @@ def lane_names() -> set[str]:
             lanes |= {f"multi:{mop}:k{k}", f"rmmulti:{mop}:k{k}"}
         lanes.add(f"dispatch_multi:{mop}")
     return lanes
+
+
+def tree_lane_names() -> set[str]:
+    """The staged tree kernel's lanes (the port's own, beyond the JAX
+    sweep's)."""
+    return {f"resident_tree:k{k}" for k in TREE_KS}

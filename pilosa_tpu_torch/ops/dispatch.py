@@ -5,8 +5,8 @@ The choice is the tensor's device and nothing else: there is no probe,
 no ``try`` and no environment switch between a kernel and its plain
 version (each wrapper in ``ops/kernels.py`` makes that choice itself).
 What this module decides is WHICH kernel serves a call — the resident
-or the gather pair kernel — and the gates the engine and executor
-import: the Gram's slice bound and the row-major lane's
+or the gather pair kernel, the staged or the gather tree kernel — and
+the gates the engine and executor import: the Gram's slice bound and the row-major lane's
 (``rowmajor_ok``).  Every gather kernel reads its ids from global
 memory, so unlike the TPU dispatch no batch is cut into id chunks: any
 B and K run in one launch.
@@ -14,6 +14,7 @@ B and K run in one launch.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pilosa_tpu_torch.ops import kernels
@@ -43,12 +44,18 @@ _GRAM_SLICES_MAX = 2047
 
 
 def resident_strategy(n_rows: int, w: int, batch: int) -> bool:
-    """Whether the shared-memory-resident kernel serves a pair batch:
-    streaming ALL rows once must beat gathering 2 rows per pair
-    (R < 2B), and the all-rows tile of the narrowest chunk plus the
-    per-pair sums must fit one block's shared memory
-    (``kernels.resident_chunk_words``)."""
-    return n_rows < 2 * batch and bool(kernels.resident_chunk_words(n_rows, w, batch))
+    """Whether the resident kernel serves a pair batch: streaming the
+    rows once must beat gathering 2 rows per pair (R < 2B), and R rows of
+    a 128-word chunk plus 4 bytes per pair fit one block's shared memory
+    (``R x 512 + 4B <= 232,448``, W a multiple of 128).
+
+    The second clause is the tiling of the first resident kernel.  The
+    staged kernel needs less (only the rows the pairs name, and a single
+    stage of 64-word chunks fits every R this admits:
+    ``kernels.resident_tiling``), but ``engine.prefer_rowmajor`` reads
+    this predicate, so the admitted set stays as it was."""
+    return (n_rows < 2 * batch and w >= 128 and w % 128 == 0
+            and n_rows * 128 * 4 + batch * 4 <= kernels.SMEM_BYTES)
 
 
 def gather_count(op: str, row_matrix: torch.Tensor, pairs):
@@ -72,8 +79,39 @@ def gather_count_multi(op: str, row_matrix: torch.Tensor, idx):
     return kernels.gather_count_multi(op, row_matrix, idx)
 
 
+# The staged tree kernel serves a batch whose leaf references reach this
+# many per distinct leaf row in each of the kernel's groups of 64 trees
+# (every group stages all of the batch's rows).  Measured on the H100
+# (PERF.md, the tree gate): at about 2.3 references a row the two kernels
+# tie or the gather kernel, whose repeated rows L2 serves, wins; at 4 and
+# more the staged kernel is faster, by 15-35% at one group and 20-37%
+# at two and four.
+TREE_REUSE_MIN = 3
+
+
+def tree_strategy(n_distinct: int, w: int, batch: int, k: int, n_slices: int) -> bool:
+    """Whether the staged tree kernel (``resident_count_tree``) serves a
+    batch of B trees of K leaves naming ``n_distinct`` rows: each group of
+    up to 64 trees names them often enough (``min(B, 64) x K >=
+    TREE_REUSE_MIN x U``) and two stages of them fit one block's shared
+    memory (at W = 32,768 the first clause keeps U <= 341, which always
+    fits; a W with no 64-word chunk has no tiling)."""
+    if min(batch, kernels.TREE_GROUP) * k < TREE_REUSE_MIN * n_distinct:
+        return False
+    return kernels.tree_tiling(n_distinct, w, k, n_slices)[1] == 2
+
+
 def gather_count_tree(row_matrix: torch.Tensor, leaves, opc):
-    """Perfect-tree opcode-fold counts (nested Count trees) -> int32[B]."""
+    """Perfect-tree opcode-fold counts (nested Count trees) -> int32[B]:
+    the staged kernel where ``tree_strategy`` admits the batch, else the
+    gather kernel.  The choice reads shapes only; the batch's rows are
+    compacted once, for the gate and the staged kernel both."""
+    lv = np.asarray(leaves)
+    if lv.ndim == 2 and lv.size:
+        n_slices, n_rows, w = row_matrix.shape
+        ids, local = kernels.compact_rows(lv, n_rows, "gather_count_tree leaves")
+        if tree_strategy(ids.size, w, lv.shape[0], lv.shape[1], n_slices):
+            return kernels.resident_count_tree(row_matrix, lv, opc, compacted=(ids, local))
     return kernels.gather_count_tree(row_matrix, leaves, opc)
 
 

@@ -17,17 +17,21 @@ Every wrapper:
 - adds one to ``LAUNCHES[name]`` where it launches its kernel, and
   nowhere else.
 
-The nine kernels replace every Pallas kernel of
+The ten kernels replace every Pallas kernel of
 pilosa_tpu/ops/pallas_kernels.py: fused_count1 and fused_count2
 (``count_rows``), fused_resident_count2 (``resident_count2``),
 fused_gather_count2 (``gather_count2``), fused_gather_src_counts
 (``gather_src_counts``), fused_gather_count_multi with
 fused_gather_count_or (``gather_count_multi``), fused_gather_count_tree
-(``gather_count_tree``), the row-major pair and fold counts
-fused_gather_count2_rowmajor (``gather_count2_rowmajor``) and
+(``gather_count_tree``, and its staged variant ``resident_count_tree`` for
+batches that name the same rows many times), the row-major pair and fold
+counts fused_gather_count2_rowmajor (``gather_count2_rowmajor``) and
 fused_gather_count_multi_rowmajor (``gather_count_multi_rowmajor``), and
-fused_topn_counts (``topn_counts``).  All nine are bound by device-memory
+fused_topn_counts (``topn_counts``).  All ten are bound by device-memory
 bytes on this card; each source says what its design does about that.
+The two resident kernels stage the batch's distinct rows through
+shared-memory tiles copied by cp.async (``csrc/stage.cuh``); their
+wrappers compact the ids on the host first (``compact_rows``).
 """
 
 from __future__ import annotations
@@ -54,8 +58,8 @@ NVCC_FLAGS = (
 
 KERNELS = (
     "count_rows", "resident_count2", "gather_count2", "gather_src_counts",
-    "gather_count_multi", "gather_count_tree", "gather_count2_rowmajor",
-    "gather_count_multi_rowmajor", "topn_counts",
+    "gather_count_multi", "gather_count_tree", "resident_count_tree",
+    "gather_count2_rowmajor", "gather_count_multi_rowmajor", "topn_counts",
 )
 
 # Launch counters: one per kernel, bumped only where the kernel launches.
@@ -72,11 +76,12 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = {
     "count_rows": ("pk_count_rows", [_P, _P, _L, _P, _I, _I, _I, _P]),
-    "resident_count2": ("pk_resident_count2", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "resident_count2": ("pk_resident_count2", [_P, _P, _P, _P] + [_I] * 8 + [_P]),
     "gather_count2": ("pk_gather_count2", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "gather_src_counts": ("pk_gather_src_counts", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "gather_count_multi": ("pk_gather_count_multi", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "gather_count_tree": ("pk_gather_count_tree", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "resident_count_tree": ("pk_resident_count_tree", [_P] * 5 + [_I] * 8 + [_P]),
     "gather_count2_rowmajor": ("pk_gather_count2_rowmajor", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "gather_count_multi_rowmajor": (
         "pk_gather_count_multi_rowmajor", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
@@ -246,28 +251,82 @@ def count_rows(a: torch.Tensor, b=None, op: str = "none") -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Staged tiles (csrc/stage.cuh)
+# ---------------------------------------------------------------------------
+
+# A tile is one word chunk of the batch's U distinct rows in one slice,
+# copied into shared memory by cp.async.  Chunks are powers of two from 64
+# words (256 bytes a row: one int2 a lane in a warp step) to 512 (wider
+# tiles were no faster on the H100); a launch narrows its chunk until it
+# has at least _STAGE_TILES_MIN tiles (about 8 per block on 132 SMs), so
+# the persistent blocks stay balanced.
+_CHUNK_WORDS_MIN = 64
+_CHUNK_WORDS_MAX = 512
+_STAGE_TILES_MIN = 1024
+
+
+def compact_rows(ids, n_rows: int, what: str) -> tuple[np.ndarray, np.ndarray]:
+    """The distinct rows ``ids`` names, and ``ids`` remapped into them:
+    ``(uniq int32[U], local int32[ids.shape])`` with ``uniq[local] ==
+    ids``, so ``rm[:, uniq][:, local]`` is ``rm[:, ids]``.  Bounds-checked
+    against ``n_rows`` first: a kernel would read out of bounds."""
+    a = np.asarray(ids)
+    flat = a.reshape(-1).astype(np.int64)
+    if flat.size and (flat.min() < 0 or flat.max() >= n_rows):
+        raise IndexError(f"{what}: row id out of range [0, {n_rows})")
+    uniq, local = np.unique(flat, return_inverse=True)
+    return uniq.astype(np.int32), local.reshape(a.shape).astype(np.int32)
+
+
+def staged_smem_bytes(u: int, chunk_words: int, stages: int, own_ints: int) -> int:
+    """Shared memory of a staged launch (stage.cuh's layout): the tiles,
+    the U row ids and the kernel's own per-query ints."""
+    return stages * u * chunk_words * 4 + 4 * u + 4 * own_ints
+
+
+def staged_tiling(u: int, w: int, own_ints: int, n_slices: int) -> tuple[int, int]:
+    """(chunk_words, stages) for U staged rows of W words: two stages of
+    the widest chunk that fits one block's shared memory, narrowed while
+    the launch has fewer than _STAGE_TILES_MIN (slice, chunk) tiles; one
+    stage where two tiles of even the narrowest chunk do not fit; (0, 0)
+    where nothing fits."""
+    for stages in (2, 1):
+        fits = []
+        c = _CHUNK_WORDS_MIN
+        while c <= min(w, _CHUNK_WORDS_MAX):
+            if w % c == 0 and staged_smem_bytes(u, c, stages, own_ints) <= SMEM_BYTES:
+                fits.append(c)
+            c *= 2
+        if fits:
+            c = fits[-1]
+            while c > fits[0] and n_slices * (w // c) < _STAGE_TILES_MIN:
+                c //= 2
+            return c, stages
+    return 0, 0
+
+
+# ---------------------------------------------------------------------------
 # resident_count2 (fused_resident_count2)
 # ---------------------------------------------------------------------------
 
-# Chunk widths the resident kernel takes: a warp reads one int4 per lane
-# per row at the narrowest (128 words), and at most 2048 words per row
-# per chunk (wider tiles only cut the block count).
-_CHUNK_WORDS_MIN = 128
-_CHUNK_WORDS_MAX = 2048
+# Pairs a group holds (8 warps x 32 pairs, partial sums in registers) and
+# pairs a block serves (16 groups, each folding every staged tile in
+# turn; a larger batch takes further spans): resident_count2.cu's kGroup
+# and kSpan.
+PAIR_GROUP = 256
+PAIR_SPAN = 4096
 
 
-def resident_chunk_words(n_rows: int, w: int, batch: int) -> int:
-    """Largest power-of-two chunk (words per row, dividing w) whose
-    all-rows tile plus the per-pair partial sums fit one block's shared
-    memory: ``n_rows * chunk * 4 + batch * 4 <= SMEM_BYTES``.  0 when even
-    the narrowest chunk does not fit (the gather kernel takes over)."""
-    best = 0
-    c = _CHUNK_WORDS_MIN
-    while c <= min(w, _CHUNK_WORDS_MAX):
-        if w % c == 0 and n_rows * c * 4 + batch * 4 <= SMEM_BYTES:
-            best = c
-        c *= 2
-    return best
+def pair_span_ints(batch: int) -> int:
+    """resident_count2's own shared ints: an offset pair and a sum for
+    each pair of one span, rounded up to whole groups."""
+    return 2 * -(-min(batch, PAIR_SPAN) // PAIR_GROUP) * PAIR_GROUP
+
+
+def resident_tiling(u: int, w: int, batch: int, n_slices: int) -> tuple[int, int]:
+    """(chunk_words, stages) of a resident_count2 launch over U distinct
+    rows named by ``batch`` pairs; chunk_words 0 when nothing fits."""
+    return staged_tiling(u, w, pair_span_ints(batch), n_slices)
 
 
 def resident_count2_plain(op: str, row_matrix, pairs):
@@ -276,27 +335,29 @@ def resident_count2_plain(op: str, row_matrix, pairs):
 
 def resident_count2(op: str, row_matrix: torch.Tensor, pairs) -> torch.Tensor:
     """Per-pair ``sum_s popcount(op(rm[s, p0], rm[s, p1]))`` -> int32[B],
-    every row of a word chunk staged in shared memory once."""
+    each distinct row the pairs name staged in shared memory once per
+    word chunk.  On the CPU: the same remap, then the plain version over
+    the compacted rows."""
     if op not in OPS or op == "none":
         raise ValueError(f"unknown pair op {op!r}")
-    if _on_cpu(row_matrix):
-        return resident_count2_plain(op, row_matrix, pairs)
-    _words(row_matrix, "resident_count2 matrix", 3)
     s, r, w = row_matrix.shape
-    p = _ids(pairs, r, row_matrix.device, "resident_count2 pairs")
-    if p.dim() != 2 or p.shape[1] != 2:
-        raise ValueError(f"resident_count2: pairs shape {tuple(p.shape)}, want [B, 2]")
-    b = p.shape[0]
-    chunk = resident_chunk_words(r, w, b)
-    if chunk == 0:
-        raise ValueError(f"resident_count2: {r} rows x {b} pairs do not fit shared memory")
+    if np.ndim(pairs) != 2 or np.shape(pairs)[1] != 2:
+        raise ValueError(f"resident_count2: pairs shape {np.shape(pairs)}, want [B, 2]")
+    ids, local = compact_rows(pairs, r, "resident_count2 pairs")
+    if _on_cpu(row_matrix):
+        return resident_count2_plain(op, row_matrix[:, torch.from_numpy(ids).long()], local)
+    _words(row_matrix, "resident_count2 matrix", 3)
+    b, u = local.shape[0], ids.size
     out = torch.zeros(b, dtype=torch.int32, device=row_matrix.device)
-    n_chunks = w // chunk
-    sms = torch.cuda.get_device_properties(row_matrix.device).multi_processor_count
-    grid_y = max(1, min(n_chunks, -(-2 * sms // max(1, s))))
+    if b == 0:
+        return out
+    chunk, stages = resident_tiling(u, w, b, s)
+    if chunk == 0:
+        raise ValueError(f"resident_count2: {u} rows of {w} words do not fit shared memory")
+    dev = _ints(np.concatenate([ids, local.reshape(-1)]), row_matrix.device)
     err = _fn("resident_count2")(
-        row_matrix.data_ptr(), p.data_ptr(), out.data_ptr(), s, r, w, b, chunk, grid_y,
-        OPS[op], _stream(row_matrix),
+        row_matrix.data_ptr(), dev.data_ptr(), dev.data_ptr() + 4 * u, out.data_ptr(),
+        s, r, w, u, b, chunk, stages, OPS[op], _stream(row_matrix),
     )
     _check(err, "resident_count2")
     LAUNCHES["resident_count2"] += 1
@@ -436,6 +497,68 @@ def gather_count_tree(row_matrix: torch.Tensor, leaves, opc) -> torch.Tensor:
     )
     _check(err, "gather_count_tree")
     LAUNCHES["gather_count_tree"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# resident_count_tree (fused_gather_count_tree, staged)
+# ---------------------------------------------------------------------------
+
+# Trees a block holds (16 warps x 4 trees, partial sums in registers):
+# resident_count_tree.cu's kGroup.  A larger batch takes further groups,
+# each staging every tile.
+TREE_GROUP = 64
+
+
+def tree_tiling(u: int, w: int, k: int, n_slices: int) -> tuple[int, int]:
+    """(chunk_words, stages) of a resident_count_tree launch over U
+    distinct leaves of K-leaf trees; chunk_words 0 when nothing fits."""
+    return staged_tiling(u, w, tree_group_ints(k), n_slices)
+
+
+def tree_group_ints(k: int) -> int:
+    """resident_count_tree's own shared ints: K leaf offsets and K - 1
+    int4 node masks a tree of the group."""
+    return TREE_GROUP * (k + 4 * (k - 1))
+
+
+def resident_count_tree_plain(row_matrix, leaves, opc):
+    return bitwise.gather_count_tree(row_matrix, leaves, opc)
+
+
+def resident_count_tree(row_matrix: torch.Tensor, leaves, opc, compacted=None) -> torch.Tensor:
+    """``gather_count_tree``'s function -> int32[B], each distinct leaf
+    row of the batch staged in shared memory once per word chunk.
+    ``compacted``: ``compact_rows(leaves, R, ...)`` where the caller has
+    it already.  On the CPU: the same remap, then the plain version over
+    the compacted rows."""
+    s, r, w = row_matrix.shape
+    if np.ndim(leaves) != 2 or np.shape(leaves)[1] not in TREE_LEAVES:
+        raise ValueError(f"resident_count_tree: leaves shape {np.shape(leaves)}, "
+                         f"want [B, K in {TREE_LEAVES}]")
+    b, k = np.shape(leaves)
+    oc = np.ascontiguousarray(opc, dtype=np.int32)
+    if oc.shape != (b, k - 1):
+        raise ValueError(f"resident_count_tree: opc shape {oc.shape}, want {(b, k - 1)}")
+    ids, local = compacted or compact_rows(leaves, r, "resident_count_tree leaves")
+    if _on_cpu(row_matrix):
+        return resident_count_tree_plain(row_matrix[:, torch.from_numpy(ids).long()], local, oc)
+    _words(row_matrix, "resident_count_tree matrix", 3)
+    u = ids.size
+    out = torch.zeros(b, dtype=torch.int32, device=row_matrix.device)
+    if b == 0:
+        return out
+    chunk, stages = tree_tiling(u, w, k, s)
+    if chunk == 0:
+        raise ValueError(f"resident_count_tree: {u} rows of {w} words do not fit shared memory")
+    dev = _ints(np.concatenate([ids, local.reshape(-1), oc.reshape(-1)]), row_matrix.device)
+    base = dev.data_ptr()
+    err = _fn("resident_count_tree")(
+        row_matrix.data_ptr(), base, base + 4 * u, base + 4 * (u + b * k), out.data_ptr(),
+        s, r, w, u, b, k, chunk, stages, _stream(row_matrix),
+    )
+    _check(err, "resident_count_tree")
+    LAUNCHES["resident_count_tree"] += 1
     return out
 
 

@@ -2,7 +2,8 @@
 on the CPU: every lane's plain PyTorch version against its numpy ground
 truth, exactly, over seeded random cases (the card runs the same sweep
 through the kernels in ``chip_smoke.py``).  Its lanes are the JAX
-sweep's less the two that check the TPU's (8, 128)-tiled matrix form.
+sweep's less the two that check the TPU's (8, 128)-tiled matrix form,
+plus the staged tree kernel's.
 """
 
 import pytest
@@ -20,5 +21,6 @@ def test_every_lane_matches_numpy(seed):
 def test_lanes_are_the_jax_sweeps_less_the_tiled_ones():
     tiled = {n for n in jdiffcheck.lane_names() if n.startswith(("count2_tiled:", "dispatch4:"))}
     assert len(tiled) == 8
-    assert diffcheck.lane_names() == jdiffcheck.lane_names() - tiled
+    assert diffcheck.tree_lane_names() == {f"resident_tree:k{k}" for k in (2, 4, 8, 16)}
+    assert diffcheck.lane_names() - diffcheck.tree_lane_names() == jdiffcheck.lane_names() - tiled
     assert (diffcheck.SHAPES, diffcheck.B, diffcheck.KS) == (jdiffcheck.SHAPES, jdiffcheck.B, jdiffcheck.KS)

@@ -132,13 +132,22 @@ def test_dispatch_gather_count_matches_jax_dispatch(op, b):
 
 
 def test_resident_gate_follows_shared_memory():
-    """R < 2B, and the narrowest all-rows chunk must fit 227 KB with the
-    per-pair sums: 256 rows fit at 128 words a row, 512 do not."""
+    """R < 2B, and R rows of a 128-word chunk plus 4 bytes a pair fit
+    227 KB (the admitted set of the first resident kernel).  The staged
+    kernel tiles the distinct rows the pairs name: two stages of 128-word
+    chunks at 220 rows, of 64-word chunks at 256, one stage at the gate's
+    edge (452 rows), wide chunks for a few rows."""
     w = 32768
-    assert kernels.resident_chunk_words(256, w, 256) == 128
-    assert kernels.resident_chunk_words(16, w, 12) == 2048
-    assert kernels.resident_chunk_words(512, w, 4096) == 0
+    assert kernels.resident_tiling(220, w, 256, 64) == (128, 2)
+    assert kernels.resident_tiling(256, w, 256, 64) == (64, 2)
+    assert kernels.resident_tiling(256, w, 4096, 64) == (64, 2)  # 16 groups, 32 KiB of sums
+    assert kernels.resident_tiling(452, w, 230, 64) == (64, 1)
+    assert kernels.resident_tiling(16, w, 12, 64) == (512, 2)
+    assert kernels.resident_tiling(16, w, 12, 1) == (64, 2)  # one slice: narrow for tiles
+    assert kernels.resident_tiling(1024, w, 4096, 64)[0] == 0
     assert dispatch.resident_strategy(256, w, 256)
+    assert dispatch.resident_strategy(452, w, 230)
+    assert not dispatch.resident_strategy(453, w, 230)
     assert not dispatch.resident_strategy(256, w, 128)
     assert not dispatch.resident_strategy(512, w, 4096)
 
@@ -261,12 +270,13 @@ def test_unported_lanes_raise_off_the_cpu():
         kernels.count_rows(rm[0])
 
 
-@pytest.mark.parametrize("lane", ["multi", "or_multi", "tree", "rmgather", "rmmulti", "topn"])
+@pytest.mark.parametrize("lane", ["multi", "or_multi", "tree", "rmgather", "rmmulti", "topn",
+                                  "resident", "staged_tree"])
 def test_ported_lanes_reach_their_kernel_off_the_cpu(lane):
-    """The multi, tree, row-major and whole-row TopN lanes do not stop in
-    dispatch or the engine: a non-CPU tensor reaches the kernel wrapper,
-    which raises its device error (a CUDA tensor would launch the
-    kernel)."""
+    """The multi, tree, row-major, whole-row TopN and staged lanes do not
+    stop in dispatch or the engine: a non-CPU tensor reaches the kernel
+    wrapper, which raises its device error (a CUDA tensor would launch
+    the kernel)."""
     from pilosa_tpu_torch.engine import TorchEngine
 
     rm = torch.empty((2, 4, 1024), dtype=torch.int32, device="meta")
@@ -281,6 +291,10 @@ def test_ported_lanes_reach_their_kernel_off_the_cpu(lane):
             TorchEngine("cpu").gather_count_rowmajor_dev("xor", rm, np.zeros((2, 2), np.int32))
         elif lane == "rmmulti":
             TorchEngine("cpu").gather_count_multi_rowmajor_dev("andnot", rm, np.zeros((2, 3), np.int32))
+        elif lane == "resident":
+            dispatch.gather_count("xor", rm, np.zeros((8, 2), np.int32))
+        elif lane == "staged_tree":
+            dispatch.gather_count_tree(rm, np.zeros((8, 2), np.int32), np.zeros((8, 1), np.int32))
         else:
             kernels.topn_counts(rm, rm[:, 0])
 
