@@ -4,8 +4,8 @@
 
 1. Probes the card (fails without CUDA) and prints its name and power
    limit as nvidia-smi reports them.
-2. Builds the ten CUDA kernels from ``pilosa_tpu_torch/csrc`` with nvcc
-   (one process per source, all started together), and beside them
+2. Builds the eleven CUDA kernels from ``pilosa_tpu_torch/csrc`` with
+   nvcc (one process per source, all started together), and beside them
    compiles the resident, fold, row-major and TopN kernels once more
    with ``-Xptxas -v`` to report their registers and shared memory.
 3. Holds each kernel against its plain PyTorch version on the card, at
@@ -20,6 +20,15 @@
    B = 256 to 4,096, and both tree kernels on the same batches at B = 16,
    32, 64 x K = 4, 8, 16 and at batches of 128 and 256 trees (a
    "tree_gate" line, with each kernel's gathered bytes over its time).
+   The staged multi fold (``resident_count_multi``) is held exactly on
+   both layouts and its edge cases (K = 1-23, padded lists, duplicate
+   ids, unreferenced rows, ragged and multi-group batches, one stage);
+   every multi-fold batch the HTTP and tall paths launch, rebuilt at its
+   own shape (``multi_path_batches``), is timed through the gather and
+   the staged kernels ("multi_paths" line), the staged kernel's tilings
+   against each other ("multi_tilings") and both kernels over a grid of
+   B x K x references per row in both layouts ("multi_gate", the data
+   behind ``dispatch.MULTI_REUSE_MIN``).
 4. The diffcheck path: the differential sweep ``ops/diffcheck.py`` over
    every lane on the card (its ``topn_counts`` lane is that kernel's path).
 5. Drives the executor path — ``Executor.execute`` over a ``Holder`` — at
@@ -39,8 +48,11 @@
    (engine on the card) on an ephemeral port, ``POST /index/i/query``
    over urllib — a pair batch, N-ary Intersect / Union / Difference
    batches (multi-fold kernel), nested and multi-operand Xor Counts
-   (tree-fold kernel), two ``Count(Range(...))`` batches (multi-fold
-   kernel over the multi-view matrix), and "tree-wide": 256 nested Counts
+   (tree-fold kernel), two ``Count(Range(...))`` batches over the
+   multi-view matrix (range-1's covers name each (view, row) row 2.6
+   times: the staged multi-fold kernel; range-2's 2.0: the gather kernel),
+   and "tree-wide":
+   256 nested Counts
    whose K=16 bucket names its rows often enough for the staged tree
    kernel.  A seeded 16-query subset of each
    answer is checked against ``Executor(srv.holder, engine="numpy")``.
@@ -55,18 +67,23 @@
 8. Fails unless every kernel's launch counter moved during its path: the
    counters are set to 0 just before each path and read just after it.
 
-Prints a ptxas line, a staged-checks line, ``{"card": ..., "layout" /
-"tree_gate": [...]}`` lines, a ``{"card": ..., "requests": [...]}`` line
+Prints a ptxas line, two staged-checks lines, ``{"card": ..., "layout" /
+"tree_gate" / "multi_paths" / "multi_tilings" / "multi_gate": [...]}``
+lines, a ``{"card": ..., "requests": [...]}`` line
 per path, a ``{"kernels": [...]}`` line, and last ``{"ok": true,
 "device": {...}}``.  Any failure raises.
 
     python3 chip_smoke.py --resident-against DIR
 
-times ``resident_count2`` of this checkout against that of the checkout
-at DIR (for example an earlier commit unpacked with ``git archive``) on
-the same inputs, S=64 R=256 at B = 256 to 4,096, in the order DIR, this,
-this, DIR, after checking that the two agree exactly; it prints one
-``{"card": ..., "resident_against": [...]}`` line.
+times ``resident_count2`` and the two multi-fold entry points
+(``dispatch.gather_count_multi``, ``dispatch.gather_count_multi_rowmajor``)
+of this checkout against those of the checkout at DIR (for example an
+earlier commit unpacked with ``git archive``) on the same inputs —
+pairs at S=64 R=256 for B = 256 to 4,096, folds at every batch the paths
+launch and at the kernels line's timed shapes — in the order DIR, this,
+this, DIR, after checking that the two agree exactly; it prints a
+``{"card": ..., "resident_against": [...]}`` and a ``{"card": ...,
+"multi_against": [...]}`` line.
 """
 
 from __future__ import annotations
@@ -141,6 +158,7 @@ SOURCES = {
     "gather_count2_rowmajor": "pilosa_tpu_torch/csrc/gather_count2_rowmajor.cu",
     "gather_count_multi_rowmajor": "pilosa_tpu_torch/csrc/gather_count_multi_rowmajor.cu",
     "topn_counts": "pilosa_tpu_torch/csrc/topn_counts.cu",
+    "resident_count_multi": "pilosa_tpu_torch/csrc/resident_count_multi.cu",
 }
 # The def line of each Pallas kernel in pilosa_tpu/ops/pallas_kernels.py.
 REPLACES = {
@@ -155,15 +173,18 @@ REPLACES = {
     "gather_count2_rowmajor": "pilosa_tpu/ops/pallas_kernels.py:415",
     "gather_count_multi_rowmajor": "pilosa_tpu/ops/pallas_kernels.py:490",
     "topn_counts": "pilosa_tpu/ops/pallas_kernels.py:293",
+    # the staged variant of fused_gather_count_multi (+ the row-major form :490)
+    "resident_count_multi": "pilosa_tpu/ops/pallas_kernels.py:554",
 }
 # Which path must launch each kernel: the executor path keeps the four
-# pair/TopN kernels, the HTTP path the three fold kernels (the staged tree
-# kernel through the "tree-wide" request), the tall path the two row-major
-# kernels, and the differential sweep the whole-row scorer.
+# pair/TopN kernels, the HTTP path the four fold kernels (the staged tree
+# kernel through the "tree-wide" request, the staged multi kernel through
+# the Range requests), the tall path the two row-major kernels, and the
+# differential sweep the whole-row scorer.
 PATH_OF = {
     "count_rows": "executor", "resident_count2": "executor", "gather_count2": "executor",
     "gather_src_counts": "executor", "gather_count_multi": "http", "gather_count_tree": "http",
-    "resident_count_tree": "http",
+    "resident_count_tree": "http", "resident_count_multi": "http",
     "gather_count2_rowmajor": "tall", "gather_count_multi_rowmajor": "tall",
     "topn_counts": "diffcheck",
 }
@@ -337,10 +358,11 @@ def _rand_words(gen, shape) -> torch.Tensor:
     return torch.randint(-(2**31), 2**31, shape, dtype=torch.int32, device="cuda", generator=gen)
 
 
-def check_kernels() -> tuple[dict, list, list]:
+def check_kernels() -> tuple[dict, list, list, dict]:
     """Every kernel == its plain version on the card for every op
     variant, at the main path's shapes; returns per-kernel timings, the
-    slice-major vs row-major comparison and the tree gate's grid."""
+    slice-major vs row-major comparison, the tree gate's grid and the
+    multi lines (``time_multi``)."""
     gen = _gen(SEED)
     rm = _rand_words(gen, (N_SLICES, N_ROWS, W))
     stack = _rand_words(gen, (N_SLICES, W))
@@ -377,6 +399,8 @@ def check_kernels() -> tuple[dict, list, list]:
     torch.cuda.synchronize()
     fold_cases = check_fold_kernels(rm, rng, diff)
     check_staged_kernels(rm, diff)
+    print(json.dumps({"staged_checks": {"resident_count_multi": check_staged_multi(rm, diff)}}),
+          flush=True)
 
     # Timings at the main path's shapes; bytes count each input the
     # function needs once (the rows this run's ids reference).
@@ -419,6 +443,10 @@ def check_kernels() -> tuple[dict, list, list]:
     del fold_cases
     staged, gate = time_staged_kernels(rm, pairs_r)
     res.update(staged)
+    words = _Words()
+    staged, multi = time_multi(words)
+    res.update(staged)
+    del words
     torch.cuda.empty_cache()
     tall, layout = check_tall_kernels(rm, stack, rng, diff)
     res.update(tall)
@@ -426,7 +454,7 @@ def check_kernels() -> tuple[dict, list, list]:
         res[name]["max_abs_err"] = err[name]
     del rm, stack, rows
     torch.cuda.empty_cache()
-    return res, layout, gate
+    return res, layout, gate, multi
 
 
 # Queries per plain-version call in the fold checks: the plain versions
@@ -473,6 +501,203 @@ def range_shape(rng):
         ids = [pos[v] * TIME_ROWS + r for v in c]
         idx[q] = ids + [ids[0]] * (k - len(ids))
     return cap, idx
+
+
+# ---------------------------------------------------------------------------
+# The multi-fold batches the paths launch
+# ---------------------------------------------------------------------------
+
+# The requests whose multi-fold batches are timed at their own shapes
+# draw from generators of their own, so the kernel phase rebuilds the
+# batches the paths launch (as the executor builds them) without driving
+# the paths.
+NARY_SEED = SEED + 8
+RANGE_SEED = SEED + 9
+TALL_NARY_SEED = SEED + 10
+NARY_SHAPES = (("nary-and", "and", 3), ("nary-or", "or", 4), ("nary-andnot", "andnot", 3))
+# The executor's defaults the tall path runs under: the 2 GiB row-pool
+# budget (512 rows of 32 slices) and the 2 GiB slice-streaming budget.
+TALL_POOL_ROWS = (2 << 30) // (TALL_SLICES * W * 4)
+STREAM_BYTES = 2 << 30
+
+
+def nary_requests(n_rows: int) -> dict:
+    """The HTTP path's N-ary batches: name -> (op, int32[FOLD_BATCH, K]
+    operand rows)."""
+    rng = np.random.default_rng(NARY_SEED)
+    return {name: (op, rng.integers(0, n_rows, size=(FOLD_BATCH, k)).astype(np.int32))
+            for name, op, k in NARY_SHAPES}
+
+
+def range_requests(time_rows: int) -> tuple[list, list]:
+    """range-1's and range-2's (row, span) items: 128 draws from the span
+    pool, then 96 more draws and 32 Counts over four new spans, shuffled."""
+    rng = np.random.default_rng(RANGE_SEED)
+    pool = span_pool(np.random.default_rng(13))
+
+    def draw():
+        return int(rng.integers(0, time_rows)), pool[int(rng.integers(0, len(pool)))]
+
+    one = [draw() for _ in range(RANGE_BATCH)]
+    fresh = new_spans(rng, 4)
+    two = [draw() for _ in range(RANGE_BATCH - 32)]
+    two += [(int(rng.integers(0, time_rows)), fresh[i % len(fresh)]) for i in range(32)]
+    return one, [two[i] for i in rng.permutation(len(two))]
+
+
+def range_batches(one, two) -> list:
+    """The Range lane's kernel batches of range-1 and range-2 as the
+    executor builds them: (request, matrix rows, idx).  The multi-view
+    matrix's rows are the (view, row) combos in sorted order, a later
+    request's new combos after them, capacity a power of two; a batch is
+    the Counts the cover memo misses (range-2 repeats range-1's), each
+    cover padded to the widest by repeating its first id."""
+    pos, memo, out = {}, set(), []
+    for name, items in (("range-1", one), ("range-2", two)):
+        covers = [(r, tuple(cover(sp))) for r, sp in items]
+        for c in sorted({(v, r) for r, cv in covers for v in cv} - pos.keys()):
+            pos[c] = len(pos)
+        misses = [(r, cv) for r, cv in covers if (r, cv) not in memo]
+        k = max(len(cv) for _, cv in misses)
+        idx = np.array([[pos[(v, r)] for v in cv] + [pos[(cv[0], r)]] * (k - len(cv))
+                        for r, cv in misses], dtype=np.int32)
+        memo |= set(misses)
+        out.append((name, 1 << (len(pos) - 1).bit_length(), idx))
+    return out
+
+
+def tall_nary_ops(n_rows: int) -> list:
+    """The tall-nary request: (op, operand rows) per Count — Intersect of
+    3, Union of 4 and Difference of 3 in turn, every fifth a pair Xor —
+    with operands walking a permutation of the rows."""
+    rng = np.random.default_rng(TALL_NARY_SEED)
+    walk = iter(np.resize(rng.permutation(n_rows), 4 * (TALL_NARY + TALL_XOR)))
+    shapes = (("and", 3), ("or", 4), ("andnot", 3))
+    out = []
+    for i in range(TALL_NARY + TALL_XOR):
+        op, k = ("xor", 2) if i % 5 == 4 else shapes[(i - i // 5) % 3]
+        out.append((op, [int(next(walk)) for _ in range(k)]))
+    return out
+
+
+def tall_nary_batches(ops, cap: int) -> list:
+    """The row-major fold batches of the tall-nary request as the
+    executor pages it: parts whose distinct rows fit the pool's ``cap``
+    slots (``rowpool.chunk_queries``), one batch per (op, K >= 3) group of
+    a part; pool slots drawn at random.  (part, op, idx) each."""
+    from pilosa_tpu_torch.rowpool import chunk_queries
+
+    rng = np.random.default_rng(TALL_NARY_SEED + 1)
+    out = []
+    parts = chunk_queries(list(range(len(ops))), lambda i: ops[i][1], cap, oversize_ok=True)
+    for p, part in enumerate(parts):
+        want = sorted({x for i in part for x in ops[i][1]})
+        slot = dict(zip(want, rng.permutation(cap)[:len(want)].tolist()))
+        groups: dict = {}
+        for i in part:
+            op, rows = ops[i]
+            if len(rows) > 2:
+                groups.setdefault((op, len(rows)), []).append([slot[x] for x in rows])
+        for (op, _), lists in groups.items():
+            out.append((p, op, np.array(lists, dtype=np.int32)))
+    return out
+
+
+def multi_path_batches() -> list:
+    """Every multi-fold batch the HTTP and tall paths launch, at its own
+    shape: {"request", "layout" ("slice": [S, R, W], "row": [R, S, W]),
+    "matrix" (its first two dims), "op", "idx"}.  The wide Union streams
+    its 32 slices in chunks of the streaming budget, one launch each."""
+    out = [dict(request=f"http {name}", layout="slice", matrix=(N_SLICES, N_ROWS), op=op, idx=idx)
+           for name, (op, idx) in nary_requests(N_ROWS).items()]
+    for name, cap, idx in range_batches(*range_requests(TIME_ROWS)):
+        out.append(dict(request=f"http {name}", layout="slice", matrix=(N_SLICES, cap), op="or",
+                        idx=idx))
+    for p, op, idx in tall_nary_batches(tall_nary_ops(TALL_ROWS), TALL_POOL_ROWS):
+        out.append(dict(request=f"tall-nary part {p}", layout="row",
+                        matrix=(TALL_POOL_ROWS, TALL_SLICES), op=op, idx=idx))
+    s_chunk = STREAM_BYTES // (WIDE_UNION * W * 4)
+    union = np.random.default_rng(TALL_NARY_SEED + 2).permutation(WIDE_UNION)[None].astype(np.int32)
+    for s0 in range(0, TALL_SLICES, s_chunk):
+        out.append(dict(request="tall-wide-union", layout="row",
+                        matrix=(WIDE_UNION, min(s_chunk, TALL_SLICES - s0)), op="or", idx=union))
+    return out
+
+
+def multi_timed_batches() -> list:
+    """The shapes the kernels line times for the two gather folds, drawn anew:
+    the pool [64, 256, W] at B=64 (K=3 and, 4 or, 16 andnot), the Range
+    batch of ``range_shape`` (B=128, K=23) and row-major [1024, 32, W] at
+    B=512 (K=3 and, 4 or, 16 andnot)."""
+    rng = np.random.default_rng(SEED + 11)
+    out = []
+    for k, op in ((3, "and"), (4, "or"), (16, "andnot")):
+        out.append(dict(request=f"timed pool K={k}", layout="slice", matrix=(N_SLICES, N_ROWS),
+                        op=op, idx=rng.integers(0, N_ROWS, size=(FOLD_BATCH, k)).astype(np.int32)))
+    cap, ridx = range_shape(rng)
+    out.append(dict(request="timed Range", layout="slice", matrix=(N_SLICES, cap), op="or",
+                    idx=ridx))
+    for k, op in ((3, "and"), (4, "or"), (16, "andnot")):
+        out.append(dict(request=f"timed row-major K={k}", layout="row",
+                        matrix=(TALL_ROWS, TALL_SLICES), op=op,
+                        idx=rng.integers(0, TALL_ROWS, size=(2 * PAIR_BATCH, k)).astype(np.int32)))
+    return out
+
+
+class _Words:
+    """One buffer of random words on the card, viewed as each batch's
+    matrix (the counts' values do not matter to a timing; the shapes do)."""
+
+    def __init__(self):
+        self.buf = None
+
+    def matrix(self, batch) -> torch.Tensor:
+        a, b = batch["matrix"]
+        n = a * b * W
+        if self.buf is None or self.buf.numel() < n:
+            self.buf = None
+            torch.cuda.empty_cache()
+            self.buf = _rand_words(_gen(SEED + 12), (n,))
+        return self.buf[:n].view(a, b, W)
+
+
+def multi_bound(batch) -> tuple[float, str]:
+    """The least time for a batch: each distinct row's slices read once,
+    the ids read and the counts written; K - 1 fold ops, a popcount and
+    an add a word."""
+    idx = batch["idx"]
+    b, k = idx.shape
+    a, c = batch["matrix"]
+    s = a if batch["layout"] == "slice" else c
+    return bound(s * len(np.unique(idx)) * W * 4 + idx.nbytes + b * 4, b * s * W * (k + 1))
+
+
+def _multi_summary(batch) -> dict:
+    idx = batch["idx"]
+    b, k = idx.shape
+    u = len(np.unique(idx))
+    a, c = batch["matrix"]
+    nb, by = multi_bound(batch)
+    return {"request": batch["request"], "layout": batch["layout"], "op": batch["op"],
+            "matrix": [a, c, W],
+            "B": b, "K": k, "distinct": u, "reuse": b * k / u, "bound_ms": nb, "bound_by": by}
+
+
+def multi_choice(batch) -> str:
+    """The kernel the multi dispatch gives a batch."""
+    from pilosa_tpu_torch.ops import dispatch
+
+    a, c = batch["matrix"]
+    row_major = batch["layout"] == "row"
+    s, r = (c, a) if row_major else (a, c)
+    staged = dispatch.staged_multi_batch(batch["idx"], s, r, W, row_major) is not None
+    return "staged" if staged else "gather"
+
+
+def _multi_entry(dispatch_mod, batch, m):
+    fn = (dispatch_mod.gather_count_multi if batch["layout"] == "slice"
+          else dispatch_mod.gather_count_multi_rowmajor)
+    return lambda: fn(batch["op"], m, batch["idx"])
 
 
 def check_fold_kernels(rm, rng, diff) -> dict:
@@ -724,6 +949,182 @@ def time_staged_kernels(rm, pairs_r) -> tuple[dict, list]:
     return res, gate
 
 
+# The multi gate's grid (both kernels on the same batches, both layouts,
+# over one buffer of 32 x 1,024 rows: [32, 1024, W] or [1024, 32, W]):
+# B x K x references per distinct row (each row of the batch named
+# exactly B x K / U times, give or take one).
+MULTI_GATE_BATCHES = (16, 64, 128, 256, 512)
+MULTI_GATE_KS = (3, 4, 8, 16, 23)
+MULTI_GATE_REUSE = (1, 2, 3, 4, 8)
+MULTI_GATE_SLICES, MULTI_GATE_ROWS = 32, 1024
+# Tilings (chunk words, stages) timed beside the wrapper's own choice.
+MULTI_TILINGS = ((32, 2), (32, 1), (64, 2), (64, 1), (128, 1))
+
+
+def check_staged_multi(rm, diff) -> list:
+    """resident_count_multi against its plain version (the compaction
+    remap, then the plain fold) on the card, exactly, both layouts, every
+    op: K = 1, 2, 3, 5, 16, 23; lists padded to eight with an operand the
+    fold ignores a second time (andnot after the first); duplicate ids
+    within a query; unreferenced rows; a ragged batch and one of three
+    groups; and a batch over 1,024 rows that fits only one stage of
+    32-word chunks.  Each also equals the gather kernel of its layout.
+    Returns the case names with their tilings."""
+    rng = np.random.default_rng(STAGED_SEED + 2)
+    layouts = {"slice": rm, "row": rm[:16].transpose(0, 1).contiguous()}
+    r = N_ROWS
+    cases = [(f"K={k}", rng.integers(0, r, size=(FOLD_BATCH, k))) for k in (1, 2, 3, 5, 16, 23)]
+    cases.append(("duplicates", np.array([3, 7, 7, 200])[rng.integers(0, 4, size=(FOLD_BATCH, 16))]))
+    cases.append(("unreferenced rows", rng.integers(192, r, size=(FOLD_BATCH, 8))))
+    cases.append(("B=13", rng.integers(0, r, size=(13, 16))))
+    cases.append(("B=300", rng.integers(0, r, size=(300, 4))))
+    short = rng.integers(0, r, size=(FOLD_BATCH, 5))
+    names = []
+    for layout, m in layouts.items():
+        row_major = layout == "row"
+        gather = kernels.gather_count_multi_rowmajor if row_major else kernels.gather_count_multi
+        for name, idx in cases + [("padded", None)]:
+            for op in kernels.MULTI_OPS:
+                if idx is None:  # K = 5 padded to 8
+                    lo = 1 if op == "andnot" else 0
+                    ix = np.concatenate(
+                        [short, short[np.arange(FOLD_BATCH)[:, None], rng.integers(lo, 5, size=(FOLD_BATCH, 3))]], 1)
+                else:
+                    ix = idx
+                ix = ix.astype(np.int32)
+                got = kernels.resident_count_multi(op, m, ix, row_major)
+                diff("resident_count_multi", got, _chunked(
+                    lambda x, _op=op: kernels.resident_count_multi_plain(_op, m, x, row_major), ix))
+                if ix.shape[1] > 1 or op != "andnot":  # the gather kernel folds one row as is too
+                    diff("resident_count_multi", got, gather(op, m, ix))
+                if idx is None:
+                    diff("resident_count_multi", got, kernels.resident_count_multi(op, m, short, row_major))
+            if layout == "slice":
+                ix = short if idx is None else idx
+                u = len(np.unique(ix))
+                names.append(f"{name}: tiling {kernels.multi_tiling(u, W, len(ix), ix.shape[1], N_SLICES)}")
+    del layouts
+    # One stage: 512 folds of 16 over all 1,024 rows of a 4-slice matrix.
+    big = _rand_words(_gen(STAGED_SEED + 3), (4, MULTI_GATE_ROWS, W))
+    ix = np.resize(rng.permutation(MULTI_GATE_ROWS), (512, 16)).astype(np.int32)
+    tiling = kernels.multi_tiling(MULTI_GATE_ROWS, W, 512, 16, 4)
+    for layout, m in (("slice", big), ("row", big.transpose(0, 1).contiguous())):
+        for op in kernels.MULTI_OPS:
+            diff("resident_count_multi", kernels.resident_count_multi(op, m, ix, layout == "row"),
+                 _chunked(lambda x, _op=op: kernels.resident_count_multi_plain(_op, m, x, layout == "row"), ix))
+    names.append(f"one stage, 1,024 rows B=512 K=16: tiling {tiling}")
+    torch.cuda.synchronize()
+    del big
+    torch.cuda.empty_cache()
+    return names
+
+
+def _gate_batch(rng, b, k, reuse, n_rows):
+    """B folds of K operands naming U = B x K / reuse distinct rows of
+    ``n_rows``, each about ``reuse`` times; None where U would exceed the
+    rows."""
+    u = max(1, round(b * k / reuse))
+    if u > n_rows:
+        return None
+    rows = rng.choice(n_rows, size=u, replace=False)
+    return rng.permutation(np.resize(rows, b * k)).reshape(b, k).astype(np.int32)
+
+
+def time_multi(words) -> tuple[dict, dict]:
+    """The staged multi kernel's "kernels" line entry (the Range shape,
+    and the pool's K=16, range-1 and range-2 beside it), and the multi
+    lines: every batch the paths launch timed through both kernels
+    ("paths"), the wrapper's tiling against the others at three shapes
+    ("tilings"), and the gate's grid ("gate").  Every staged count equals
+    the gather kernel's on the same batch."""
+    def gather(batch, m):
+        fn = kernels.gather_count_multi if batch["layout"] == "slice" else kernels.gather_count_multi_rowmajor
+        return lambda: fn(batch["op"], m, batch["idx"])
+
+    def staged(batch, m, tiling=None):
+        row_major = batch["layout"] == "row"
+        if tiling is None:
+            return lambda: kernels.resident_count_multi(batch["op"], m, batch["idx"], row_major)
+        ids, local = kernels.compact_rows(batch["idx"], m.shape[0 if row_major else 1], "idx")
+
+        def run():
+            out = torch.zeros(len(local), dtype=torch.int32, device=m.device)
+            return kernels._launch_resident_multi(batch["op"], m, ids, local, *tiling, row_major, out)
+        return run
+
+    def tiling_of(batch):
+        idx = batch["idx"]
+        a, c = batch["matrix"]
+        s = a if batch["layout"] == "slice" else c
+        return kernels.multi_tiling(len(np.unique(idx)), W, idx.shape[0], idx.shape[1], s)
+
+    def both(batch, reps=10):
+        m = words.matrix(batch)
+        rec = _multi_summary(batch)
+        tiling = tiling_of(batch)
+        g = gather(batch, m)
+        rec["gather_ms"] = cuda_ms(g, reps=reps)
+        rec["tiling"] = list(tiling)
+        rec["staged_ms"] = None
+        if tiling[0]:
+            st = staged(batch, m)
+            if not torch.equal(st(), g()):
+                raise AssertionError(f"multi {batch['request']}: staged and gather counts differ")
+            rec["staged_ms"] = cuda_ms(st, reps=reps)
+        rec["dispatch"] = multi_choice(batch)
+        return rec
+
+    paths = [both(b) for b in multi_path_batches()]
+    timed = {b["request"]: b for b in multi_timed_batches()}
+    range_paths = {b["request"]: b for b in multi_path_batches() if "range" in b["request"]}
+
+    tilings = []
+    for batch in (timed["timed Range"], range_paths["http range-1"], timed["timed pool K=16"]):
+        m = words.matrix(batch)
+        idx = batch["idx"]
+        u, own = len(np.unique(idx)), kernels.multi_group_ints(*idx.shape)
+        rec = dict(_multi_summary(batch), wrapper=list(tiling_of(batch)), ms={})
+        for tiling in MULTI_TILINGS:
+            if kernels.staged_smem_bytes(u, *tiling, own) <= kernels.SMEM_BYTES:
+                rec["ms"][f"{tiling[0]}w x{tiling[1]}"] = cuda_ms(staged(batch, m, tiling))
+        tilings.append(rec)
+
+    entries = []
+    for batch in (timed["timed Range"], timed["timed pool K=16"], range_paths["http range-1"],
+                  range_paths["http range-2"]):
+        m = words.matrix(batch)
+        idx, op = batch["idx"], batch["op"]
+        nb, by = multi_bound(batch)
+        chunk, stages = tiling_of(batch)
+        entries.append(dict(
+            shape=(f"{batch['request']}: [{m.shape[0]}, {m.shape[1]}, {W}], B={idx.shape[0]}, "
+                   f"K={idx.shape[1]} ({len(np.unique(idx))} distinct rows), {op}"),
+            ms=cuda_ms(staged(batch, m)),
+            plain_ms=cuda_ms(lambda: _chunked(
+                lambda x: kernels.resident_count_multi_plain(op, m, x), idx), reps=2, warm=1),
+            bound_ms=nb, bound_by=by, chunk_words=chunk, stages=stages,
+            smem_bytes=kernels.staged_smem_bytes(len(np.unique(idx)), chunk, stages,
+                                                 kernels.multi_group_ints(*idx.shape)),
+            gathered_bound_ms=idx.size * m.shape[0] * W * 4 / PEAK_BYTES_S * 1e3))
+
+    rng = np.random.default_rng(STAGED_SEED + 4)
+    gate = []
+    for layout in ("slice", "row"):
+        dims = (MULTI_GATE_SLICES, MULTI_GATE_ROWS) if layout == "slice" else (
+            MULTI_GATE_ROWS, MULTI_GATE_SLICES)
+        for b in MULTI_GATE_BATCHES:
+            for k in MULTI_GATE_KS:
+                for reuse in MULTI_GATE_REUSE:
+                    idx = _gate_batch(rng, b, k, reuse, MULTI_GATE_ROWS)
+                    if idx is None:
+                        continue
+                    batch = dict(request="gate", layout=layout, matrix=dims,
+                                 op=kernels.MULTI_OPS[len(gate) % 3], idx=idx)
+                    gate.append(both(batch, reps=5))
+    res = {"resident_count_multi": dict(entries[0], shapes=entries[1:])}
+    return res, {"paths": paths, "tilings": tilings, "gate": gate}
+
+
 def _chunked_pairs(op, m, pairs):
     """resident_count2's plain version over PAIR_BATCH pairs at a time (it
     materializes both gathered rows of every pair)."""
@@ -737,18 +1138,42 @@ def _abba(fa, fb) -> tuple[list, list]:
     return [a1, a2], [b1, b2]
 
 
-def resident_against(other_root: str) -> int:
-    """``resident_count2`` of this checkout against the one at
-    ``other_root`` on the same inputs: exact agreement, then ABBA times
-    (other, this, this, other) at S=64 R=256 for B = 256 to 4,096."""
+def _load_other(other_root: str):
+    """The kernels and dispatch modules of the checkout at ``other_root``,
+    its dispatch bound to its own kernels."""
     import importlib.util
+
+    import pilosa_tpu_torch.ops as ops_pkg
+
+    key = "pilosa_tpu_torch.ops.kernels"
+    saved = sys.modules[key], ops_pkg.kernels
+    mods = []
+    try:
+        for name in ("kernels", "dispatch"):
+            path = os.path.join(other_root, "pilosa_tpu_torch", "ops", f"{name}.py")
+            spec = importlib.util.spec_from_file_location(f"other_{name}", path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            mods.append(mod)
+            sys.modules[key] = ops_pkg.kernels = mods[0]
+    finally:
+        sys.modules[key], ops_pkg.kernels = saved
+    return mods
+
+
+def resident_against(other_root: str) -> int:
+    """``resident_count2`` and the two multi-fold entry points
+    (``dispatch.gather_count_multi``, ``dispatch.gather_count_multi_rowmajor``)
+    of this checkout against those of ``other_root`` on the same inputs:
+    exact agreement, then ABBA times (other, this, this, other) — pairs at
+    S=64 R=256 for B = 256 to 4,096, folds at every batch the paths
+    launch (``multi_path_batches``) and at the kernels line's timed
+    shapes (``multi_timed_batches``)."""
+    from pilosa_tpu_torch.ops import dispatch
 
     card = probe()
     kernels.build()
-    path = os.path.join(other_root, "pilosa_tpu_torch", "ops", "kernels.py")
-    spec = importlib.util.spec_from_file_location("other_kernels", path)
-    other = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(other)
+    other, other_dispatch = _load_other(other_root)
     other.build()
     rm = _rand_words(_gen(SEED), (N_SLICES, N_ROWS, W))
     rng = np.random.default_rng(SEED)
@@ -763,6 +1188,18 @@ def resident_against(other_root: str) -> int:
         rows.append({"S": N_SLICES, "R": N_ROWS, "B": b, "distinct": len(np.unique(pairs)),
                      "other_ms": o_ms, "ms": ms})
     print(json.dumps({"card": card, "other": other_root, "resident_against": rows}), flush=True)
+    del rm
+    torch.cuda.empty_cache()
+    words = _Words()
+    multi = []
+    for batch in multi_path_batches() + multi_timed_batches():
+        m = words.matrix(batch)
+        mine, theirs = _multi_entry(dispatch, batch, m), _multi_entry(other_dispatch, batch, m)
+        if not torch.equal(mine(), theirs()):
+            raise AssertionError(f"multi-fold {batch['request']}: the checkouts disagree")
+        o_ms, ms = _abba(theirs, mine)
+        multi.append(dict(_multi_summary(batch), other_ms=o_ms, ms=ms, dispatch=multi_choice(batch)))
+    print(json.dumps({"card": card, "other": other_root, "multi_against": multi}), flush=True)
     return 0
 
 
@@ -889,6 +1326,26 @@ def build_holder(path: str, n_slices: int, n_rows: int, bits: int, seed: int):
     return h
 
 
+# Every multi-fold batch the paths hand the entry points, as (layout, op,
+# B, K, distinct rows, matrix rows): the shapes multi_path_batches rebuilds.
+MULTI_SEEN: list = []
+
+
+def record_multi_batches() -> None:
+    """Wrap the two multi-fold entry points so that each call appends its
+    batch's shape to MULTI_SEEN; the request records carry their own."""
+    from pilosa_tpu_torch.ops import dispatch
+
+    for name, layout in (("gather_count_multi", "slice"), ("gather_count_multi_rowmajor", "row")):
+        def seen(op, m, idx, _fn=getattr(dispatch, name), _layout=layout):
+            ix = np.asarray(idx)
+            MULTI_SEEN.append({"layout": _layout, "op": op, "B": ix.shape[0], "K": ix.shape[1],
+                               "distinct": len(np.unique(ix)),
+                               "rows": m.shape[0 if _layout == "row" else 1]})
+            return _fn(op, m, idx)
+        setattr(dispatch, name, seen)
+
+
 def _norm(res):
     """Results as plain values (TopN pairs -> (id, count) tuples)."""
     return [[(p.id, p.count) for p in r] if isinstance(r, list) else r for r in res]
@@ -902,6 +1359,7 @@ def run_request(records, name, ex, ex_ref, calls, sub=None, expect=(), sync=lamb
     the engine uploaded).  Returns the answers."""
     before = dict(kernels.LAUNCHES)
     up0 = ex.engine.stat_upload_bytes
+    n_seen = len(MULTI_SEEN)
     t0 = time.perf_counter()
     got = _norm(ex.execute("i", " ".join(calls), opt=opt))
     sync()
@@ -918,6 +1376,8 @@ def run_request(records, name, ex, ex_ref, calls, sub=None, expect=(), sync=lamb
             raise AssertionError(f"{name}: expected {k} to launch, launches {launched}")
     records.append({"request": name, "ms": ms, "checked": len(cmp), "launches": launched,
                     "upload_bytes": upload})
+    if len(MULTI_SEEN) > n_seen:
+        records[-1]["multi_batches"] = MULTI_SEEN[n_seen:]
     return got
 
 
@@ -1046,6 +1506,7 @@ def http_path(host: str, ex_ref, n_rows: int, time_rows: int, engine) -> list[di
     def run(name, calls, expect=()):
         before = dict(kernels.LAUNCHES)
         up0 = engine.stat_upload_bytes
+        n_seen = len(MULTI_SEEN)
         req = urllib.request.Request(f"http://{host}/index/i/query",
                                      data=" ".join(calls).encode(), method="POST")
         t0 = time.perf_counter()
@@ -1067,6 +1528,8 @@ def http_path(host: str, ex_ref, n_rows: int, time_rows: int, engine) -> list[di
                 raise AssertionError(f"{name}: expected {k} to launch, launches {launched}")
         records.append({"request": name, "ms": ms, "checked": len(cmp), "launches": launched,
                         "upload_bytes": upload})
+        if len(MULTI_SEEN) > n_seen:
+            records[-1]["multi_batches"] = MULTI_SEEN[n_seen:]
 
     # The pair lanes behind the server: a cold pair batch naming every row
     # takes the resident kernel.
@@ -1074,20 +1537,15 @@ def http_path(host: str, ex_ref, n_rows: int, time_rows: int, engine) -> list[di
     pairs[:, 0] = np.resize(rng.permutation(n_rows), PAIR_BATCH)
     run("http pairs Intersect", [f"Count(Intersect({_bm(a)}, {_bm(b)}))" for a, b in pairs],
         expect=("resident_count2",))
-    for name, op, k in (("nary-and", "Intersect", 3), ("nary-or", "Union", 4),
-                        ("nary-andnot", "Difference", 3)):
-        run(name, [f"Count({op}({', '.join(_bm(r) for r in rng.integers(0, n_rows, size=k))}))"
-                   for _ in range(FOLD_BATCH)], expect=("gather_count_multi",))
+    for name, (op, idx) in nary_requests(n_rows).items():
+        run(name, [f"Count({PQL_OPS[op]}({', '.join(_bm(r) for r in ids)}))" for ids in idx],
+            expect=("gather_count_multi",))
     run("tree", [_tree_call(rng, n_rows, i) for i in range(FOLD_BATCH)], expect=("gather_count_tree",))
-    pool = span_pool(np.random.default_rng(13))
-    run("range-1", [_range_call(rng.integers(0, time_rows), pool[int(rng.integers(0, len(pool)))])
-                    for _ in range(RANGE_BATCH)], expect=("gather_count_multi",))
-    # Repeats answer from the cover memo; the new spans' covers launch.
-    fresh = new_spans(rng, 4)
-    calls = [_range_call(rng.integers(0, time_rows), pool[int(rng.integers(0, len(pool)))])
-             for _ in range(RANGE_BATCH - 32)]
-    calls += [_range_call(rng.integers(0, time_rows), fresh[i % len(fresh)]) for i in range(32)]
-    run("range-2", [calls[i] for i in rng.permutation(len(calls))], expect=("gather_count_multi",))
+    # range-2 repeats range-1's spans, which answer from the cover memo;
+    # its new spans' covers launch.
+    one, two = range_requests(time_rows)
+    run("range-1", [_range_call(r, sp) for r, sp in one], expect=("resident_count_multi",))
+    run("range-2", [_range_call(r, sp) for r, sp in two], expect=("gather_count_multi",))
     # Nested Counts four times as many as "tree": buckets of 128 trees at
     # K=4 and 64 at K=8 and K=16.  The K=16 bucket names its rows often
     # enough for the staged tree kernel (dispatch.tree_strategy).
@@ -1135,13 +1593,9 @@ def tall_path(ex, ex_ref, n_rows: int, sync=lambda: None) -> list[dict]:
         raise AssertionError(f"tall-pairs: the pool never paged: {records[-1]}")
     # N-ary Counts with pair Xors among them, operands walking a
     # permutation of the rows: the AST fused path, paging in parts.
-    walk = iter(np.resize(rng.permutation(n_rows), 4 * (TALL_NARY + TALL_XOR)))
-    shapes = (("Intersect", 3), ("Union", 4), ("Difference", 3))
-    calls, last = [], []
-    for i in range(TALL_NARY + TALL_XOR):
-        op, k = ("Xor", 2) if i % 5 == 4 else shapes[(i - i // 5) % 3]
-        last = [int(next(walk)) for _ in range(k)]
-        calls.append(f"Count({op}({', '.join(_bm(r) for r in last)}))")
+    nary = tall_nary_ops(n_rows)
+    calls = [f"Count({PQL_OPS[op]}({', '.join(_bm(r) for r in rows)}))" for op, rows in nary]
+    last = nary[-1][1]
     run("tall-nary", calls, _subset(rng, len(calls)),
         expect=("gather_count_multi_rowmajor", "gather_count2_rowmajor"))
     # One Union over more rows than the pool holds streams its slices
@@ -1206,12 +1660,16 @@ def main() -> int:
     print(f"build_s {time.perf_counter() - t0:.3f} per-source {json.dumps(per_source)}", flush=True)
     print(json.dumps({"ptxas": ptxas_usage((
         "resident_count2", "gather_count_multi", "gather_count_tree", "resident_count_tree",
-        "gather_count2_rowmajor", "gather_count_multi_rowmajor", "topn_counts"))}), flush=True)
+        "gather_count2_rowmajor", "gather_count_multi_rowmajor", "topn_counts",
+        "resident_count_multi"))}), flush=True)
 
-    timings, layout, gate = check_kernels()
+    timings, layout, gate, multi = check_kernels()
     print("kernels match their plain versions on the card", flush=True)
     print(json.dumps({"card": card, "layout": layout}), flush=True)
     print(json.dumps({"card": card, "tree_gate": gate}), flush=True)
+    print(json.dumps({"card": card, "multi_paths": multi["paths"]}), flush=True)
+    print(json.dumps({"card": card, "multi_tilings": multi["tilings"]}), flush=True)
+    print(json.dumps({"card": card, "multi_gate": multi["gate"]}), flush=True)
 
     kernels.reset_launches()
     sweep = diffcheck_path()
@@ -1221,6 +1679,8 @@ def main() -> int:
     from pilosa_tpu_torch.config import Config
     from pilosa_tpu_torch.executor import Executor
     from pilosa_tpu_torch.server.server import Server
+
+    record_multi_batches()
 
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()

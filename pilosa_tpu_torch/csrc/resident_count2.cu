@@ -74,8 +74,8 @@ __global__ void __launch_bounds__(kStageThreads) resident_count2_kernel(
   Stager st;
   st.rm = rm;
   st.tiles = smem;
-  st.n_rows = n_rows;
-  st.w = w;
+  st.row_stride = w;
+  st.slice_stride = (long long)n_rows * w;
   st.u = u;
   st.chunk_words = chunk_words;
   st.n_chunks = n_chunks;

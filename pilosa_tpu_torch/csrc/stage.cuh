@@ -1,12 +1,14 @@
 // Staged shared-memory tiles for the resident kernels (resident_count2,
-// resident_count_tree).
+// resident_count_tree, resident_count_multi).
 //
-// A tile is the word chunk c (chunk_words words, a power of two >= 64) of
-// U listed rows of one slice s of an int32[S, R, W] matrix: row k of the
-// tile is rm[s, ids[k], c * chunk_words : (c + 1) * chunk_words], 4 *
-// chunk_words contiguous bytes.  The wrapper lists each row a batch names
-// once (ids = the batch's distinct rows), so a tile holds every operand
-// the batch reads in that chunk and nothing else.
+// A tile is the word chunk c (chunk_words words, a power of two >= 32) of
+// U listed rows of one slice s of an int32 matrix, slice-major [S, R, W]
+// or row-major [R, S, W]: row k of the tile is the chunk c of row ids[k]
+// in slice s, 4 * chunk_words contiguous bytes at rm + s * slice_stride +
+// ids[k] * row_stride + c * chunk_words (strides in words: W and R * W
+// slice-major, S * W and W row-major).  The wrapper lists each row a
+// batch names once (ids = the batch's distinct rows), so a tile holds
+// every operand the batch reads in that chunk and nothing else.
 //
 // Copies are asynchronous: cp.async.cg 16-byte copies spread over every
 // thread of the block, one commit group per tile, cp.async.wait_group to
@@ -57,10 +59,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 struct Stager {
-  const int* rm;         // global int32[S, R, W]
+  const int* rm;         // global int32 matrix, [S, R, W] or [R, S, W]
   const int* ids;        // shared int32[U]: matrix row of tile row k
   unsigned char* tiles;  // shared, stages x U x chunk_words ints
-  int n_rows, w, u, chunk_words, n_chunks, stages;
+  long long row_stride, slice_stride;  // words from one row / slice to the next
+  int u, chunk_words, n_chunks, stages;
 
   __device__ int* tile(int buf) const {
     return reinterpret_cast<int*>(tiles + (size_t)buf * u * chunk_words * 4);
@@ -76,7 +79,7 @@ struct Stager {
     if (t >= 0) {
       const int s = (int)(t / n_chunks);
       const int c = (int)(t - (long long)s * n_chunks);
-      const int* base = rm + (long long)s * n_rows * w + (long long)c * chunk_words;
+      const int* base = rm + (long long)s * slice_stride + (long long)c * chunk_words;
       const int per_row = chunk_words >> 2;  // 16-byte pieces per row
       int shift = 0;
       while ((1 << shift) < per_row) ++shift;
@@ -86,7 +89,7 @@ struct Stager {
         const int k = i >> shift;
         const int v = i & (per_row - 1);
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d0 + (uint32_t)i * 16),
-                     "l"(base + (long long)ids[k] * w + v * 4)
+                     "l"(base + (long long)ids[k] * row_stride + v * 4)
                      : "memory");
       }
     }

@@ -15,8 +15,10 @@ Two consumers: ``tests/test_torch_diffcheck.py`` (CPU) and
 ``chip_smoke.py``'s diffcheck phase (the card).
 
 The port adds the staged tree kernel's lanes (``resident_tree:k{K}``,
-K = 2, 4, 8, 16; opcodes 0-5, so pass nodes too), drawn from a generator
-of their own so the shared lanes keep the JAX sweep's cases.  Two lanes
+K = 2, 4, 8, 16; opcodes 0-5, so pass nodes too) and the staged multi
+fold's (``resident_multi:{op}`` slice-major and ``rmresident_multi:{op}``
+row-major; K = 1, 3, 16, 23 in turn), each drawn from a generator of its
+own so the shared lanes keep the JAX sweep's cases.  Two lanes
 of the JAX sweep have no counterpart here: ``count2_tiled:*``
 and ``dispatch4:*`` check the TPU's (8, 128)-tiled 4-D matrix form, and
 the port stores every matrix as plain ``[S, R, W]`` (``lane_names`` leaves
@@ -41,6 +43,7 @@ SHAPES = [  # (n_slices, n_rows, words)
 B = 16  # queries per case
 KS = (2, 4)  # multi-fold operand buckets
 TREE_KS = (2, 4, 8, 16)  # staged tree lanes: leaves per tree
+RESIDENT_MULTI_KS = (1, 3, 16, 23)  # staged multi lanes: operands per fold
 PAIR_OPS = ("and", "or", "xor", "andnot")
 MULTI_OPS = ("and", "or", "andnot")
 
@@ -128,6 +131,7 @@ def run_lanes(seed: int, cases_per_lane: int, device="cuda") -> list[str]:
     failures: list[str] = []
     rng = np.random.default_rng(seed)
     tree_rng = np.random.default_rng([seed, 1])
+    multi_rng = np.random.default_rng([seed, 2])
 
     def check(lane: str, case_i: int, got, want) -> None:
         got = np.asarray(got.cpu() if torch.is_tensor(got) else got)
@@ -172,6 +176,14 @@ def run_lanes(seed: int, cases_per_lane: int, device="cuda") -> list[str]:
         opc = tree_rng.integers(0, 6, size=(B, tk - 1), dtype=np.int32)
         check(f"resident_tree:k{tk}", ci, kernels.resident_count_tree(rmd, leaves, opc),
               [int(v) for v in bw.np_gather_count_tree(rm, leaves, opc)])
+        # The staged multi fold, both layouts (a generator of its own too).
+        rop = MULTI_OPS[ci % len(MULTI_OPS)]
+        ridx = multi_rng.integers(0, r, size=(B, RESIDENT_MULTI_KS[ci % len(RESIDENT_MULTI_KS)]),
+                                  dtype=np.int32)
+        want_res = np_multi_counts(rop, rm, ridx)
+        check(f"resident_multi:{rop}", ci, kernels.resident_count_multi(rop, rmd, ridx), want_res)
+        check(f"rmresident_multi:{rop}", ci,
+              kernels.resident_count_multi(rop, rmt, ridx, row_major=True), want_res)
         # TopN scorer over every row.
         check("topn", ci, kernels.topn_counts(rmd, srcd), np_topn_counts(rm, src))
 
@@ -203,7 +215,7 @@ def run_lanes(seed: int, cases_per_lane: int, device="cuda") -> list[str]:
 def lane_names() -> set[str]:
     """The lane identifiers run_lanes covers (for coverage assertions)."""
     lanes = {"count1", "topn", "gram_oneshot", "gram_scan", "gram_chunked"}
-    lanes |= tree_lane_names()
+    lanes |= tree_lane_names() | resident_multi_lane_names()
     for op in PAIR_OPS:
         lanes |= {f"count2:{op}", f"resident:{op}", f"gather:{op}", f"rmgather:{op}",
                   f"gram_pairs:{op}", f"dispatch:{op}", f"dispatch_gram:{op}"}
@@ -218,3 +230,8 @@ def tree_lane_names() -> set[str]:
     """The staged tree kernel's lanes (the port's own, beyond the JAX
     sweep's)."""
     return {f"resident_tree:k{k}" for k in TREE_KS}
+
+
+def resident_multi_lane_names() -> set[str]:
+    """The staged multi fold's lanes, both layouts (the port's own)."""
+    return {f"{p}resident_multi:{op}" for op in MULTI_OPS for p in ("", "rm")}

@@ -5,7 +5,8 @@ The choice is the tensor's device and nothing else: there is no probe,
 no ``try`` and no environment switch between a kernel and its plain
 version (each wrapper in ``ops/kernels.py`` makes that choice itself).
 What this module decides is WHICH kernel serves a call — the resident
-or the gather pair kernel, the staged or the gather tree kernel — and
+or the gather pair kernel, the staged or the gather tree and multi-fold
+kernels — and
 the gates the engine and executor import: the Gram's slice bound and the row-major lane's
 (``rowmajor_ok``).  Every gather kernel reads its ids from global
 memory, so unlike the TPU dispatch no batch is cut into id chunks: any
@@ -73,10 +74,85 @@ def topn_scorer_counts(row_matrix: torch.Tensor, pos, src_stack: torch.Tensor):
     return kernels.gather_src_counts(row_matrix, pos, src_stack)
 
 
+# The staged multi kernel serves folds of MULTI_K_MIN or more operands
+# whose groups of 128 folds make MULTI_REFS_MIN or more references, where
+# the batch names each distinct row MULTI_REUSE_MIN or more times for
+# every group staging it: a group past the first stages every tile again,
+# so a batch of G groups needs refs >= MULTI_REUSE_MIN x (2G - 1) x U.
+# refs counts each query's distinct operands (a Range cover's pads repeat
+# its first id; both kernels read a repeat almost free: the gather kernel
+# from L1, the staged kernel not at all).
+# Measured on the H100 (PERF.md, the multi gate, both layouts): folds of
+# 3-8 operands, and groups of fewer than about a thousand references, tie
+# or lose to the gather kernel, whose repeats L2 serves, at any reuse (the
+# staged wrapper's host work, compaction and per-query lists, weighs on
+# small batches); at K >= 16 and 1,024+ references a group the staged
+# kernel ties at two references a row (range-2: 2.0 a row over about ten
+# distinct operands a query) and wins from three; a batch of 2-4 groups
+# ties or loses at two a group and wins at four.
+MULTI_K_MIN = 16
+MULTI_REFS_MIN = 1024
+MULTI_REUSE_MIN = 2.5
+
+
+def multi_strategy(n_distinct: int, w: int, batch: int, k: int, n_slices: int,
+                   row_major: bool = False, refs: int | None = None) -> bool:
+    """Whether the staged multi kernel (``resident_count_multi``) serves a
+    batch of B folds of K operands naming ``n_distinct`` rows: K >=
+    MULTI_K_MIN, each group of up to 128 folds makes MULTI_REFS_MIN
+    references, the batch names every row often enough for its groups
+    (above; ``refs``: the batch's distinct operands a query summed, B x K
+    where not given), and a tiling of the rows and the group's operand
+    offsets fits one block's shared memory.  The rule is the same in both
+    layouts (the gate's grid measured both)."""
+    if not _multi_refs_ok(batch, k):
+        return False
+    groups = -(-batch // kernels.MULTI_GROUP)
+    if (batch * k if refs is None else refs) < MULTI_REUSE_MIN * (2 * groups - 1) * n_distinct:
+        return False
+    return kernels.multi_tiling(n_distinct, w, batch, k, n_slices)[0] > 0
+
+
+def _multi_refs_ok(batch: int, k: int) -> bool:
+    """The gate's clauses that read B and K alone (checked before any
+    compaction)."""
+    return k >= MULTI_K_MIN and min(batch, kernels.MULTI_GROUP) * k >= MULTI_REFS_MIN
+
+
+def staged_multi_batch(idx, n_slices: int, n_rows: int, w: int, row_major: bool = False):
+    """``multi_strategy`` applied to a batch of fold ids over a matrix of
+    ``n_slices`` x ``n_rows`` rows of ``w`` words: the batch's compaction
+    (``kernels.compact_rows``) where the staged kernel serves it, else
+    None.  A batch the gate declines on B and K alone is not compacted."""
+    ix = np.asarray(idx)
+    if ix.ndim != 2 or not _multi_refs_ok(*ix.shape):
+        return None
+    ids, local = kernels.compact_rows(ix, n_rows, "multi fold idx")
+    srt = np.sort(local, axis=1)
+    refs = ix.shape[0] + int(np.count_nonzero(srt[:, 1:] != srt[:, :-1]))
+    if not multi_strategy(ids.size, w, ix.shape[0], ix.shape[1], n_slices, row_major, refs):
+        return None
+    return ids, local
+
+
+def _multi(op: str, matrix: torch.Tensor, idx, row_major: bool):
+    """The staged kernel's counts where the gate admits the batch, else
+    None; the batch is compacted once, for the gate and the kernel both."""
+    a, b, w = matrix.shape
+    n_slices, n_rows = (b, a) if row_major else (a, b)
+    compacted = staged_multi_batch(idx, n_slices, n_rows, w, row_major)
+    if compacted is None:
+        return None
+    return kernels.resident_count_multi(op, matrix, idx, row_major, compacted=compacted)
+
+
 def gather_count_multi(op: str, row_matrix: torch.Tensor, idx):
     """K-operand left-fold counts (N-operand Intersect/Union/Difference,
-    Range covers) -> int32[B]."""
-    return kernels.gather_count_multi(op, row_matrix, idx)
+    Range covers) -> int32[B]: the staged kernel where ``multi_strategy``
+    admits the batch, else the gather kernel.  The choice reads shapes
+    only."""
+    got = _multi(op, row_matrix, idx, row_major=False)
+    return kernels.gather_count_multi(op, row_matrix, idx) if got is None else got
 
 
 # The staged tree kernel serves a batch whose leaf references reach this
@@ -135,5 +211,8 @@ def gather_count_rowmajor(op: str, row_major: torch.Tensor, pairs):
 
 
 def gather_count_multi_rowmajor(op: str, row_major: torch.Tensor, idx):
-    """K-operand fold counts over a ROW-MAJOR [R, S, W] matrix -> int32[B]."""
-    return kernels.gather_count_multi_rowmajor(op, row_major, idx)
+    """K-operand fold counts over a ROW-MAJOR [R, S, W] matrix -> int32[B]:
+    the staged kernel where ``multi_strategy`` admits the batch, else the
+    row-major gather kernel."""
+    got = _multi(op, row_major, idx, row_major=True)
+    return kernels.gather_count_multi_rowmajor(op, row_major, idx) if got is None else got

@@ -17,7 +17,7 @@ Every wrapper:
 - adds one to ``LAUNCHES[name]`` where it launches its kernel, and
   nowhere else.
 
-The ten kernels replace every Pallas kernel of
+The eleven kernels replace every Pallas kernel of
 pilosa_tpu/ops/pallas_kernels.py: fused_count1 and fused_count2
 (``count_rows``), fused_resident_count2 (``resident_count2``),
 fused_gather_count2 (``gather_count2``), fused_gather_src_counts
@@ -26,12 +26,14 @@ fused_gather_count_or (``gather_count_multi``), fused_gather_count_tree
 (``gather_count_tree``, and its staged variant ``resident_count_tree`` for
 batches that name the same rows many times), the row-major pair and fold
 counts fused_gather_count2_rowmajor (``gather_count2_rowmajor``) and
-fused_gather_count_multi_rowmajor (``gather_count_multi_rowmajor``), and
-fused_topn_counts (``topn_counts``).  All ten are bound by device-memory
-bytes on this card; each source says what its design does about that.
-The two resident kernels stage the batch's distinct rows through
-shared-memory tiles copied by cp.async (``csrc/stage.cuh``); their
-wrappers compact the ids on the host first (``compact_rows``).
+fused_gather_count_multi_rowmajor (``gather_count_multi_rowmajor``),
+fused_topn_counts (``topn_counts``), and the staged variant of both
+multi folds, either layout, ``resident_count_multi``.  All eleven are
+bound by device-memory bytes on this card; each source says what its
+design does about that.  The three resident kernels stage the batch's
+distinct rows through shared-memory tiles copied by cp.async
+(``csrc/stage.cuh``); their wrappers compact the ids on the host first
+(``compact_rows``).
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ KERNELS = (
     "count_rows", "resident_count2", "gather_count2", "gather_src_counts",
     "gather_count_multi", "gather_count_tree", "resident_count_tree",
     "gather_count2_rowmajor", "gather_count_multi_rowmajor", "topn_counts",
+    "resident_count_multi",
 )
 
 # Launch counters: one per kernel, bumped only where the kernel launches.
@@ -86,6 +89,7 @@ _ARGTYPES = {
     "gather_count_multi_rowmajor": (
         "pk_gather_count_multi_rowmajor", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "topn_counts": ("pk_topn_counts", [_P, _P, _P, _I, _I, _I, _P]),
+    "resident_count_multi": ("pk_resident_count_multi", [_P] * 6 + [_I] * 10 + [_P]),
 }
 
 _build_mu = threading.Lock()
@@ -256,11 +260,13 @@ def count_rows(a: torch.Tensor, b=None, op: str = "none") -> torch.Tensor:
 
 # A tile is one word chunk of the batch's U distinct rows in one slice,
 # copied into shared memory by cp.async.  Chunks are powers of two from 64
-# words (256 bytes a row: one int2 a lane in a warp step) to 512 (wider
-# tiles were no faster on the H100); a launch narrows its chunk until it
-# has at least _STAGE_TILES_MIN tiles (about 8 per block on 132 SMs), so
-# the persistent blocks stay balanced.
+# words (256 bytes a row: one int2 a lane in a warp step; the multi fold
+# reads int4s and goes down to 32 words, _MULTI_CHUNK_WORDS_MIN) to 512
+# (wider tiles were no faster on the H100); a launch narrows its chunk
+# until it has at least _STAGE_TILES_MIN tiles (about 8 per block on 132
+# SMs), so the persistent blocks stay balanced.
 _CHUNK_WORDS_MIN = 64
+_MULTI_CHUNK_WORDS_MIN = 32
 _CHUNK_WORDS_MAX = 512
 _STAGE_TILES_MIN = 1024
 
@@ -271,11 +277,15 @@ def compact_rows(ids, n_rows: int, what: str) -> tuple[np.ndarray, np.ndarray]:
     ids``, so ``rm[:, uniq][:, local]`` is ``rm[:, ids]``.  Bounds-checked
     against ``n_rows`` first: a kernel would read out of bounds."""
     a = np.asarray(ids)
-    flat = a.reshape(-1).astype(np.int64)
+    flat = a.reshape(-1).astype(np.intp)
     if flat.size and (flat.min() < 0 or flat.max() >= n_rows):
         raise IndexError(f"{what}: row id out of range [0, {n_rows})")
-    uniq, local = np.unique(flat, return_inverse=True)
-    return uniq.astype(np.int32), local.reshape(a.shape).astype(np.int32)
+    # A mark per matrix row and a running count of the marks: O(B x K + R),
+    # a few microseconds at the executor's sizes (a sort costs tens).
+    seen = np.zeros(n_rows, dtype=bool)
+    seen[flat] = True
+    slot = np.cumsum(seen, dtype=np.int32) - 1
+    return np.flatnonzero(seen).astype(np.int32), slot[flat].reshape(a.shape)
 
 
 def staged_smem_bytes(u: int, chunk_words: int, stages: int, own_ints: int) -> int:
@@ -284,15 +294,16 @@ def staged_smem_bytes(u: int, chunk_words: int, stages: int, own_ints: int) -> i
     return stages * u * chunk_words * 4 + 4 * u + 4 * own_ints
 
 
-def staged_tiling(u: int, w: int, own_ints: int, n_slices: int) -> tuple[int, int]:
+def staged_tiling(u: int, w: int, own_ints: int, n_slices: int,
+                  chunk_min: int = _CHUNK_WORDS_MIN) -> tuple[int, int]:
     """(chunk_words, stages) for U staged rows of W words: two stages of
     the widest chunk that fits one block's shared memory, narrowed while
     the launch has fewer than _STAGE_TILES_MIN (slice, chunk) tiles; one
-    stage where two tiles of even the narrowest chunk do not fit; (0, 0)
-    where nothing fits."""
+    stage where two tiles of even the narrowest chunk (``chunk_min``
+    words) do not fit; (0, 0) where nothing fits."""
     for stages in (2, 1):
         fits = []
-        c = _CHUNK_WORDS_MIN
+        c = chunk_min
         while c <= min(w, _CHUNK_WORDS_MAX):
             if w % c == 0 and staged_smem_bytes(u, c, stages, own_ints) <= SMEM_BYTES:
                 fits.append(c)
@@ -624,6 +635,128 @@ def gather_count_multi_rowmajor(op: str, row_major: torch.Tensor, idx) -> torch.
     )
     _check(err, "gather_count_multi_rowmajor")
     LAUNCHES["gather_count_multi_rowmajor"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# resident_count_multi (fused_gather_count_multi and its row-major form, staged)
+# ---------------------------------------------------------------------------
+
+# Queries a block holds (16 warps x 8 queries, partial sums in registers):
+# resident_count_multi.cu's kGroup.  A larger batch takes further groups,
+# each staging every tile.
+MULTI_GROUP = 128
+
+
+def multi_group_ints(batch: int, k: int) -> int:
+    """resident_count_multi's own shared ints for one group, at most: each
+    query's operand offsets (K, padded to a multiple of four), its count
+    of groups of four and its index in the output."""
+    return min(batch, MULTI_GROUP) * (-(-k // 4) * 4 + 2)
+
+
+def multi_tiling(u: int, w: int, batch: int, k: int, n_slices: int) -> tuple[int, int]:
+    """(chunk_words, stages) of a resident_count_multi launch over U
+    distinct rows named by ``batch`` folds of K operands: the other staged
+    kernels' tiling (chunks of 64 words or more), and 32-word chunks only
+    where not even one stage of those fits; chunk_words 0 when nothing
+    fits.  (At the Range shape one stage of 64-word chunks ran 8-10%
+    faster than two of 32 on the H100: PERF.md.)"""
+    own = multi_group_ints(batch, k)
+    tiling = staged_tiling(u, w, own, n_slices)
+    return tiling if tiling[0] else staged_tiling(u, w, own, n_slices, _MULTI_CHUNK_WORDS_MIN)
+
+
+def _multi_dims(matrix, row_major: bool) -> tuple[int, int, int]:
+    """(S, R, W) of a slice-major [S, R, W] or row-major [R, S, W] matrix."""
+    if matrix.dim() != 3:
+        raise ValueError(f"multi fold: matrix shape {tuple(matrix.shape)}, want 3 dims")
+    a, b, w = matrix.shape
+    return (b, a, w) if row_major else (a, b, w)
+
+
+def resident_count_multi_plain(op: str, matrix, idx, row_major: bool = False, compacted=None):
+    """resident_count_multi's function on plain tensors: the compaction
+    remap, then the plain fold over the compacted rows.  A fold of one
+    operand is that row whatever the op (the plain andnot needs two)."""
+    _, r, _ = _multi_dims(matrix, row_major)
+    ids, local = compacted or compact_rows(idx, r, "resident_count_multi idx")
+    rows = torch.from_numpy(ids).long().to(matrix.device)
+    sub = matrix[rows].transpose(0, 1) if row_major else matrix[:, rows]
+    return bitwise.gather_count_multi("and" if local.shape[1] == 1 else op, sub, local)
+
+
+def resident_count_multi(op: str, matrix: torch.Tensor, idx, row_major: bool = False,
+                         compacted=None) -> torch.Tensor:
+    """``gather_count_multi``'s function (``row_major``:
+    ``gather_count_multi_rowmajor``'s) -> int32[B], each distinct row the
+    batch names staged in shared memory once per word chunk.
+    ``compacted``: ``compact_rows(idx, R, ...)`` where the caller has it
+    already.  On the CPU: the same remap, then the plain fold over the
+    compacted rows."""
+    if op not in MULTI_OPS:
+        raise ValueError(f"unsupported multi-op {op!r}")
+    if np.ndim(idx) != 2 or np.shape(idx)[1] < 1:
+        raise ValueError(f"resident_count_multi: idx shape {np.shape(idx)}, want [B, K >= 1]")
+    s, r, w = _multi_dims(matrix, row_major)
+    ids, local = compacted or compact_rows(idx, r, "resident_count_multi idx")
+    if _on_cpu(matrix):
+        return resident_count_multi_plain(op, matrix, idx, row_major, (ids, local))
+    _words(matrix, "resident_count_multi matrix", 3)
+    b, k = local.shape
+    out = torch.zeros(b, dtype=torch.int32, device=matrix.device)
+    if b == 0:
+        return out
+    chunk, stages = multi_tiling(ids.size, w, b, k, s)
+    if chunk == 0:
+        raise ValueError(f"resident_count_multi: {ids.size} rows of {w} words and {b} x {k} "
+                         "operands do not fit shared memory")
+    return _launch_resident_multi(op, matrix, ids, local, chunk, stages, row_major, out)
+
+
+def fold_lists(op: str, local: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Each query's operands with the repeats the fold ignores dropped
+    (and / or: every repeat; andnot: repeats after the first operand),
+    padded to a common multiple of four with an operand whose repeat the
+    fold ignores, rows ordered by their own length, longest first:
+    ``(lists int32[B, K4], n_groups int32[B], order int32[B])`` with row i
+    holding the operands of query ``order[i]`` in its first ``4 *
+    n_groups[i]`` entries.  The values are the same: a fold repeats what
+    it drops."""
+    b, k = local.shape
+    keep_first = op == "andnot" and k > 1
+    rest = np.sort(local[:, 1:] if keep_first else local, axis=1)
+    new = np.ones(rest.shape, dtype=bool)
+    new[:, 1:] = rest[:, 1:] != rest[:, :-1]
+    lead = int(keep_first)
+    kq = lead + new.sum(axis=1)
+    lists = np.repeat(rest[:, :1], -(-int(kq.max()) // 4) * 4, axis=1)
+    rows, cols = np.nonzero(new)
+    lists[rows, lead + np.cumsum(new, axis=1)[rows, cols] - 1] = rest[rows, cols]
+    if keep_first:
+        lists[:, 0] = local[:, 0]
+    order = np.argsort(-kq, kind="stable").astype(np.int32)
+    return lists[order], ((kq[order] + 3) // 4).astype(np.int32), order
+
+
+def _launch_resident_multi(op, matrix, ids, local, chunk, stages, row_major, out):
+    """One resident_count_multi launch at a given tiling (the wrapper's
+    own, or another one a timing compares it with).  A fold of one
+    operand is that row whatever the op."""
+    s, r, w = _multi_dims(matrix, row_major)
+    if local.shape[1] == 1:
+        op = "and"
+    lists, n_groups, order = fold_lists(op, local)
+    u, (b, k4) = ids.size, lists.shape
+    dev = _ints(np.concatenate([ids, lists.reshape(-1), n_groups, order]), matrix.device)
+    base = dev.data_ptr()
+    err = _fn("resident_count_multi")(
+        matrix.data_ptr(), base, base + 4 * u, base + 4 * (u + b * k4),
+        base + 4 * (u + b * k4 + b), out.data_ptr(),
+        s, r, w, u, b, k4, chunk, stages, int(row_major), OPS[op], _stream(matrix),
+    )
+    _check(err, "resident_count_multi")
+    LAUNCHES["resident_count_multi"] += 1
     return out
 
 
