@@ -179,7 +179,7 @@ REPLACES = {
 # Which path must launch each kernel: the executor path keeps the four
 # pair/TopN kernels, the HTTP path the four fold kernels (the staged tree
 # kernel through the "tree-wide" request, the staged multi kernel through
-# the Range requests), the tall path the two row-major kernels, and the
+# the "range-wide" request), the tall path the two row-major kernels, and the
 # differential sweep the whole-row scorer.
 PATH_OF = {
     "count_rows": "executor", "resident_count2": "executor", "gather_count2": "executor",
@@ -261,6 +261,18 @@ def new_spans(rng, n: int) -> list[tuple[str, str]]:
     for _ in range(n):
         m, d = int(rng.integers(3, 6)), int(rng.integers(2, 21))
         out.append((f"2017-{m:02d}-{d:02d}T00:00", f"2017-{m:02d}-{d + int(rng.integers(1, 8)):02d}T00:00"))
+    return out
+
+
+def wide_spans(rng, n: int) -> list[tuple[str, str]]:
+    """Day-aligned spans of 16-19 days in January ("the last two or three
+    weeks"): covers of 16-19 day views, most of which the pool's January
+    spans already name, that no earlier request asked."""
+    out = []
+    for _ in range(n):
+        days = int(rng.integers(16, 20))
+        d = int(rng.integers(1, 32 - days))
+        out.append((f"2017-01-{d:02d}T00:00", f"2017-01-{d + days:02d}T00:00"))
     return out
 
 
@@ -398,6 +410,7 @@ def check_kernels() -> tuple[dict, list, list, dict]:
          kernels.gather_src_counts_plain(rm, pos, stack))
     torch.cuda.synchronize()
     fold_cases = check_fold_kernels(rm, rng, diff)
+    print(json.dumps({"narrow_folds": check_narrow_folds(rm, diff)}), flush=True)
     check_staged_kernels(rm, diff)
     print(json.dumps({"staged_checks": {"resident_count_multi": check_staged_multi(rm, diff)}}),
           flush=True)
@@ -444,7 +457,7 @@ def check_kernels() -> tuple[dict, list, list, dict]:
     staged, gate = time_staged_kernels(rm, pairs_r)
     res.update(staged)
     words = _Words()
-    staged, multi = time_multi(words)
+    staged, multi = time_multi(words, diff)
     res.update(staged)
     del words
     torch.cuda.empty_cache()
@@ -515,6 +528,8 @@ NARY_SEED = SEED + 8
 RANGE_SEED = SEED + 9
 TALL_NARY_SEED = SEED + 10
 NARY_SHAPES = (("nary-and", "and", 3), ("nary-or", "or", 4), ("nary-andnot", "andnot", 3))
+# range-wide: every time row over each of 16 wide spans (128 Counts).
+RANGE_WIDE_SPANS = 16
 # The executor's defaults the tall path runs under: the 2 GiB row-pool
 # budget (512 rows of 32 slices) and the 2 GiB slice-streaming budget.
 TALL_POOL_ROWS = (2 << 30) // (TALL_SLICES * W * 4)
@@ -529,9 +544,11 @@ def nary_requests(n_rows: int) -> dict:
             for name, op, k in NARY_SHAPES}
 
 
-def range_requests(time_rows: int) -> tuple[list, list]:
-    """range-1's and range-2's (row, span) items: 128 draws from the span
-    pool, then 96 more draws and 32 Counts over four new spans, shuffled."""
+def range_requests(time_rows: int) -> tuple[list, list, list]:
+    """range-1's, range-2's and range-wide's (row, span) items: 128 draws
+    from the span pool; 96 more draws and 32 Counts over four new spans,
+    shuffled; every row over each of RANGE_WIDE_SPANS wide spans,
+    shuffled."""
     rng = np.random.default_rng(RANGE_SEED)
     pool = span_pool(np.random.default_rng(13))
 
@@ -542,18 +559,20 @@ def range_requests(time_rows: int) -> tuple[list, list]:
     fresh = new_spans(rng, 4)
     two = [draw() for _ in range(RANGE_BATCH - 32)]
     two += [(int(rng.integers(0, time_rows)), fresh[i % len(fresh)]) for i in range(32)]
-    return one, [two[i] for i in rng.permutation(len(two))]
+    two = [two[i] for i in rng.permutation(len(two))]
+    wide = [(r, sp) for sp in wide_spans(rng, RANGE_WIDE_SPANS) for r in range(time_rows)]
+    return one, two, [wide[i] for i in rng.permutation(len(wide))]
 
 
-def range_batches(one, two) -> list:
-    """The Range lane's kernel batches of range-1 and range-2 as the
-    executor builds them: (request, matrix rows, idx).  The multi-view
+def range_batches(one, two, wide) -> list:
+    """The Range lane's kernel batches of range-1, range-2 and range-wide
+    as the executor builds them: (request, matrix rows, idx).  The multi-view
     matrix's rows are the (view, row) combos in sorted order, a later
     request's new combos after them, capacity a power of two; a batch is
     the Counts the cover memo misses (range-2 repeats range-1's), each
     cover padded to the widest by repeating its first id."""
     pos, memo, out = {}, set(), []
-    for name, items in (("range-1", one), ("range-2", two)):
+    for name, items in (("range-1", one), ("range-2", two), ("range-wide", wide)):
         covers = [(r, tuple(cover(sp))) for r, sp in items]
         for c in sorted({(v, r) for r, cv in covers for v in cv} - pos.keys()):
             pos[c] = len(pos)
@@ -663,24 +682,34 @@ class _Words:
 
 def multi_bound(batch) -> tuple[float, str]:
     """The least time for a batch: each distinct row's slices read once,
-    the ids read and the counts written; K - 1 fold ops, a popcount and
-    an add a word."""
+    the ids read and the counts written; a fold op for each of a query's
+    distinct operands past the first (a repeat changes nothing), a
+    popcount and an add a word."""
+    from pilosa_tpu_torch.ops import dispatch
+
     idx = batch["idx"]
-    b, k = idx.shape
+    b = idx.shape[0]
     a, c = batch["matrix"]
     s = a if batch["layout"] == "slice" else c
-    return bound(s * len(np.unique(idx)) * W * 4 + idx.nbytes + b * 4, b * s * W * (k + 1))
+    return bound(s * len(np.unique(idx)) * W * 4 + idx.nbytes + b * 4,
+                 s * W * (dispatch.fold_refs(idx) + b))
 
 
 def _multi_summary(batch) -> dict:
+    """A batch's shape: B, padded K, distinct rows U, references (each
+    query's distinct operands, summed: ``dispatch.fold_refs``), operands
+    a fold and references a row, and its bound."""
+    from pilosa_tpu_torch.ops import dispatch
+
     idx = batch["idx"]
     b, k = idx.shape
     u = len(np.unique(idx))
+    refs = dispatch.fold_refs(idx)
     a, c = batch["matrix"]
     nb, by = multi_bound(batch)
     return {"request": batch["request"], "layout": batch["layout"], "op": batch["op"],
-            "matrix": [a, c, W],
-            "B": b, "K": k, "distinct": u, "reuse": b * k / u, "bound_ms": nb, "bound_by": by}
+            "matrix": [a, c, W], "B": b, "K": k, "distinct": u, "refs": refs,
+            "operands": refs / b, "reuse": refs / u, "bound_ms": nb, "bound_by": by}
 
 
 def multi_choice(batch) -> str:
@@ -690,7 +719,7 @@ def multi_choice(batch) -> str:
     a, c = batch["matrix"]
     row_major = batch["layout"] == "row"
     s, r = (c, a) if row_major else (a, c)
-    staged = dispatch.staged_multi_batch(batch["idx"], s, r, W, row_major) is not None
+    staged = dispatch.staged_multi_batch(batch["idx"], s, r, W) is not None
     return "staged" if staged else "gather"
 
 
@@ -735,6 +764,54 @@ def check_fold_kernels(rm, rng, diff) -> dict:
         cases["gather_count_tree"].append({"leaves": leaves, "opc": opc})
     torch.cuda.synchronize()
     return cases
+
+
+# Narrow gather folds: one or two queries over a few slices, as a wide
+# Union streams its slices; the fold kernels then narrow their chunk.
+NARROW_BATCHES = (1, 2)
+NARROW_SLICES = (5, 7, 16)
+NARROW_KS = (5, 16, N_ROWS)
+
+
+def _fold_vectors(b: int, s: int, sms: int) -> int:
+    """The int4 vectors a thread of the gather folds takes (NV in
+    csrc/gather_multi.cuh): 4, halved while B x chunks x S blocks are
+    fewer than the card's SMs."""
+    nv = 4
+    while nv > 1 and b * -(-W // (4 * 256 * nv)) * s < sms:
+        nv //= 2
+    return nv
+
+
+def check_narrow_folds(rm, diff) -> list:
+    """Both gather folds at B = 1-2 over 5, 7 and 16 slices of the pool
+    (slice-major views, row-major copies), K = 5, 16 and every row once,
+    each op, against their plain versions exactly: the launches that take
+    one, two and four int4 vectors a thread.  Returns the cases with the
+    vectors each took."""
+    rng = np.random.default_rng(STAGED_SEED + 5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    names, seen = [], set()
+    for s in NARROW_SLICES:
+        layouts = (("slice", rm[:s], kernels.gather_count_multi, kernels.gather_count_multi_plain),
+                   ("row", rm[:s].transpose(0, 1).contiguous(), kernels.gather_count_multi_rowmajor,
+                    kernels.gather_count_multi_rowmajor_plain))
+        for layout, m, fn, plain in layouts:
+            name = "gather_count_multi" if layout == "slice" else "gather_count_multi_rowmajor"
+            for b in NARROW_BATCHES:
+                for k in NARROW_KS:
+                    idx = (np.stack([rng.permutation(N_ROWS) for _ in range(b)]) if k == N_ROWS
+                           else rng.integers(0, N_ROWS, size=(b, k))).astype(np.int32)
+                    for op in kernels.MULTI_OPS:
+                        diff(name, fn(op, m, idx), plain(op, m, idx))
+                nv = _fold_vectors(b, s, sms)
+                seen.add(nv)
+                names.append(f"{layout} S={s} B={b}: NV={nv}")
+        del layouts
+    torch.cuda.synchronize()
+    if not {1, 2} <= seen:
+        raise AssertionError(f"narrow folds took NV {sorted(seen)} on {sms} SMs, want 1 and 2")
+    return names
 
 
 def time_fold_kernels(rm, cases) -> dict:
@@ -952,13 +1029,21 @@ def time_staged_kernels(rm, pairs_r) -> tuple[dict, list]:
 # The multi gate's grid (both kernels on the same batches, both layouts,
 # over one buffer of 32 x 1,024 rows: [32, 1024, W] or [1024, 32, W]):
 # B x K x references per distinct row (each row of the batch named
-# exactly B x K / U times, give or take one).
+# exactly B x K / U times, give or take one); and Range-like folds, K =
+# 23 with a ragged number of distinct operands a query (MULTI_GATE_DS on
+# average) padded by repeating the first, B x operands x references.
 MULTI_GATE_BATCHES = (16, 64, 128, 256, 512)
 MULTI_GATE_KS = (3, 4, 8, 16, 23)
 MULTI_GATE_REUSE = (1, 2, 3, 4, 8)
 MULTI_GATE_SLICES, MULTI_GATE_ROWS = 32, 1024
+MULTI_GATE_PADDED_BATCHES = (64, 128)
+MULTI_GATE_DS = (8, 12, 16, 20)
+MULTI_GATE_PADDED_REUSE = (2, 3, 4, 8)
 # Tilings (chunk words, stages) timed beside the wrapper's own choice.
-MULTI_TILINGS = ((32, 2), (32, 1), (64, 2), (64, 1), (128, 1))
+MULTI_TILINGS = ((64, 2), (64, 1), (128, 2), (128, 1))
+# The most rows one stage of 64-word chunks holds beside 512 folds of 16
+# operands (4 groups): the staged kernel's one-stage edge at W = 32,768.
+ONE_STAGE_ROWS = 850
 
 
 def check_staged_multi(rm, diff) -> list:
@@ -967,9 +1052,9 @@ def check_staged_multi(rm, diff) -> list:
     op: K = 1, 2, 3, 5, 16, 23; lists padded to eight with an operand the
     fold ignores a second time (andnot after the first); duplicate ids
     within a query; unreferenced rows; a ragged batch and one of three
-    groups; and a batch over 1,024 rows that fits only one stage of
-    32-word chunks.  Each also equals the gather kernel of its layout.
-    Returns the case names with their tilings."""
+    groups; and 512 folds over ONE_STAGE_ROWS rows, which fit only one
+    stage of 64-word chunks.  Each also equals the gather kernel of its
+    layout.  Returns the case names with their tilings."""
     rng = np.random.default_rng(STAGED_SEED + 2)
     layouts = {"slice": rm, "row": rm[:16].transpose(0, 1).contiguous()}
     r = N_ROWS
@@ -1004,15 +1089,17 @@ def check_staged_multi(rm, diff) -> list:
                 u = len(np.unique(ix))
                 names.append(f"{name}: tiling {kernels.multi_tiling(u, W, len(ix), ix.shape[1], N_SLICES)}")
     del layouts
-    # One stage: 512 folds of 16 over all 1,024 rows of a 4-slice matrix.
-    big = _rand_words(_gen(STAGED_SEED + 3), (4, MULTI_GATE_ROWS, W))
-    ix = np.resize(rng.permutation(MULTI_GATE_ROWS), (512, 16)).astype(np.int32)
-    tiling = kernels.multi_tiling(MULTI_GATE_ROWS, W, 512, 16, 4)
+    # One stage: 512 folds of 16 over ONE_STAGE_ROWS rows of a 4-slice matrix.
+    big = _rand_words(_gen(STAGED_SEED + 3), (4, ONE_STAGE_ROWS, W))
+    ix = np.resize(rng.permutation(ONE_STAGE_ROWS), (512, 16)).astype(np.int32)
+    tiling = kernels.multi_tiling(ONE_STAGE_ROWS, W, 512, 16, 4)
+    if tiling[1] != 1 or tiling[0] != 64:
+        raise AssertionError(f"{ONE_STAGE_ROWS} rows: tiling {tiling}, want one stage of 64 words")
     for layout, m in (("slice", big), ("row", big.transpose(0, 1).contiguous())):
         for op in kernels.MULTI_OPS:
             diff("resident_count_multi", kernels.resident_count_multi(op, m, ix, layout == "row"),
                  _chunked(lambda x, _op=op: kernels.resident_count_multi_plain(_op, m, x, layout == "row"), ix))
-    names.append(f"one stage, 1,024 rows B=512 K=16: tiling {tiling}")
+    names.append(f"one stage, {ONE_STAGE_ROWS} rows B=512 K=16: tiling {tiling}")
     torch.cuda.synchronize()
     del big
     torch.cuda.empty_cache()
@@ -1030,13 +1117,34 @@ def _gate_batch(rng, b, k, reuse, n_rows):
     return rng.permutation(np.resize(rows, b * k)).reshape(b, k).astype(np.int32)
 
 
-def time_multi(words) -> tuple[dict, dict]:
-    """The staged multi kernel's "kernels" line entry (the Range shape,
-    and the pool's K=16, range-1 and range-2 beside it), and the multi
-    lines: every batch the paths launch timed through both kernels
-    ("paths"), the wrapper's tiling against the others at three shapes
-    ("tilings"), and the gate's grid ("gate").  Every staged count equals
-    the gather kernel's on the same batch."""
+def _gate_batch_padded(rng, b, d, reuse, n_rows, k=23):
+    """B Range-like folds: query q names d_q distinct rows (d_q drawn from
+    d - 6 .. d + 6 within 1 .. K, d on average) consecutive in a walk over
+    U = sum(d_q) / reuse rows of ``n_rows``, padded to K by repeating its
+    first; None where U would exceed the rows."""
+    dq = rng.integers(max(1, d - 6), min(k, d + 6) + 1, size=b)
+    u = max(int(dq.max()), round(int(dq.sum()) / reuse))
+    if u > n_rows:
+        return None
+    walk = np.resize(rng.choice(n_rows, size=u, replace=False), int(dq.sum()))
+    idx = np.empty((b, k), dtype=np.int32)
+    at = 0
+    for q, n in enumerate(dq):
+        idx[q, :n] = walk[at:at + n]
+        idx[q, n:] = walk[at]
+        at += n
+    return idx
+
+
+def time_multi(words, diff) -> tuple[dict, dict]:
+    """The staged multi kernel's "kernels" line entry (range-wide's batch,
+    the one its path launches, with the timed Range, the pool's K=16,
+    range-1 and range-2 beside it), and the multi lines: every batch the
+    paths launch timed through both kernels ("paths"), the wrapper's
+    tiling against the others at three shapes ("tilings"), and the gate's
+    grid ("gate").  Every path batch and every entry is held against the
+    plain versions of both kernels, exactly; in the grid every staged
+    count equals the gather kernel's on the same batch."""
     def gather(batch, m):
         fn = kernels.gather_count_multi if batch["layout"] == "slice" else kernels.gather_count_multi_rowmajor
         return lambda: fn(batch["op"], m, batch["idx"])
@@ -1052,34 +1160,50 @@ def time_multi(words) -> tuple[dict, dict]:
             return kernels._launch_resident_multi(batch["op"], m, ids, local, *tiling, row_major, out)
         return run
 
+    def plains(batch, m):
+        """The plain versions of both kernels on the batch: (gather's,
+        the staged kernel's) launches, each over PLAIN_CHUNK queries."""
+        op, idx, row_major = batch["op"], batch["idx"], batch["layout"] == "row"
+        g = (kernels.gather_count_multi_rowmajor_plain if row_major
+             else kernels.gather_count_multi_plain)
+        return (lambda: _chunked(lambda x: g(op, m, x), idx),
+                lambda: _chunked(lambda x: kernels.resident_count_multi_plain(op, m, x, row_major), idx))
+
     def tiling_of(batch):
         idx = batch["idx"]
         a, c = batch["matrix"]
         s = a if batch["layout"] == "slice" else c
         return kernels.multi_tiling(len(np.unique(idx)), W, idx.shape[0], idx.shape[1], s)
 
-    def both(batch, reps=10):
+    def both(batch, reps=10, check=False):
         m = words.matrix(batch)
         rec = _multi_summary(batch)
         tiling = tiling_of(batch)
         g = gather(batch, m)
+        if check:
+            g_plain, s_plain = plains(batch, m)
+            diff("gather_count_multi" if batch["layout"] == "slice" else "gather_count_multi_rowmajor",
+                 g(), g_plain())
         rec["gather_ms"] = cuda_ms(g, reps=reps)
         rec["tiling"] = list(tiling)
         rec["staged_ms"] = None
         if tiling[0]:
             st = staged(batch, m)
-            if not torch.equal(st(), g()):
+            if check:
+                diff("resident_count_multi", st(), s_plain())
+            elif not torch.equal(st(), g()):
                 raise AssertionError(f"multi {batch['request']}: staged and gather counts differ")
             rec["staged_ms"] = cuda_ms(st, reps=reps)
         rec["dispatch"] = multi_choice(batch)
         return rec
 
-    paths = [both(b) for b in multi_path_batches()]
+    path_batches = multi_path_batches()
+    paths = [both(b, check=True) for b in path_batches]
     timed = {b["request"]: b for b in multi_timed_batches()}
-    range_paths = {b["request"]: b for b in multi_path_batches() if "range" in b["request"]}
+    range_paths = {b["request"]: b for b in path_batches if "range" in b["request"]}
 
     tilings = []
-    for batch in (timed["timed Range"], range_paths["http range-1"], timed["timed pool K=16"]):
+    for batch in (range_paths["http range-wide"], timed["timed Range"], timed["timed pool K=16"]):
         m = words.matrix(batch)
         idx = batch["idx"]
         u, own = len(np.unique(idx)), kernels.multi_group_ints(*idx.shape)
@@ -1090,18 +1214,18 @@ def time_multi(words) -> tuple[dict, dict]:
         tilings.append(rec)
 
     entries = []
-    for batch in (timed["timed Range"], timed["timed pool K=16"], range_paths["http range-1"],
-                  range_paths["http range-2"]):
+    for batch in (range_paths["http range-wide"], timed["timed Range"], timed["timed pool K=16"],
+                  range_paths["http range-1"], range_paths["http range-2"]):
         m = words.matrix(batch)
         idx, op = batch["idx"], batch["op"]
         nb, by = multi_bound(batch)
         chunk, stages = tiling_of(batch)
+        s_plain = plains(batch, m)[1]
+        diff("resident_count_multi", staged(batch, m)(), s_plain())
         entries.append(dict(
             shape=(f"{batch['request']}: [{m.shape[0]}, {m.shape[1]}, {W}], B={idx.shape[0]}, "
                    f"K={idx.shape[1]} ({len(np.unique(idx))} distinct rows), {op}"),
-            ms=cuda_ms(staged(batch, m)),
-            plain_ms=cuda_ms(lambda: _chunked(
-                lambda x: kernels.resident_count_multi_plain(op, m, x), idx), reps=2, warm=1),
+            ms=cuda_ms(staged(batch, m)), plain_ms=cuda_ms(s_plain, reps=2, warm=1),
             bound_ms=nb, bound_by=by, chunk_words=chunk, stages=stages,
             smem_bytes=kernels.staged_smem_bytes(len(np.unique(idx)), chunk, stages,
                                                  kernels.multi_group_ints(*idx.shape)),
@@ -1120,6 +1244,14 @@ def time_multi(words) -> tuple[dict, dict]:
                         continue
                     batch = dict(request="gate", layout=layout, matrix=dims,
                                  op=kernels.MULTI_OPS[len(gate) % 3], idx=idx)
+                    gate.append(both(batch, reps=5))
+        for b in MULTI_GATE_PADDED_BATCHES:
+            for d in MULTI_GATE_DS:
+                for reuse in MULTI_GATE_PADDED_REUSE:
+                    idx = _gate_batch_padded(rng, b, d, reuse, MULTI_GATE_ROWS)
+                    if idx is None:
+                        continue
+                    batch = dict(request="gate padded", layout=layout, matrix=dims, op="or", idx=idx)
                     gate.append(both(batch, reps=5))
     res = {"resident_count_multi": dict(entries[0], shapes=entries[1:])}
     return res, {"paths": paths, "tilings": tilings, "gate": gate}
@@ -1161,14 +1293,21 @@ def _load_other(other_root: str):
     return mods
 
 
+# ABBA rounds a multi-fold batch takes in --resident-against: the
+# smallest batches (0.2 ms) spread 10-20% between two readings.
+MULTI_ABBA_ROUNDS = 3
+
+
 def resident_against(other_root: str) -> int:
     """``resident_count2`` and the two multi-fold entry points
     (``dispatch.gather_count_multi``, ``dispatch.gather_count_multi_rowmajor``)
     of this checkout against those of ``other_root`` on the same inputs:
     exact agreement, then ABBA times (other, this, this, other) — pairs at
-    S=64 R=256 for B = 256 to 4,096, folds at every batch the paths
-    launch (``multi_path_batches``) and at the kernels line's timed
-    shapes (``multi_timed_batches``)."""
+    S=64 R=256 for B = 256 to 4,096, folds (MULTI_ABBA_ROUNDS rounds) at
+    every batch the paths launch (``multi_path_batches``) and at the
+    kernels line's timed shapes (``multi_timed_batches``), each with this checkout's staged
+    kernel on the same batch where it has a tiling ("staged_ms", whatever
+    the gate picks)."""
     from pilosa_tpu_torch.ops import dispatch
 
     card = probe()
@@ -1197,8 +1336,23 @@ def resident_against(other_root: str) -> int:
         mine, theirs = _multi_entry(dispatch, batch, m), _multi_entry(other_dispatch, batch, m)
         if not torch.equal(mine(), theirs()):
             raise AssertionError(f"multi-fold {batch['request']}: the checkouts disagree")
-        o_ms, ms = _abba(theirs, mine)
-        multi.append(dict(_multi_summary(batch), other_ms=o_ms, ms=ms, dispatch=multi_choice(batch)))
+        o_ms, ms = [], []
+        for _ in range(MULTI_ABBA_ROUNDS):
+            theirs_ms, mine_ms = _abba(theirs, mine)
+            o_ms += theirs_ms
+            ms += mine_ms
+        row_major = batch["layout"] == "row"
+        idx = batch["idx"]
+        a, c = batch["matrix"]
+        staged_ms = None
+        if kernels.multi_tiling(len(np.unique(idx)), W, *idx.shape, c if row_major else a)[0]:
+            def staged():
+                return kernels.resident_count_multi(batch["op"], m, idx, row_major)
+            if not torch.equal(staged(), mine()):
+                raise AssertionError(f"multi-fold {batch['request']}: staged and entry point disagree")
+            staged_ms = cuda_ms(staged)
+        multi.append(dict(_multi_summary(batch), other_ms=o_ms, ms=ms, staged_ms=staged_ms,
+                          dispatch=multi_choice(batch)))
     print(json.dumps({"card": card, "other": other_root, "multi_against": multi}), flush=True)
     return 0
 
@@ -1542,10 +1696,13 @@ def http_path(host: str, ex_ref, n_rows: int, time_rows: int, engine) -> list[di
             expect=("gather_count_multi",))
     run("tree", [_tree_call(rng, n_rows, i) for i in range(FOLD_BATCH)], expect=("gather_count_tree",))
     # range-2 repeats range-1's spans, which answer from the cover memo;
-    # its new spans' covers launch.
-    one, two = range_requests(time_rows)
-    run("range-1", [_range_call(r, sp) for r, sp in one], expect=("resident_count_multi",))
+    # its new spans' covers launch.  Their covers average 10-12 distinct
+    # views, too few for the staged kernel (dispatch.multi_strategy);
+    # range-wide's 16-19 views over 240 rows are enough.
+    one, two, wide = range_requests(time_rows)
+    run("range-1", [_range_call(r, sp) for r, sp in one], expect=("gather_count_multi",))
     run("range-2", [_range_call(r, sp) for r, sp in two], expect=("gather_count_multi",))
+    run("range-wide", [_range_call(r, sp) for r, sp in wide], expect=("resident_count_multi",))
     # Nested Counts four times as many as "tree": buckets of 128 trees at
     # K=4 and 64 at K=8 and K=16.  The K=16 bucket names its rows often
     # enough for the staged tree kernel (dispatch.tree_strategy).

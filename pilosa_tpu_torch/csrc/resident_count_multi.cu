@@ -26,11 +26,9 @@
 // the queries a warp folds together end together.  Persistent blocks of
 // 16 warps walk balanced runs of (slice, chunk) tiles through stage.cuh;
 // one template serves both layouts (the stager takes the row and slice
-// strides).  Chunks may be 32 words (128-byte row segments), so that two
-// stages of a Range batch's rows fit one block.  A group is 128 queries:
-// warp w owns queries w, w + 16, ... (kQueriesPerWarp); a row's chunk is
-// read as int4 vectors by min(32, chunk_words / 4) lanes, so a warp folds
-// one, two or four queries per step.  Per step a lane reads four operand
+// strides).  A group is 128 queries: warp w owns queries w, w + 16, ...
+// (kQueriesPerWarp); a row's chunk is read as int4 vectors by min(32,
+// chunk_words / 4) lanes, so a warp folds one or two queries per step.  Per step a lane reads four operand
 // offsets at a time (one int4 from shared memory), for as many groups of
 // four as its query's list has, loads the operands' vectors from the
 // tile, folds them in registers, and adds the popcount to that query's
@@ -44,8 +42,8 @@
 
 namespace {
 
-// 16 warps a block, two blocks an SM where the tiles leave room (one
-// stage of a Range batch's 32-word chunks): up to 64 registers a thread.
+// 16 warps a block, two blocks an SM where the tiles leave room: up to
+// 64 registers a thread.
 constexpr int kStageWarps = 16;
 constexpr int kStageThreads = kStageWarps * 32;
 constexpr int kQueriesPerWarp = 8;
@@ -90,7 +88,7 @@ __global__ void __launch_bounds__(kStageThreads, 2) resident_count_multi_kernel(
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int cv = chunk_words >> 2;        // int4 vectors a row chunk
-  const int lpr = cv < 32 ? cv : 32;      // lanes a row: 8, 16 or 32
+  const int lpr = cv < 32 ? cv : 32;      // lanes a row: 16 or 32
   const int qs = 32 / lpr;                // queries a warp folds per step
   const int sub = lane / lpr;             // which of them this lane folds
   const int lc = lane - sub * lpr;        // its int4 column within the row
@@ -169,14 +167,14 @@ int launch(const void* rm, const void* ids, const void* lists, const void* n_gro
 // the groups of four operands each list holds (1 .. k4 / 4); order:
 // int32[b], the out index of each list; out: int32[b], zeroed.  op:
 // OP_AND, OP_OR or OP_ANDNOT (common.cuh); chunk_words a power of two >=
-// 32 dividing w; stages 1 or 2.  Shared memory: stage_smem_bytes(u,
+// 64 dividing w; stages 1 or 2.  Shared memory: stage_smem_bytes(u,
 // chunk_words, stages, min(b, 128) x (k4 + 2)).
 extern "C" int pk_resident_count_multi(const void* rm, const void* ids, const void* lists,
                                        const void* n_groups, const void* order, void* out, int s,
                                        int r, int w, int u, int b, int k4, int chunk_words,
                                        int stages, int row_major, int op, void* stream) {
   if (s <= 0 || b <= 0) return (int)cudaSuccess;
-  if (u <= 0 || k4 <= 0 || k4 % 4 || chunk_words < 32 || (chunk_words & (chunk_words - 1)) ||
+  if (u <= 0 || k4 <= 0 || k4 % 4 || chunk_words < 64 || (chunk_words & (chunk_words - 1)) ||
       w % chunk_words || (stages != 1 && stages != 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

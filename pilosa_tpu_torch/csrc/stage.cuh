@@ -1,7 +1,7 @@
 // Staged shared-memory tiles for the resident kernels (resident_count2,
 // resident_count_tree, resident_count_multi).
 //
-// A tile is the word chunk c (chunk_words words, a power of two >= 32) of
+// A tile is the word chunk c (chunk_words words, a power of two >= 64) of
 // U listed rows of one slice s of an int32 matrix, slice-major [S, R, W]
 // or row-major [R, S, W]: row k of the tile is the chunk c of row ids[k]
 // in slice s, 4 * chunk_words contiguous bytes at rm + s * slice_stride +

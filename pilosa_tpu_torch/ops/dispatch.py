@@ -74,52 +74,65 @@ def topn_scorer_counts(row_matrix: torch.Tensor, pos, src_stack: torch.Tensor):
     return kernels.gather_src_counts(row_matrix, pos, src_stack)
 
 
-# The staged multi kernel serves folds of MULTI_K_MIN or more operands
-# whose groups of 128 folds make MULTI_REFS_MIN or more references, where
-# the batch names each distinct row MULTI_REUSE_MIN or more times for
-# every group staging it: a group past the first stages every tile again,
-# so a batch of G groups needs refs >= MULTI_REUSE_MIN x (2G - 1) x U.
-# refs counts each query's distinct operands (a Range cover's pads repeat
-# its first id; both kernels read a repeat almost free: the gather kernel
-# from L1, the staged kernel not at all).
-# Measured on the H100 (PERF.md, the multi gate, both layouts): folds of
-# 3-8 operands, and groups of fewer than about a thousand references, tie
-# or lose to the gather kernel, whose repeats L2 serves, at any reuse (the
-# staged wrapper's host work, compaction and per-query lists, weighs on
-# small batches); at K >= 16 and 1,024+ references a group the staged
-# kernel ties at two references a row (range-2: 2.0 a row over about ten
-# distinct operands a query) and wins from three; a batch of 2-4 groups
-# ties or loses at two a group and wins at four.
-MULTI_K_MIN = 16
-MULTI_REFS_MIN = 1024
-MULTI_REUSE_MIN = 2.5
+# The staged multi kernel serves a batch whose folds average MULTI_K_MIN
+# or more distinct operands, whose groups of 128 folds make
+# MULTI_REFS_MIN or more references, and which names each distinct row
+# MULTI_REUSE_MIN or more times for every group staging it: a group past
+# the first stages every tile again, so a batch of G groups needs refs >=
+# MULTI_REUSE_MIN x (2G - 1) x U.  Every clause counts references as each
+# query's distinct operands: a Range cover's pads repeat its first id,
+# and both kernels read a repeat almost free (the gather kernel from L1,
+# the staged kernel not at all).
+# Measured on the H100 (PERF.md, the multi gate: both layouts, unpadded
+# folds and Range-like folds padded to K = 23): at 8-12 distinct
+# operands a fold the gather kernel, whose repeats L2 serves, wins or
+# ties unless rows repeat 8 times; at 15-16 one group of 128 folds is
+# 7-32% faster staged from 3 references a row and 64 folds tie within
+# 10%; from 18 the staged kernel wins at every reuse from 2 (MULTI_K_MIN
+# sits between 12 and 15).  Groups of 16 folds (260-370 references) lose
+# or tie at any reuse, groups of 64 (960+) tie or win: the staged
+# wrapper's host work, compaction and per-query lists, weighs on small
+# batches (MULTI_REFS_MIN sits between).  2 groups win at 8 references a
+# row and lose at 4; 4 groups lose at 8.
+MULTI_K_MIN = 14
+MULTI_REFS_MIN = 600
+MULTI_REUSE_MIN = 2
 
 
 def multi_strategy(n_distinct: int, w: int, batch: int, k: int, n_slices: int,
-                   row_major: bool = False, refs: int | None = None) -> bool:
+                   refs: int) -> bool:
     """Whether the staged multi kernel (``resident_count_multi``) serves a
-    batch of B folds of K operands naming ``n_distinct`` rows: K >=
-    MULTI_K_MIN, each group of up to 128 folds makes MULTI_REFS_MIN
-    references, the batch names every row often enough for its groups
-    (above; ``refs``: the batch's distinct operands a query summed, B x K
-    where not given), and a tiling of the rows and the group's operand
-    offsets fits one block's shared memory.  The rule is the same in both
-    layouts (the gate's grid measured both)."""
-    if not _multi_refs_ok(batch, k):
+    batch of B folds of K operands (K: the padded width) naming
+    ``n_distinct`` rows, ``refs`` references in all (each query's
+    distinct operands, summed): on average MULTI_K_MIN operands a fold,
+    MULTI_REFS_MIN references a group of up to 128 folds, every row named
+    often enough for the batch's groups (above), and a tiling of the rows
+    and the group's operand offsets that fits one block's shared memory.
+    The rule is the same in both layouts (the gate's grid measured
+    both)."""
+    if not _multi_refs_ok(batch, refs / batch if batch else 0):
         return False
     groups = -(-batch // kernels.MULTI_GROUP)
-    if (batch * k if refs is None else refs) < MULTI_REUSE_MIN * (2 * groups - 1) * n_distinct:
+    if refs < MULTI_REUSE_MIN * (2 * groups - 1) * n_distinct:
         return False
     return kernels.multi_tiling(n_distinct, w, batch, k, n_slices)[0] > 0
 
 
-def _multi_refs_ok(batch: int, k: int) -> bool:
-    """The gate's clauses that read B and K alone (checked before any
-    compaction)."""
+def _multi_refs_ok(batch: int, k: float) -> bool:
+    """The gate's clauses on B and the operands a fold: with the padded
+    K, which bounds each query's distinct operands, they decline a batch
+    before any compaction."""
     return k >= MULTI_K_MIN and min(batch, kernels.MULTI_GROUP) * k >= MULTI_REFS_MIN
 
 
-def staged_multi_batch(idx, n_slices: int, n_rows: int, w: int, row_major: bool = False):
+def fold_refs(local: np.ndarray) -> int:
+    """The references a batch of fold ids makes: each query's distinct
+    operands, summed."""
+    srt = np.sort(local, axis=1)
+    return local.shape[0] + int(np.count_nonzero(srt[:, 1:] != srt[:, :-1]))
+
+
+def staged_multi_batch(idx, n_slices: int, n_rows: int, w: int):
     """``multi_strategy`` applied to a batch of fold ids over a matrix of
     ``n_slices`` x ``n_rows`` rows of ``w`` words: the batch's compaction
     (``kernels.compact_rows``) where the staged kernel serves it, else
@@ -128,9 +141,7 @@ def staged_multi_batch(idx, n_slices: int, n_rows: int, w: int, row_major: bool 
     if ix.ndim != 2 or not _multi_refs_ok(*ix.shape):
         return None
     ids, local = kernels.compact_rows(ix, n_rows, "multi fold idx")
-    srt = np.sort(local, axis=1)
-    refs = ix.shape[0] + int(np.count_nonzero(srt[:, 1:] != srt[:, :-1]))
-    if not multi_strategy(ids.size, w, ix.shape[0], ix.shape[1], n_slices, row_major, refs):
+    if not multi_strategy(ids.size, w, ix.shape[0], ix.shape[1], n_slices, fold_refs(local)):
         return None
     return ids, local
 
@@ -140,7 +151,7 @@ def _multi(op: str, matrix: torch.Tensor, idx, row_major: bool):
     None; the batch is compacted once, for the gate and the kernel both."""
     a, b, w = matrix.shape
     n_slices, n_rows = (b, a) if row_major else (a, b)
-    compacted = staged_multi_batch(idx, n_slices, n_rows, w, row_major)
+    compacted = staged_multi_batch(idx, n_slices, n_rows, w)
     if compacted is None:
         return None
     return kernels.resident_count_multi(op, matrix, idx, row_major, compacted=compacted)
@@ -160,8 +171,8 @@ def gather_count_multi(op: str, row_matrix: torch.Tensor, idx):
 # (every group stages all of the batch's rows).  Measured on the H100
 # (PERF.md, the tree gate): at about 2.3 references a row the two kernels
 # tie or the gather kernel, whose repeated rows L2 serves, wins; at 4 and
-# more the staged kernel is faster, by 15-35% at one group and 20-37%
-# at two and four.
+# more the staged kernel is faster: by 13-35% at one group of 16-leaf
+# trees, 20-45% at two and four, 1-15% at batches of 4-8 leaves.
 TREE_REUSE_MIN = 3
 
 

@@ -260,13 +260,11 @@ def count_rows(a: torch.Tensor, b=None, op: str = "none") -> torch.Tensor:
 
 # A tile is one word chunk of the batch's U distinct rows in one slice,
 # copied into shared memory by cp.async.  Chunks are powers of two from 64
-# words (256 bytes a row: one int2 a lane in a warp step; the multi fold
-# reads int4s and goes down to 32 words, _MULTI_CHUNK_WORDS_MIN) to 512
-# (wider tiles were no faster on the H100); a launch narrows its chunk
-# until it has at least _STAGE_TILES_MIN tiles (about 8 per block on 132
-# SMs), so the persistent blocks stay balanced.
+# words (256 bytes a row: one int2 a lane in a warp step) to 512 (wider
+# tiles were no faster on the H100); a launch narrows its chunk until it
+# has at least _STAGE_TILES_MIN tiles (about 8 per block on 132 SMs), so
+# the persistent blocks stay balanced.
 _CHUNK_WORDS_MIN = 64
-_MULTI_CHUNK_WORDS_MIN = 32
 _CHUNK_WORDS_MAX = 512
 _STAGE_TILES_MIN = 1024
 
@@ -294,16 +292,15 @@ def staged_smem_bytes(u: int, chunk_words: int, stages: int, own_ints: int) -> i
     return stages * u * chunk_words * 4 + 4 * u + 4 * own_ints
 
 
-def staged_tiling(u: int, w: int, own_ints: int, n_slices: int,
-                  chunk_min: int = _CHUNK_WORDS_MIN) -> tuple[int, int]:
+def staged_tiling(u: int, w: int, own_ints: int, n_slices: int) -> tuple[int, int]:
     """(chunk_words, stages) for U staged rows of W words: two stages of
     the widest chunk that fits one block's shared memory, narrowed while
     the launch has fewer than _STAGE_TILES_MIN (slice, chunk) tiles; one
-    stage where two tiles of even the narrowest chunk (``chunk_min``
-    words) do not fit; (0, 0) where nothing fits."""
+    stage where two tiles of even the narrowest chunk do not fit; (0, 0)
+    where nothing fits."""
     for stages in (2, 1):
         fits = []
-        c = chunk_min
+        c = _CHUNK_WORDS_MIN
         while c <= min(w, _CHUNK_WORDS_MAX):
             if w % c == 0 and staged_smem_bytes(u, c, stages, own_ints) <= SMEM_BYTES:
                 fits.append(c)
@@ -657,14 +654,10 @@ def multi_group_ints(batch: int, k: int) -> int:
 
 def multi_tiling(u: int, w: int, batch: int, k: int, n_slices: int) -> tuple[int, int]:
     """(chunk_words, stages) of a resident_count_multi launch over U
-    distinct rows named by ``batch`` folds of K operands: the other staged
-    kernels' tiling (chunks of 64 words or more), and 32-word chunks only
-    where not even one stage of those fits; chunk_words 0 when nothing
-    fits.  (At the Range shape one stage of 64-word chunks ran 8-10%
-    faster than two of 32 on the H100: PERF.md.)"""
-    own = multi_group_ints(batch, k)
-    tiling = staged_tiling(u, w, own, n_slices)
-    return tiling if tiling[0] else staged_tiling(u, w, own, n_slices, _MULTI_CHUNK_WORDS_MIN)
+    distinct rows named by ``batch`` folds of K operands (K: the padded
+    list width, which bounds the wrapper's lists); chunk_words 0 when
+    nothing fits (at W = 32,768 about 860 rows at most)."""
+    return staged_tiling(u, w, multi_group_ints(batch, k), n_slices)
 
 
 def _multi_dims(matrix, row_major: bool) -> tuple[int, int, int]:

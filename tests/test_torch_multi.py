@@ -126,19 +126,21 @@ def _spy(monkeypatch):
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("op", kernels.MULTI_OPS)
 def test_multi_dispatch_matches_pallas(op, layout, monkeypatch):
-    """A batch of 64 folds of 16 operands naming few rows many times takes
-    the staged kernel; a sparse one, and one of six-operand folds however
-    few rows it names, the gather kernel of its layout; all equal
-    Pallas."""
+    """A batch of 64 folds of about 18 distinct operands naming few rows
+    many times takes the staged kernel; a sparse one, one of six-operand
+    folds however few rows it names, and one of 16-operand folds over 8
+    rows (8 distinct operands at most) the gather kernel of its layout;
+    all equal Pallas."""
     rng = np.random.default_rng([kernels.MULTI_OPS.index(op), len(layout), 5])
     s, w = 2, 1024
     entry = dispatch.gather_count_multi if layout == "slice" else dispatch.gather_count_multi_rowmajor
     gather = "gather_count_multi" if layout == "slice" else "gather_count_multi_rowmajor"
-    for r, b, k, staged in ((20, 64, 14, True), (96, 3, 4, False), (8, 64, 4, False)):
+    for r, b, k, staged in ((40, 64, 24, True), (96, 3, 4, False), (8, 64, 4, False),
+                            (8, 64, 16, False)):
         rm = _words(rng, (s, r, w))
         idx = _pad(rng, rng.integers(0, r, size=(b, k)), op, k + 2)
         u = len(np.unique(idx))
-        assert dispatch.multi_strategy(u, w, b, k + 2, s, layout == "row") == staged
+        assert dispatch.multi_strategy(u, w, b, k + 2, s, dispatch.fold_refs(idx)) == staged
         seen = _spy(monkeypatch)
         got = entry(op, _matrix(rm, layout), idx)
         monkeypatch.undo()
@@ -151,14 +153,14 @@ def test_multi_dispatch_compacts_the_batch_once(layout, monkeypatch):
     """The gate and the staged kernel share one compaction of the ids; a
     batch the gate declines on B and K alone is not compacted at all."""
     rng = np.random.default_rng(6)
-    rm = _words(rng, (2, 10, 1024))
+    rm = _words(rng, (2, 30, 1024))
     entry = dispatch.gather_count_multi if layout == "slice" else dispatch.gather_count_multi_rowmajor
     calls = []
     real = kernels.compact_rows
     monkeypatch.setattr(kernels, "compact_rows", lambda *a: calls.append(a) or real(*a))
-    for b, k, compactions in ((64, 16, 1), (12, 5, 0)):
+    for b, k, compactions in ((64, 40, 1), (12, 5, 0)):
         calls.clear()
-        idx = rng.integers(0, 10, size=(b, k)).astype(np.int32)
+        idx = rng.integers(0, 30, size=(b, k)).astype(np.int32)
         got = entry("or", _matrix(rm, layout), idx).numpy()
         assert len(calls) == compactions
         np.testing.assert_array_equal(got, jbw.np_gather_count_multi("or", rm, idx))
@@ -167,10 +169,12 @@ def test_multi_dispatch_compacts_the_batch_once(layout, monkeypatch):
 @pytest.mark.parametrize("u,b,k,s,want", [
     (563, 128, 23, 64, (64, 1)),   # range-1: one stage of 64-word chunks
     (507, 128, 23, 64, (64, 1)),   # the timed Range batch
-    (900, 128, 23, 64, (32, 1)),   # no stage of 64-word chunks fits: 32 words
+    (240, 128, 19, 64, (64, 2)),   # range-wide: two stages
+    (850, 512, 16, 4, (64, 1)),    # the one-stage edge chip_smoke checks
+    (900, 128, 23, 64, (0, 0)),    # no stage of 64-word chunks fits
     (250, 64, 16, 64, (64, 2)),    # the pool's K=16 batch
     (136, 64, 3, 64, (128, 2)),    # few rows: wider chunks
-    (1024, 512, 16, 32, (32, 1)),  # every row of the tall pool: one stage
+    (1024, 512, 16, 32, (0, 0)),   # every row of the tall pool: no stage fits
     (1800, 128, 4, 64, (0, 0)),    # no stage of 1,800 rows fits
 ])
 def test_multi_tiling(u, b, k, s, want):
@@ -181,33 +185,36 @@ def test_multi_tiling(u, b, k, s, want):
 
 
 def test_multi_gate_needs_operands_references_reuse_and_a_tiling():
+    """The gate reads distinct operands: a Range cover's pads count
+    once."""
     kmin, refs, reuse = dispatch.MULTI_K_MIN, dispatch.MULTI_REFS_MIN, dispatch.MULTI_REUSE_MIN
-    assert dispatch.multi_strategy(563, W, 128, 23, 64, refs=1482)  # range-1: 2.6 a row
-    assert not dispatch.multi_strategy(435, W, 90, 23, 64, refs=875)  # range-2: 2.0 a row
-    assert dispatch.multi_strategy(435, W, 90, 23, 64)          # 4.8 a row, pads counted
-    assert dispatch.multi_strategy(250, W, 64, 16, 64)          # the pool's K=16: 4.1
-    assert not dispatch.multi_strategy(136, W, 64, 3, 64)       # http nary: K=3
-    assert not dispatch.multi_strategy(16, W, 128, 4, 64)       # 32 a row, but K=4
-    assert not dispatch.multi_strategy(135, W, 45, 3, 32, True)  # a tall-nary part
-    assert not dispatch.multi_strategy(640, W, 1, 640, 25, True)  # the wide Union: once a row
-    assert not dispatch.multi_strategy(8, W, 16, 16, 64)        # 256 references a group
-    assert not dispatch.multi_strategy(64, W, 128, 8, 64)       # 16 a row, but K=8
-    # B=512 K=16 names 1,024 rows 8 times, but every one of 4 groups stages them.
-    assert not dispatch.multi_strategy(1024, W, 512, 16, 32, True)
-    assert dispatch.multi_strategy(512, W, 256, 16, 32, True)   # 2 groups, 8 a row
-    assert not dispatch.multi_strategy(1024, W, 256, 16, 32)    # 2 groups, 4 a row
+    ms = dispatch.multi_strategy
+    assert ms(240, W, 128, 19, 64, 2280)          # range-wide: 17.8 operands, 9.5 a row
+    assert not ms(563, W, 128, 23, 64, 1482)      # range-1: 11.6 operands a fold
+    assert not ms(435, W, 90, 23, 64, 875)        # range-2: 9.7
+    assert not ms(100, W, 128, 23, 64, 128 * 10)  # 12.8 a row, but 10 operands
+    assert ms(250, W, 64, 16, 64, 995)            # the pool's K=16: 15.5 operands, 4.0 a row
+    assert not ms(136, W, 64, 3, 64, 64 * 3)      # http nary: K=3
+    assert not ms(16, W, 128, 4, 64, 128 * 4)     # 32 a row, but K=4
+    assert not ms(135, W, 45, 3, 32, 45 * 3)      # a tall-nary part
+    assert not ms(640, W, 1, 640, 25, 640)        # the wide Union: once a row
+    assert not ms(8, W, 16, 16, 64, 16 * 16)      # 256 references a group
+    assert not ms(64, W, 128, 8, 64, 128 * 8)     # 16 a row, but K=8
+    # B=512 K=16 names 512 rows 16 times, but every one of 4 groups stages them.
+    assert ms(512, W, 512, 16, 32, 512 * 16) == (16 >= reuse * 7)
+    assert ms(512, W, 256, 16, 32, 256 * 16)      # 2 groups, 8 a row
+    assert not ms(820, W, 256, 16, 32, 256 * 16)  # 2 groups, 5 a row
     # The rows and offsets must fit.
-    assert not dispatch.multi_strategy(1800, W, 128, 64, 64)    # 8,192 references, no stage fits
-    assert not dispatch.multi_strategy(4, 48, 64, 16, 64)       # no chunk of 32+ words divides W
-    for layout in (False, True):
-        for k in (kmin, 23, 64):
-            b = max(-(-refs // k), 16)
-            u = int(b * k // reuse)
-            assert dispatch.multi_strategy(u, W, b, k, 64, layout) == (
-                kernels.multi_tiling(u, W, b, k, 64)[0] > 0)
-            assert not dispatch.multi_strategy(u + 1, W, b, k, 64, layout)
-            assert not dispatch.multi_strategy(1, W, b, k - 1, 64, layout) or k - 1 >= kmin
-        assert not dispatch.multi_strategy(1, W, -(-refs // kmin) - 1, kmin, 64, layout)
+    assert not ms(900, W, 128, 23, 64, 128 * 23)  # 3.3 a row, no stage fits
+    assert not ms(4, 48, 64, 16, 64, 64 * 16)     # no chunk of 64+ words divides W
+    for k in (kmin, 23, 64):
+        b = max(-(-refs // k), 16)
+        u = int(b * k // reuse)
+        assert ms(u, W, b, k, 64, b * k) == (kernels.multi_tiling(u, W, b, k, 64)[0] > 0)
+        assert not ms(u + 1, W, b, k, 64, b * k)
+        # One operand fewer a fold on average than the gate asks.
+        assert not ms(1, W, b, k, 64, b * (kmin - 1)) or kmin <= 1
+    assert not ms(1, W, -(-refs // kmin) - 1, kmin, 64, (-(-refs // kmin) - 1) * kmin)
 
 
 def test_resident_count_multi_checks_its_arguments():
