@@ -4,10 +4,12 @@
 
 1. Probes the card (fails without CUDA) and prints its name and power
    limit as nvidia-smi reports them.
-2. Builds the eleven CUDA kernels from ``pilosa_tpu_torch/csrc`` with
+2. Builds the twelve CUDA kernels from ``pilosa_tpu_torch/csrc`` with
    nvcc (one process per source, all started together), and beside them
-   compiles the resident, fold, row-major and TopN kernels once more
-   with ``-Xptxas -v`` to report their registers and shared memory.
+   compiles the resident, fold, row-major, TopN, Gram and gather pair
+   kernels once more with ``-Xptxas -v`` to report their registers and
+   shared memory.  Builds and runs ``csrc/mma_probe.cu``: the tensor-core
+   rate of the b1 AND-popc and s8 instructions (an "mma_probe" line).
 3. Holds each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it, for every op variant; exact equality
    (integer counts), and times both with CUDA events beside the kernel's
@@ -28,20 +30,34 @@
    the staged kernels ("multi_paths" line), the staged kernel's tilings
    against each other ("multi_tilings") and both kernels over a grid of
    B x K x references per row in both layouts ("multi_gate", the data
-   behind ``dispatch.MULTI_REUSE_MIN``).
+   behind ``dispatch.MULTI_REUSE_MIN``).  ``gather_count2`` is timed at
+   B = 16, 64, 256 and 600 (past the pairs a launch carries in its
+   parameters), through its entry point and as a launch alone (B
+   = 16 also at 1-16 segments a row).  The Gram kernel (``pair_gram``)
+   is held exactly at R = 1, 17, 64, 256 x S = 1, 7, 64, a strided
+   300-of-512-row pool view, a narrow ragged view and R = 1,024 at S =
+   16, and timed at the executor's S = 64, R = 256 beside its plain
+   version and the library yardstick (bits unpacked to int8 and
+   ``torch._int_mm`` per slice; the port never calls it), and at the
+   executor's row buckets of 64 to 4,096 rows at the pool's 2 GiB.  It
+   is also rebuilt at other tilings and timed against itself on the
+   same inputs (a "gram_tilings" line).
 4. The diffcheck path: the differential sweep ``ops/diffcheck.py`` over
    every lane on the card (its ``topn_counts`` lane is that kernel's path).
 5. Drives the executor path — ``Executor.execute`` over a ``Holder`` — at
    64 slices x 256 rows (the default 2 GiB row-pool budget holds all of
    them) with 2,000 seeded random bits per row per slice: batched pair
-   Counts (direct resident kernel, then the cached Gram and the native
+   Counts (direct resident kernel, then the Gram kernel and the native
    lookup lane), pair Counts on a ``no_gram`` executor (slice-major or
    row-major gather, as the pool's size decides), a no-Gram body mixing
    pair and nested Counts (slice-major gather and tree kernels), Counts
    that reach the sequential path (count kernel), and a TopN with a source
    bitmap (both TopN kernels).  Every answer is checked against the same
    port's ``Executor(engine="numpy")`` on the same holder (for batches, a
-   seeded 16-query subset of each request).
+   seeded 16-query subset of each request).  Every pair batch the path
+   hands dispatch is recorded; after it, ``gather_count2`` is held and
+   timed at each batch that took the gather kernel, and at the row-major
+   gather batches as slice-major ones (a "gather2_paths" line).
 6. Drives the HTTP path on the same data directory, which also holds a
    time-quantum frame ``t`` (YMD, 64 slices x 8 rows x 2,000 stamped bits
    per row per slice): the port's ``Server`` with its default config
@@ -67,23 +83,23 @@
 8. Fails unless every kernel's launch counter moved during its path: the
    counters are set to 0 just before each path and read just after it.
 
-Prints a ptxas line, two staged-checks lines, ``{"card": ..., "layout" /
-"tree_gate" / "multi_paths" / "multi_tilings" / "multi_gate": [...]}``
-lines, a ``{"card": ..., "requests": [...]}`` line
+Prints a ptxas line, an mma_probe line, two staged-checks lines, ``{"card": ..., "layout" /
+"tree_gate" / "multi_paths" / "multi_tilings" / "multi_gate" /
+"gram_tilings" / "gather2_paths": [...]}`` lines, a ``{"card": ..., "requests": [...]}`` line
 per path, a ``{"kernels": [...]}`` line, and last ``{"ok": true,
 "device": {...}}``.  Any failure raises.
 
     python3 chip_smoke.py --resident-against DIR
 
-times ``resident_count2`` and the two multi-fold entry points
+times ``resident_count2``, ``gather_count2`` and the two multi-fold entry points
 (``dispatch.gather_count_multi``, ``dispatch.gather_count_multi_rowmajor``)
 of this checkout against those of the checkout at DIR (for example an
 earlier commit unpacked with ``git archive``) on the same inputs —
 pairs at S=64 R=256 for B = 256 to 4,096, folds at every batch the paths
 launch and at the kernels line's timed shapes — in the order DIR, this,
 this, DIR, after checking that the two agree exactly; it prints a
-``{"card": ..., "resident_against": [...]}`` and a ``{"card": ...,
-"multi_against": [...]}`` line.
+``{"card": ..., "resident_against": [...]}``, a ``"gather2_against"``
+and a ``{"card": ..., "multi_against": [...]}`` line.
 """
 
 from __future__ import annotations
@@ -141,9 +157,12 @@ TALL_XOR = 64
 WIDE_UNION = 640
 
 # H100 SXM published peaks (NVIDIA data sheet) used for the bounds: HBM3
-# bandwidth, and the 32-bit non-tensor-core rate for the integer word ops.
+# bandwidth, the 32-bit non-tensor-core rate for the integer word ops, and
+# the dense int8 tensor-core rate for the Gram's bit products (2 ops a
+# product; the data sheet publishes no 1-bit rate).
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+PEAK_INT8_OPS_S = 1979e12
 # Integer ops per 32-bit word: pair op, popc, add (2 without a pair op).
 OPS_PER_WORD = 3
 
@@ -159,6 +178,7 @@ SOURCES = {
     "gather_count_multi_rowmajor": "pilosa_tpu_torch/csrc/gather_count_multi_rowmajor.cu",
     "topn_counts": "pilosa_tpu_torch/csrc/topn_counts.cu",
     "resident_count_multi": "pilosa_tpu_torch/csrc/resident_count_multi.cu",
+    "pair_gram": "pilosa_tpu_torch/csrc/pair_gram.cu",
 }
 # The def line of each Pallas kernel in pilosa_tpu/ops/pallas_kernels.py.
 REPLACES = {
@@ -175,6 +195,8 @@ REPLACES = {
     "topn_counts": "pilosa_tpu/ops/pallas_kernels.py:293",
     # the staged variant of fused_gather_count_multi (+ the row-major form :490)
     "resident_count_multi": "pilosa_tpu/ops/pallas_kernels.py:554",
+    # not Pallas: the reference's all-pairs Gram, an int8 product on the MXU
+    "pair_gram": "pilosa_tpu/ops/bitwise.py:282",
 }
 # Which path must launch each kernel: the executor path keeps the four
 # pair/TopN kernels, the HTTP path the four fold kernels (the staged tree
@@ -186,7 +208,7 @@ PATH_OF = {
     "gather_src_counts": "executor", "gather_count_multi": "http", "gather_count_tree": "http",
     "resident_count_tree": "http", "resident_count_multi": "http",
     "gather_count2_rowmajor": "tall", "gather_count_multi_rowmajor": "tall",
-    "topn_counts": "diffcheck",
+    "topn_counts": "diffcheck", "pair_gram": "executor",
 }
 PAIR_OPS = ("and", "or", "xor", "andnot")
 PQL_OPS = {"and": "Intersect", "or": "Union", "andnot": "Difference", "xor": "Xor"}
@@ -227,11 +249,12 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     return total / reps
 
 
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
+def bound(nbytes: int, ops: int, ops_s: float = PEAK_OPS_S) -> tuple[float, str]:
     """Least time the card could take: the larger of bytes over the HBM
-    rate and operations over the 32-bit rate, in ms."""
+    rate and operations over ``ops_s`` (the 32-bit rate; the int8
+    tensor-core rate for the Gram), in ms, and which of the two it is."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_OPS_S * 1e3
+    t_ops = ops / ops_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -351,7 +374,7 @@ def probe() -> str:
     ).stdout.strip().splitlines()
     card = out[0].strip()
     print(card, flush=True)
-    # pair_gram's exactness needs full fp32 products (the default).
+    # The plain Gram's exactness needs full fp32 products (the default).
     torch.backends.cuda.matmul.allow_tf32 = False
     return card
 
@@ -436,13 +459,15 @@ def check_kernels() -> tuple[dict, list, list, dict]:
         plain_ms=cuda_ms(lambda: kernels.count_rows_plain(stack), reps=5),
         bound_ms=nb, bound_by=by,
     )
-    nb, by = bound(N_SLICES * uniq(pairs_g) * row_b + pairs_g.nbytes + GATHER_BATCH * 4,
-                   N_SLICES * GATHER_BATCH * W * OPS_PER_WORD)
+    # gather_count2 at B = 16 (the kernels line) and 64, 256, 600 ("shapes"),
+    # each also timed without the entry point's host work ("kernel_ms").
+    g2 = [gather2_times("and", rm, rng.integers(0, N_ROWS, size=(b, 2)).astype(np.int32))
+          for b in GATHER2_BATCHES[1:]]
     res["gather_count2"] = dict(
+        gather2_times("and", rm, pairs_g, sweep=True),
         shape=f"rm [{N_SLICES}, {N_ROWS}, {W}], {GATHER_BATCH} pairs, and",
-        ms=cuda_ms(lambda: kernels.gather_count2("and", rm, pairs_g)),
         plain_ms=cuda_ms(lambda: kernels.gather_count2_plain("and", rm, pairs_g), reps=5),
-        bound_ms=nb, bound_by=by,
+        shapes=g2,
     )
     nb, by = bound(N_SLICES * uniq(pos) * row_b + N_SLICES * row_b + pos.nbytes
                    + N_SLICES * N_ROWS * 4, N_SLICES * N_ROWS * W * OPS_PER_WORD)
@@ -463,10 +488,11 @@ def check_kernels() -> tuple[dict, list, list, dict]:
     torch.cuda.empty_cache()
     tall, layout = check_tall_kernels(rm, stack, rng, diff)
     res.update(tall)
-    for name in res:
-        res[name]["max_abs_err"] = err[name]
     del rm, stack, rows
     torch.cuda.empty_cache()
+    res.update(check_gram(diff))
+    for name in res:
+        res[name]["max_abs_err"] = err[name]
     return res, layout, gate, multi
 
 
@@ -1299,11 +1325,14 @@ MULTI_ABBA_ROUNDS = 3
 
 
 def resident_against(other_root: str) -> int:
-    """``resident_count2`` and the two multi-fold entry points
-    (``dispatch.gather_count_multi``, ``dispatch.gather_count_multi_rowmajor``)
-    of this checkout against those of ``other_root`` on the same inputs:
-    exact agreement, then ABBA times (other, this, this, other) — pairs at
-    S=64 R=256 for B = 256 to 4,096, folds (MULTI_ABBA_ROUNDS rounds) at
+    """``resident_count2``, ``gather_count2`` and the two multi-fold entry
+    points (``dispatch.gather_count_multi``,
+    ``dispatch.gather_count_multi_rowmajor``) of this checkout against
+    those of ``other_root`` on the same inputs: exact agreement, then ABBA
+    times (other, this, this, other) — resident pairs at S=64 R=256 for B
+    = 256 to 4,096, gather pairs there for B = 4 to 600
+    (MULTI_ABBA_ROUNDS rounds, and each entry point's host work a call),
+    folds (MULTI_ABBA_ROUNDS rounds) at
     every batch the paths launch (``multi_path_batches``) and at the
     kernels line's timed shapes (``multi_timed_batches``), each with this checkout's staged
     kernel on the same batch where it has a tiling ("staged_ms", whatever
@@ -1327,6 +1356,23 @@ def resident_against(other_root: str) -> int:
         rows.append({"S": N_SLICES, "R": N_ROWS, "B": b, "distinct": len(np.unique(pairs)),
                      "other_ms": o_ms, "ms": ms})
     print(json.dumps({"card": card, "other": other_root, "resident_against": rows}), flush=True)
+    rows = []
+    for b in (4,) + GATHER2_BATCHES:
+        pairs = rng.integers(0, N_ROWS, size=(b, 2)).astype(np.int32)
+        for op in PAIR_OPS:
+            if not torch.equal(kernels.gather_count2(op, rm, pairs), other.gather_count2(op, rm, pairs)):
+                raise AssertionError(f"gather_count2 {op} B={b}: the checkouts disagree")
+        o_ms, ms = [], []
+        for _ in range(MULTI_ABBA_ROUNDS):
+            theirs_ms, mine_ms = _abba(lambda: other.gather_count2("and", rm, pairs),
+                                       lambda: kernels.gather_count2("and", rm, pairs))
+            o_ms += theirs_ms
+            ms += mine_ms
+        rows.append({"S": N_SLICES, "R": N_ROWS, "B": b, "distinct": len(np.unique(pairs)),
+                     "other_ms": o_ms, "ms": ms,
+                     "other_host_ms": host_ms(lambda: other.gather_count2("and", rm, pairs)),
+                     "host_ms": host_ms(lambda: kernels.gather_count2("and", rm, pairs))})
+    print(json.dumps({"card": card, "other": other_root, "gather2_against": rows}), flush=True)
     del rm
     torch.cuda.empty_cache()
     words = _Words()
@@ -1454,6 +1500,337 @@ def check_tall_kernels(rm, stack, rng, diff) -> tuple[dict, list]:
 
 
 # ---------------------------------------------------------------------------
+# phase 2c: the Gram kernel, the tensor-core probe, gather_count2's batches
+# ---------------------------------------------------------------------------
+
+# The Gram's exact grid: R x S, then a bucket of a pool with spare rows
+# (300 of 512 rows, the executor's strided m[:, :bucket, :] view), a
+# narrow strided view whose last word chunk is ragged (40 of 512 rows,
+# 100 of W words, 3 slices), and a tall working set.
+GRAM_ROWS = (1, 17, 64, 256)
+GRAM_SLICES = (1, 7, 64)
+GRAM_POOL_ROWS = 512
+GRAM_STRIDED = (N_SLICES, 300)
+GRAM_NARROW = (3, 40, 100)
+GRAM_TALL = (16, 1024)
+GRAM_SEED = SEED + 11
+# The executor's Gram buckets (powers of two up to its 4,096-row ceiling)
+# at the row pool's 2 GiB budget.
+GRAM_POOL_BYTES = 2 << 30
+GRAM_BUCKETS = (64, 128, 512, 2048, 4096)
+# Tilings gram_tilings compares (chunk words, stages, blocks an SM; the
+# first is the kernel's first design, 32 x 2 x 2 the one kept), at S x R.
+GRAM_TILINGS = ((64, 3, 1), (64, 2, 1), (32, 4, 1), (32, 3, 2), (32, 2, 2), (16, 4, 2))
+GRAM_TILING_SHAPES = ((64, 256), (16, 1024), (256, 64), (32, 512))
+# Steps each warp of the probe runs (16 products a step).
+PROBE_ITERS = 4096
+
+
+def mma_probe() -> dict:
+    """Build ``csrc/mma_probe.cu`` and time its three loops (b1 AND-popc
+    m16n8k256; s8 m16n8k32; s8 with each fragment expanded from packed
+    bits) over 4 blocks an SM: bit products a second, and their share of
+    the int8 tensor-core peak (2 ops a product)."""
+    import ctypes
+
+    src = os.path.join(kernels._CSRC, "mma_probe.cu")
+    lib = os.path.join(kernels.BUILD_DIR, "libmma_probe.so")
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", lib, src], check=True,
+                   capture_output=True)
+    fn = ctypes.CDLL(lib).pk_mma_probe
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    blocks = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
+    res = {}
+    for kind, name, per in ((0, "b1_and_popc_m16n8k256", 32768), (1, "s8_m16n8k32", 4096),
+                            (2, "s8_m16n8k32_expand", 4096)):
+        def run(kind=kind):
+            err = fn(kind, blocks, PROBE_ITERS, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"mma_probe {kind}: cudaError {err}")
+        ms = cuda_ms(run, reps=5)
+        products = blocks * 8 * PROBE_ITERS * 16 * per
+        res[name] = {"ms": ms, "bit_products_per_s": products / ms * 1e3,
+                     "share_of_int8_peak": 2 * products / ms * 1e3 / PEAK_INT8_OPS_S}
+    return res
+
+
+def gram_bound(s: int, r: int, w: int) -> dict:
+    """The Gram's bound both ways: every word read once and the int64
+    R x R written once over the HBM rate; the upper triangle's bit
+    products (diagonal included, 2 ops each) over the int8 tensor-core
+    rate."""
+    nbytes = s * r * w * 4 + r * r * 8
+    ops = 2 * (r * (r + 1) // 2) * s * w * 32
+    ms, by = bound(nbytes, ops, PEAK_INT8_OPS_S)
+    return {"bound_ms": ms, "bound_by": by, "bytes_bound_ms": nbytes / PEAK_BYTES_S * 1e3,
+            "ops_bound_ms": ops / PEAK_INT8_OPS_S * 1e3}
+
+
+def _int8_bits(rows: torch.Tensor) -> torch.Tensor:
+    """int32[R, W] words as 0/1 int8[R, 32 W] (bytes, then bits: a
+    permutation of the columns that both Gram operands share)."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=rows.device)
+    bits = (rows.view(torch.uint8).unsqueeze(-1) >> shifts) & 1
+    return bits.view(torch.int8).reshape(rows.shape[0], -1)
+
+
+def library_gram(m: torch.Tensor) -> torch.Tensor:
+    """The yardstick (never called by the port): per slice, the bits
+    unpacked to int8 and ``torch._int_mm``, summed in int32."""
+    acc = torch.zeros((m.shape[1], m.shape[1]), dtype=torch.int32, device=m.device)
+    for i in range(m.shape[0]):
+        bits = _int8_bits(m[i])
+        acc += torch._int_mm(bits, bits.t())
+    return acc
+
+
+def check_gram(diff) -> dict:
+    """pair_gram == its plain version on the card, exactly, over the
+    grid above; timed at the executor's shape (S=64, R=256) against the
+    plain version and the library yardstick, and at the strided and
+    tall shapes."""
+    gen = _gen(GRAM_SEED)
+    pool = _rand_words(gen, (N_SLICES, GRAM_POOL_ROWS, W))
+    checked = []
+    for s in GRAM_SLICES:
+        for r in GRAM_ROWS:
+            m = pool[:s, :r].contiguous()
+            diff("pair_gram", kernels.pair_gram(m), kernels.pair_gram_plain(m))
+            checked.append({"S": s, "R": r})
+            del m
+    s, r = GRAM_STRIDED
+    view = pool[:s, :r]
+    diff("pair_gram", kernels.pair_gram(view), kernels.pair_gram_plain(view))
+    checked.append({"S": s, "R": r, "pool_rows": GRAM_POOL_ROWS, "strided": True})
+    s, r, w = GRAM_NARROW
+    narrow = pool[:s, :r, :w]
+    diff("pair_gram", kernels.pair_gram(narrow), kernels.pair_gram_plain(narrow))
+    checked.append({"S": s, "R": r, "W": w, "strided": True})
+    torch.cuda.synchronize()
+
+    def entry(m, shape, plain_reps=2):
+        e = dict(shape=shape, ms=cuda_ms(lambda: kernels.pair_gram(m), reps=5),
+                 plain_ms=cuda_ms(lambda: kernels.pair_gram_plain(m), reps=plain_reps, warm=1))
+        e.update(gram_bound(*m.shape))
+        return e
+
+    strided = entry(view, f"[{GRAM_STRIDED[0]}, {GRAM_STRIDED[1]} of {GRAM_POOL_ROWS}, {W}] view")
+    del view, narrow
+    m = pool[:, :N_ROWS].contiguous()
+    del pool
+    torch.cuda.empty_cache()
+    main = entry(m, f"[{N_SLICES}, {N_ROWS}, {W}] (executor pairs-2)")
+    lib = library_gram(m)
+    if not torch.equal(lib.long(), kernels.pair_gram_plain(m)):
+        raise AssertionError("pair_gram: the library yardstick disagrees with the plain version")
+    main["library_ms"] = cuda_ms(lambda: library_gram(m), reps=3, warm=1)
+    bits = _int8_bits(m[0])
+    main["int_mm_only_ms"] = N_SLICES * cuda_ms(lambda: torch._int_mm(bits, bits.t()), reps=5)
+    del m, lib, bits
+    torch.cuda.empty_cache()
+    s, r = GRAM_TALL
+    tall = _rand_words(gen, (s, r, W))
+    diff("pair_gram", kernels.pair_gram(tall), kernels.pair_gram_plain(tall))
+    checked.append({"S": s, "R": r})
+    tall_e = entry(tall, f"[{s}, {r}, {W}]", plain_reps=1)
+    del tall
+    torch.cuda.empty_cache()
+    # The executor's row buckets at the 2 GiB pool budget (S x R x W x 4
+    # bytes), each held exactly on its first slice.
+    buckets = []
+    for r in GRAM_BUCKETS:
+        m = _rand_words(gen, (GRAM_POOL_BYTES // (r * W * 4), r, W))
+        one = m[:1]
+        diff("pair_gram", kernels.pair_gram(one), kernels.pair_gram_plain(one))
+        buckets.append(dict(S=m.shape[0], R=r, ms=cuda_ms(lambda: kernels.pair_gram(m), reps=3),
+                            **gram_bound(*m.shape)))
+        del m, one
+        torch.cuda.empty_cache()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sched = kernels.gram_schedule(N_ROWS, N_SLICES, W, sms)
+    main.update(checked=checked, schedule=sched, shapes=[strided, tall_e], buckets=buckets)
+    return {"pair_gram": main}
+
+
+def gram_tilings() -> list:
+    """``csrc/pair_gram.cu`` rebuilt at other tilings (its kChunk,
+    kStages and kBlocksPerSm replaced; grid: that many blocks an SM),
+    each held exactly against the kernel as built and timed on the same
+    inputs at four shapes of 2 GiB: the data behind the tiling kept."""
+    import ctypes
+
+    with open(os.path.join(kernels._CSRC, "pair_gram.cu")) as f:
+        src = f.read()
+    consts = {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+              for name in ("kChunk", "kStages", "kBlocksPerSm")}
+    procs = {}
+    for chunk, stages, per_sm in GRAM_TILINGS:
+        v = src
+        for name, val in zip(consts, (chunk, stages, per_sm)):
+            v = v.replace(f"constexpr int {name} = {consts[name]};", f"constexpr int {name} = {val};")
+        tag = f"c{chunk}s{stages}b{per_sm}"
+        path = os.path.join(kernels.BUILD_DIR, f"gram_{tag}.cu")
+        with open(path, "w") as f:
+            f.write(v)
+        lib = os.path.join(kernels.BUILD_DIR, f"libgram_{tag}.so")
+        procs[(chunk, stages, per_sm)] = (subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", kernels._CSRC, "-o", lib, path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT), lib)
+    fns = {}
+    for key, (p, lib) in procs.items():
+        out = p.communicate()[0].decode(errors="replace")
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for pair_gram.cu at tiling {key}:\n{out}")
+        fn = ctypes.CDLL(lib).pk_pair_gram
+        fn.argtypes, fn.restype = kernels._ARGTYPES["pair_gram"][1], ctypes.c_int
+        fns[key] = fn
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = _gen(GRAM_SEED + 1)
+    rows = []
+    for s, r in GRAM_TILING_SHAPES:
+        m = _rand_words(gen, (s, r, W))
+        want = kernels.pair_gram(m)
+        row = {"S": s, "R": r, "ms": {}}
+        for (chunk, stages, per_sm), fn in fns.items():
+            out = torch.zeros((r, r), dtype=torch.int32, device="cuda")
+            n_units = kernels.gram_schedule(r, s, W, sms)["n_pairs"] * s * -(-W // chunk)
+            n_blocks = min(n_units, per_sm * sms)
+
+            def run(fn=fn, out=out, n_blocks=n_blocks):
+                out.zero_()
+                kernels._check(fn(m.data_ptr(), out.data_ptr(), s, r, W, m.stride(0), m.stride(1),
+                                  n_blocks, kernels._stream(m)), "pair_gram tiling")
+
+            run()
+            if not torch.equal(out.long(), want):
+                raise AssertionError(f"pair_gram at tiling {(chunk, stages, per_sm)} differs")
+            row["ms"][f"{chunk}w x{stages} {per_sm}/SM"] = cuda_ms(run, reps=5)
+        rows.append(row)
+        del m, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+# Every pair batch the executor path hands dispatch, as (layout, S, R,
+# pairs, the kernel dispatch picks): the batches time_gather2_paths rebuilds.
+PAIR_SEEN: list = []
+
+
+def record_pair_batches() -> None:
+    """Wrap the two pair-count entry points so that each call appends its
+    batch to PAIR_SEEN; the request records carry a summary."""
+    from pilosa_tpu_torch.ops import dispatch
+
+    def seen_slice(op, m, pairs, _fn=dispatch.gather_count):
+        s, r, w = m.shape
+        pick = "resident_count2" if dispatch.resident_strategy(r, w, len(pairs)) else "gather_count2"
+        PAIR_SEEN.append({"layout": "slice", "S": s, "R": r, "pairs": np.array(pairs, np.int32),
+                          "pick": pick})
+        return _fn(op, m, pairs)
+
+    def seen_row(op, m, pairs, _fn=dispatch.gather_count_rowmajor):
+        r, s, _ = m.shape
+        PAIR_SEEN.append({"layout": "row", "S": s, "R": r, "pairs": np.array(pairs, np.int32),
+                          "pick": "gather_count2_rowmajor"})
+        return _fn(op, m, pairs)
+
+    dispatch.gather_count = seen_slice
+    dispatch.gather_count_rowmajor = seen_row
+
+
+def _pair_summary(b) -> dict:
+    return {"layout": b["layout"], "S": b["S"], "R": b["R"], "B": len(b["pairs"]),
+            "distinct": len(np.unique(b["pairs"])), "pick": b["pick"]}
+
+
+# gather_count2's timed batches; 600 is past kernels.GATHER2_PARAM_PAIRS,
+# so its ids take the device-array path.
+GATHER2_BATCHES = (16, 64, 256, 600)
+
+
+def host_ms(fn, n: int = 200) -> float:
+    """Host time of one fn() call in ms: the host clock around n calls
+    that do not wait for the card (the work a call puts in front of its
+    launches)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e3
+
+
+def gather2_times(op, m, pairs, sweep: bool = False) -> dict:
+    """gather_count2 on one batch: exact against its plain version, then
+    the entry point's device time (its host work included, as the path
+    pays it), the launch's alone (ids ready, ``kernel_ms``) and the entry
+    point's host work a call (``host_ms``), beside its byte bound (each
+    named row once); ``sweep``: the launch alone at 1-16 segments a row
+    too (``kernel_ms_by_n_seg``)."""
+    s, r, w = m.shape
+    a = np.ascontiguousarray(pairs, dtype=np.int32)
+    want = torch.cat([kernels.gather_count2_plain(op, m, a[i:i + PAIR_BATCH])
+                      for i in range(0, len(a), PAIR_BATCH)])
+    if not torch.equal(kernels.gather_count2(op, m, a), want):
+        raise AssertionError(f"gather_count2 B={len(a)}: kernel differs from its plain version")
+    dev_pairs = kernels._ids(a, r, m.device, "pairs")
+    ids = a.ctypes.data if len(a) <= kernels.GATHER2_PARAM_PAIRS else dev_pairs.data_ptr()
+    out = torch.empty(len(a), dtype=torch.int32, device=m.device)
+    n_seg, seg_vecs = kernels.gather2_segments(len(a), s, w)
+    fn = kernels._fn("gather_count2")
+    stream = kernels._stream(m)
+
+    def kernel_only():
+        kernels._check(fn(m.data_ptr(), ids, out.data_ptr(), s, r, w, len(a), kernels.OPS[op],
+                          n_seg, seg_vecs, stream), "gather_count2")
+
+    kernel_only()
+    if not torch.equal(out, want):
+        raise AssertionError(f"gather_count2 B={len(a)}: kernel-only launch differs")
+    nb, by = bound(s * len(np.unique(a)) * w * 4 + a.nbytes + len(a) * 4,
+                   s * len(a) * w * OPS_PER_WORD)
+    res = {"S": s, "R": r, "B": len(a), "distinct": len(np.unique(a)), "n_seg": n_seg,
+           "ms": cuda_ms(lambda: kernels.gather_count2(op, m, a)), "kernel_ms": cuda_ms(kernel_only),
+           "host_ms": host_ms(lambda: kernels.gather_count2(op, m, a)), "bound_ms": nb, "bound_by": by}
+    if sweep:
+        res["kernel_ms_by_n_seg"] = {}
+        for n_seg in (1, 2, 4, 8, 16):
+            seg_vecs = -(-(w // 4) // n_seg)
+            kernel_only()
+            res["kernel_ms_by_n_seg"][n_seg] = cuda_ms(kernel_only)
+            if not torch.equal(out, want):
+                raise AssertionError(f"gather_count2 B={len(a)} n_seg={n_seg}: differs")
+        n_seg, seg_vecs = kernels.gather2_segments(len(a), s, w)
+    return res
+
+
+def time_gather2_paths() -> list:
+    """gather_count2 at every pair batch the executor path handed the
+    gather kernel, and at the row-major pair batches (gather-2) as
+    slice-major batches of the same pairs, each rebuilt over random words
+    at its own matrix shape."""
+    out = []
+    gen = _gen(SEED + 12)
+    mats = {}
+    for b in PAIR_SEEN:
+        if b["pick"] == "resident_count2":
+            continue
+        key = (b["S"], b["R"])
+        if key not in mats:
+            mats.clear()
+            torch.cuda.empty_cache()
+            mats[key] = _rand_words(gen, (b["S"], b["R"], W))
+        out.append(dict(gather2_times("xor", mats[key], b["pairs"]), path_layout=b["layout"]))
+    mats.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path through Executor.execute
 # ---------------------------------------------------------------------------
 
@@ -1513,7 +1890,7 @@ def run_request(records, name, ex, ex_ref, calls, sub=None, expect=(), sync=lamb
     the engine uploaded).  Returns the answers."""
     before = dict(kernels.LAUNCHES)
     up0 = ex.engine.stat_upload_bytes
-    n_seen = len(MULTI_SEEN)
+    n_seen, n_pairs = len(MULTI_SEEN), len(PAIR_SEEN)
     t0 = time.perf_counter()
     got = _norm(ex.execute("i", " ".join(calls), opt=opt))
     sync()
@@ -1532,6 +1909,8 @@ def run_request(records, name, ex, ex_ref, calls, sub=None, expect=(), sync=lamb
                     "upload_bytes": upload})
     if len(MULTI_SEEN) > n_seen:
         records[-1]["multi_batches"] = MULTI_SEEN[n_seen:]
+    if len(PAIR_SEEN) > n_pairs:
+        records[-1]["pair_batches"] = [_pair_summary(b) for b in PAIR_SEEN[n_pairs:]]
     return got
 
 
@@ -1567,7 +1946,7 @@ def main_path(ex, ex_nogram, ex_ref, n_rows: int, sync=lambda: None) -> list[dic
     # once the pool entry has 2 hits the Gram builds and answers, then
     # the native lookup lane serves.
     pair_request("pairs-1 Intersect", ex, "and", PAIR_BATCH, expect=("resident_count2",))
-    pair_request("pairs-2 Union", ex, "or", PAIR_BATCH)
+    pair_request("pairs-2 Union", ex, "or", PAIR_BATCH, expect=("pair_gram",))
     pair_request("pairs-3 Difference", ex, "andnot", PAIR_BATCH)
     # A no-Gram executor: small batches against a taller pool gather.
     # Whether a batch pages through the slice-major or the row-major pool
@@ -1818,7 +2197,8 @@ def main() -> int:
     print(json.dumps({"ptxas": ptxas_usage((
         "resident_count2", "gather_count_multi", "gather_count_tree", "resident_count_tree",
         "gather_count2_rowmajor", "gather_count_multi_rowmajor", "topn_counts",
-        "resident_count_multi"))}), flush=True)
+        "resident_count_multi", "pair_gram", "gather_count2"))}), flush=True)
+    print(json.dumps({"card": card, "mma_probe": mma_probe()}), flush=True)
 
     timings, layout, gate, multi = check_kernels()
     print("kernels match their plain versions on the card", flush=True)
@@ -1827,6 +2207,7 @@ def main() -> int:
     print(json.dumps({"card": card, "multi_paths": multi["paths"]}), flush=True)
     print(json.dumps({"card": card, "multi_tilings": multi["tilings"]}), flush=True)
     print(json.dumps({"card": card, "multi_gate": multi["gate"]}), flush=True)
+    print(json.dumps({"card": card, "gram_tilings": gram_tilings()}), flush=True)
 
     kernels.reset_launches()
     sweep = diffcheck_path()
@@ -1838,6 +2219,7 @@ def main() -> int:
     from pilosa_tpu_torch.server.server import Server
 
     record_multi_batches()
+    record_pair_batches()
 
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
@@ -1860,6 +2242,7 @@ def main() -> int:
         h.close()
         del ex, ex_nogram, ex_ref
         torch.cuda.empty_cache()
+        print(json.dumps({"card": card, "gather2_paths": time_gather2_paths()}), flush=True)
 
         # The HTTP path: the port's server with its default config opens
         # the same data directory.
@@ -1907,10 +2290,12 @@ def main() -> int:
             "launches_by_path": {p: n[name] for p, n in launches.items()},
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None, "shape": t["shape"],
+            "library_ms": t.get("library_ms"), "shape": t["shape"],
         }
         for extra in ("count_path", "shapes", "gathered_bound_ms", "all_rows_floor_ms",
-                      "chunk_words", "stages", "smem_bytes"):
+                      "chunk_words", "stages", "smem_bytes", "kernel_ms", "n_seg",
+                      "kernel_ms_by_n_seg", "host_ms", "bytes_bound_ms", "ops_bound_ms",
+                      "int_mm_only_ms", "checked", "schedule", "buckets"):
             if extra in t:
                 entry[extra] = t[extra]
         line.append(entry)

@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pilosa_tpu_torch.ops import bitwise, dispatch
+from pilosa_tpu_torch.ops import bitwise, dispatch, kernels
 from pilosa_tpu_torch.roaring import _POPCNT8
 
 # Pair-op table for the numpy engine (numpy operators; kept apart from
@@ -569,8 +569,10 @@ class TorchEngine:
     # -- all-pairs Gram -------------------------------------------------
 
     def pair_gram(self, matrix):
-        """All-pairs AND-count Gram -> int64[R, R] (exact fp32 matmul steps)."""
-        return bitwise.pair_gram(matrix).cpu().numpy()
+        """All-pairs AND-count Gram -> C-contiguous int64[R, R] on the host
+        (``kernels.pair_gram``: the tensor-core kernel on the card, the
+        plain fp32 product steps on the CPU)."""
+        return np.ascontiguousarray(kernels.pair_gram(matrix).cpu().numpy())
 
     def gram_update_rows(self, matrix, gram, slots, old_matrix=None, slice_idxs=None):
         """Rank-k Gram repair after row rewrites (see

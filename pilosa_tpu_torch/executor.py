@@ -2570,9 +2570,9 @@ class Executor:
         return cached
 
     def _gram_rows_max(self) -> int:
-        """Row ceiling for the cached-Gram strategy.  The chunked builder
-        (bitwise.pair_gram) streams (slice, word-chunk) steps, so rows no
-        longer bound the build transient; what remains is the Gram matrix
+        """Row ceiling for the cached-Gram strategy.  The Gram kernel
+        (kernels.pair_gram) reads the packed words in place, so rows do
+        not bound a build transient; what remains is the Gram matrix
         itself — R^2 int32 on device, fetched once to host for the native
         lookup lane (pn_gram_counts).  4096 rows = a 64 MiB Gram; the
         pool HBM budget bounds build FLOPs (R * S*R * 2^20 MACs with
@@ -2620,10 +2620,10 @@ class Executor:
         bucket = min(shape[1], 1 << max(0, (n_used - 1)).bit_length()) if n_used else 0
         if bucket == 0:
             return None
-        # The chunked builder (bitwise.pair_gram) streams (slice,
-        # word-chunk) steps, so only GRAM_STEP_BYTES of unpacked bits are
-        # live per step regardless of row count; the gates left are the
-        # Gram matrix size (rows) and the int32 count bound (slices).
+        # The Gram kernel (kernels.pair_gram) reads the view's packed
+        # words in place, with its strides, so no unpacked copy is live;
+        # the gates are the Gram matrix size (rows) and the int32 count
+        # bound (slices).
         from pilosa_tpu_torch.ops.dispatch import _GRAM_SLICES_MAX
 
         if bucket > self._gram_rows_max() or shape[0] > _GRAM_SLICES_MAX:

@@ -2,9 +2,11 @@
 
 For each lane — whole-row counts, the resident, slice-major gather and
 row-major gather pair kernels, the multi fold over both layouts, the
-TopN scorer over every row, the three Gram tiers (one step, per slice,
-word-chunked through ``pair_gram``'s ``step_bytes``) and the dispatch
-layer — it generates random (shape, op, density) cases and requires
+TopN scorer over every row, the three plain Gram tiers (one step, per
+slice, word-chunked through ``bitwise.pair_gram``'s ``step_bytes``:
+cross-checks of the plain version) and the dispatch layer, whose Gram
+lane is the engine's route (``kernels.pair_gram``: the Gram kernel on
+the card) — it generates random (shape, op, density) cases and requires
 EXACT agreement with a pure-numpy ground truth.  The shapes, batch,
 operand counts, densities and ground truths are the JAX package's
 (``pilosa_tpu/ops/diffcheck.py``), so the same seed draws the same cases.
@@ -187,14 +189,13 @@ def run_lanes(seed: int, cases_per_lane: int, device="cuda") -> list[str]:
         # TopN scorer over every row.
         check("topn", ci, kernels.topn_counts(rmd, srcd), np_topn_counts(rm, src))
 
-        # Gram tiers: one step, one slice per step, a quarter slice per step.
+        # Plain Gram tiers: one step, one slice per step, a quarter slice
+        # per step.
         want_gram = np_gram(rm)
         tiers = (("gram_oneshot", bw.GRAM_STEP_BYTES), ("gram_scan", r * w * 32 * 4),
                  ("gram_chunked", r * (w // 4) * 32 * 4))
-        got_one = None
         for lane, step in tiers:
             got_g = bw.pair_gram(rmd, step_bytes=step)
-            got_one = got_g if got_one is None else got_one
             if not np.array_equal(got_g.cpu().numpy(), want_gram):
                 failures.append(f"{lane}[case {ci}]: gram mismatch")
         # Gram count identities answer every pair op.
@@ -203,7 +204,11 @@ def run_lanes(seed: int, cases_per_lane: int, device="cuda") -> list[str]:
               bw.gram_pair_counts(op, torch.as_tensor(want_gram, device=dev), pd), want_pairs)
 
         # Dispatch layer: its chosen pair kernel, the Gram lane as the
-        # executor runs it (device Gram, then the identities), the fold.
+        # executor runs it (the engine's Gram route, then the identities),
+        # the fold.
+        got_one = kernels.pair_gram(rmd)
+        if not np.array_equal(got_one.cpu().numpy(), want_gram):
+            failures.append(f"dispatch_gram:{op}[case {ci}]: gram mismatch")
         check(f"dispatch:{op}", ci, dispatch.gather_count(op, rmd, pairs), want_pairs)
         check(f"dispatch_gram:{op}", ci, bw.gram_pair_counts(op, got_one, pd), want_pairs)
         check(f"dispatch_multi:{mop}", ci, dispatch.gather_count_multi(mop, rmd, idx[k]),

@@ -40,8 +40,8 @@ def batch_intersection_count(rows: torch.Tensor, src: torch.Tensor) -> torch.Ten
 
 
 # Gram gate the executor imports: per-pair counts must stay inside int32
-# (<= 2047 slices x 2^20 bits).
-_GRAM_SLICES_MAX = 2047
+# (<= 2047 slices x 2^20 bits); the Gram kernel's wrapper raises past it.
+_GRAM_SLICES_MAX = kernels.GRAM_SLICES_MAX
 
 
 def resident_strategy(n_rows: int, w: int, batch: int) -> bool:

@@ -17,7 +17,7 @@ Every wrapper:
 - adds one to ``LAUNCHES[name]`` where it launches its kernel, and
   nowhere else.
 
-The eleven kernels replace every Pallas kernel of
+Eleven kernels replace every Pallas kernel of
 pilosa_tpu/ops/pallas_kernels.py: fused_count1 and fused_count2
 (``count_rows``), fused_resident_count2 (``resident_count2``),
 fused_gather_count2 (``gather_count2``), fused_gather_src_counts
@@ -33,7 +33,10 @@ bound by device-memory bytes on this card; each source says what its
 design does about that.  The three resident kernels stage the batch's
 distinct rows through shared-memory tiles copied by cp.async
 (``csrc/stage.cuh``); their wrappers compact the ids on the host first
-(``compact_rows``).
+(``compact_rows``).  The twelfth, ``pair_gram``, replaces the
+reference's all-pairs Gram (pilosa_tpu/ops/bitwise.py pair_gram, an MXU
+product rather than Pallas): it is bound by operations and runs on the
+tensor cores (mma.sync, 1-bit AND-popc).
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ KERNELS = (
     "count_rows", "resident_count2", "gather_count2", "gather_src_counts",
     "gather_count_multi", "gather_count_tree", "resident_count_tree",
     "gather_count2_rowmajor", "gather_count_multi_rowmajor", "topn_counts",
-    "resident_count_multi",
+    "resident_count_multi", "pair_gram",
 )
 
 # Launch counters: one per kernel, bumped only where the kernel launches.
@@ -80,7 +83,7 @@ _L = ctypes.c_longlong
 _ARGTYPES = {
     "count_rows": ("pk_count_rows", [_P, _P, _L, _P, _I, _I, _I, _P]),
     "resident_count2": ("pk_resident_count2", [_P, _P, _P, _P] + [_I] * 8 + [_P]),
-    "gather_count2": ("pk_gather_count2", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "gather_count2": ("pk_gather_count2", [_P, _P, _P] + [_I] * 7 + [_P]),
     "gather_src_counts": ("pk_gather_src_counts", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "gather_count_multi": ("pk_gather_count_multi", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "gather_count_tree": ("pk_gather_count_tree", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
@@ -90,6 +93,7 @@ _ARGTYPES = {
         "pk_gather_count_multi_rowmajor", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "topn_counts": ("pk_topn_counts", [_P, _P, _P, _I, _I, _I, _P]),
     "resident_count_multi": ("pk_resident_count_multi", [_P] * 6 + [_I] * 10 + [_P]),
+    "pair_gram": ("pk_pair_gram", [_P, _P, _I, _I, _I, _L, _L, _I, _P]),
 }
 
 _build_mu = threading.Lock()
@@ -203,13 +207,19 @@ def _ints(a, device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def _ids(ids, n_rows: int, device, what: str) -> torch.Tensor:
-    """Host row ids as a contiguous int32 tensor on ``device``,
-    bounds-checked before upload: a kernel would read out of bounds."""
+def _host_ids(ids, n_rows: int, what: str) -> np.ndarray:
+    """Host row ids as a contiguous int32 array, bounds-checked: a kernel
+    would read out of bounds."""
     a = np.ascontiguousarray(ids, dtype=np.int32)
     if a.size and (a.min() < 0 or a.max() >= n_rows):
         raise IndexError(f"{what}: row id out of range [0, {n_rows})")
-    return _ints(a, device)
+    return a
+
+
+def _ids(ids, n_rows: int, device, what: str) -> torch.Tensor:
+    """Host row ids as a contiguous int32 tensor on ``device``,
+    bounds-checked before upload."""
+    return _ints(_host_ids(ids, n_rows, what), device)
 
 
 # ---------------------------------------------------------------------------
@@ -376,27 +386,54 @@ def resident_count2(op: str, row_matrix: torch.Tensor, pairs) -> torch.Tensor:
 # gather_count2 (fused_gather_count2)
 # ---------------------------------------------------------------------------
 
+# Blocks of 256 threads the card holds at once (8 an SM on 132 SMs), the
+# 16-byte vectors of each row a block reads per step (256 threads x 4),
+# and the most pairs a launch carries in its own parameters:
+# gather_count2.cu's kThreads, kVecs and kParamPairs.
+GATHER2_WAVE = 8 * 132
+GATHER2_STEP_VECS = 256 * 4
+GATHER2_PARAM_PAIRS = 500
+
+
+def gather2_segments(b: int, s: int, w: int) -> tuple[int, int]:
+    """(n_seg, seg_vecs) of a gather_count2 launch: each row of W words
+    in n_seg segments of seg_vecs 16-byte vectors, one block each.  The
+    segments double until the B x S x n_seg blocks make two waves, while
+    a segment keeps at least one block step (so wide batches keep whole
+    rows).  Segment g covers vectors [g * seg_vecs, min((g + 1) *
+    seg_vecs, W / 4))."""
+    wv = w // 4
+    n_seg = 1
+    while b * s * n_seg < 2 * GATHER2_WAVE and -(-wv // (2 * n_seg)) >= GATHER2_STEP_VECS:
+        n_seg *= 2
+    return n_seg, max(1, -(-wv // n_seg))
+
+
 def gather_count2_plain(op: str, row_matrix, pairs):
     return bitwise.gather_count(op, row_matrix, pairs)
 
 
 def gather_count2(op: str, row_matrix: torch.Tensor, pairs) -> torch.Tensor:
     """Per-pair ``sum_s popcount(op(rm[s, p0], rm[s, p1]))`` -> int32[B],
-    two rows gathered per (pair, slice)."""
+    two rows gathered per (pair, slice), each row in
+    ``gather2_segments`` segments.  Up to GATHER2_PARAM_PAIRS pairs cross
+    in the launch's parameters (no upload); a larger batch is uploaded."""
     if op not in OPS or op == "none":
         raise ValueError(f"unknown pair op {op!r}")
     if _on_cpu(row_matrix):
         return gather_count2_plain(op, row_matrix, pairs)
     _words(row_matrix, "gather_count2 matrix", 3)
     s, r, w = row_matrix.shape
-    p = _ids(pairs, r, row_matrix.device, "gather_count2 pairs")
-    if p.dim() != 2 or p.shape[1] != 2:
-        raise ValueError(f"gather_count2: pairs shape {tuple(p.shape)}, want [B, 2]")
+    p = _host_ids(pairs, r, "gather_count2 pairs")
+    if p.ndim != 2 or p.shape[1] != 2:
+        raise ValueError(f"gather_count2: pairs shape {p.shape}, want [B, 2]")
     b = p.shape[0]
-    out = torch.zeros(b, dtype=torch.int32, device=row_matrix.device)
+    out = torch.empty(b, dtype=torch.int32, device=row_matrix.device)
+    n_seg, seg_vecs = gather2_segments(b, s, w)
+    dev = None if b <= GATHER2_PARAM_PAIRS else _ints(p, row_matrix.device)
     err = _fn("gather_count2")(
-        row_matrix.data_ptr(), p.data_ptr(), out.data_ptr(), s, r, w, b, OPS[op],
-        _stream(row_matrix),
+        row_matrix.data_ptr(), p.ctypes.data if dev is None else dev.data_ptr(), out.data_ptr(),
+        s, r, w, b, OPS[op], n_seg, seg_vecs, _stream(row_matrix),
     )
     _check(err, "gather_count2")
     LAUNCHES["gather_count2"] += 1
@@ -778,3 +815,92 @@ def topn_counts(row_matrix: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     _check(err, "topn_counts")
     LAUNCHES["topn_counts"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# pair_gram (the reference's all-pairs Gram, bitwise.py pair_gram)
+# ---------------------------------------------------------------------------
+
+# Per-pair counts must stay inside int32: at most S x 2^20 bits a pair.
+GRAM_SLICES_MAX = 2047
+# Output rows a block tile covers, words a k-tile covers and blocks of 8
+# warps an SM (each a 2-stage ring of 72 KiB): pair_gram.cu's kTile,
+# kChunk and kBlocksPerSm.
+GRAM_TILE = 128
+GRAM_CHUNK_WORDS = 32
+GRAM_BLOCKS_PER_SM = 2
+
+
+def gram_tile_pairs(n_t: int) -> list[tuple[int, int]]:
+    """The upper tile pairs (ti, tj), ti <= tj, of n_t tiles a side, in
+    the kernel's order (row-major)."""
+    return [(i, j) for i in range(n_t) for j in range(i, n_t)]
+
+
+def gram_schedule(r: int, s: int, w: int, sms: int) -> dict:
+    """pair_gram's launch: the R x R output in ``n_t`` x ``n_t`` tiles of
+    GRAM_TILE, of which the ``n_pairs`` upper ones are computed; each
+    tile's contraction in ``n_k`` = S x ``n_chunks`` k-tiles (slice s,
+    word chunk c of GRAM_CHUNK_WORDS; k-tile t = s * n_chunks + c); the
+    ``n_units`` (tile pair, k-tile) units, tile-major (unit u = p * n_k +
+    t), walked by ``n_blocks`` persistent blocks (GRAM_BLOCKS_PER_SM an SM
+    of ``sms``), block g taking ``gram_block_units``."""
+    n_t = -(-r // GRAM_TILE)
+    n_pairs = n_t * (n_t + 1) // 2
+    n_chunks = -(-w // GRAM_CHUNK_WORDS)
+    n_k = s * n_chunks
+    n_units = n_pairs * n_k
+    return {"n_t": n_t, "n_pairs": n_pairs, "n_chunks": n_chunks, "n_k": n_k,
+            "n_units": n_units, "n_blocks": min(n_units, GRAM_BLOCKS_PER_SM * sms)}
+
+
+def gram_block_units(sched: dict, g: int) -> tuple[int, int]:
+    """Units [u0, u1) of block g: a contiguous, balanced run."""
+    u, n = sched["n_units"], sched["n_blocks"]
+    return g * u // n, (g + 1) * u // n
+
+
+def gram_unit(sched: dict, u: int) -> tuple[int, int, int, int]:
+    """(ti, tj, slice, chunk) of unit u."""
+    p, t = divmod(u, sched["n_k"])
+    s, c = divmod(t, sched["n_chunks"])
+    ti, tj = gram_tile_pairs(sched["n_t"])[p]
+    return ti, tj, s, c
+
+
+def pair_gram_plain(row_matrix):
+    return bitwise.pair_gram(row_matrix)
+
+
+def pair_gram(row_matrix: torch.Tensor) -> torch.Tensor:
+    """All-pairs AND-count Gram ``G[i, j] = sum_s popcount(rm[s, i] &
+    rm[s, j])`` -> int64[R, R] for int32[S, R, W] (S <= GRAM_SLICES_MAX).
+    On the card the matrix may be a view with any slice and row strides
+    (multiples of 4 words; words contiguous): the executor's
+    ``m[:, :bucket, :]`` of a pool is not copied.  The kernel counts in
+    int32; the result is widened on the card."""
+    if row_matrix.dtype != torch.int32:
+        raise TypeError(f"pair_gram: expected int32 words, got {row_matrix.dtype}")
+    if row_matrix.dim() != 3:
+        raise ValueError(f"pair_gram: expected [S, R, W], got shape {tuple(row_matrix.shape)}")
+    s, r, w = row_matrix.shape
+    if s > GRAM_SLICES_MAX:
+        raise ValueError(f"pair_gram: {s} slices overflow int32 counts "
+                         f"(at most {GRAM_SLICES_MAX})")
+    if _on_cpu(row_matrix):
+        return pair_gram_plain(row_matrix)
+    ss, rs, ws = row_matrix.stride()
+    if (w and ws != 1) or w % 4 or ss % 4 or rs % 4 or row_matrix.data_ptr() % 16:
+        raise ValueError("pair_gram: rows must be 16-byte aligned words (W, strides % 4 == 0)")
+    out = torch.zeros((r, r), dtype=torch.int32, device=row_matrix.device)
+    if s == 0 or r == 0 or w == 0:
+        return out.to(torch.int64)
+    sms = torch.cuda.get_device_properties(row_matrix.device).multi_processor_count
+    sched = gram_schedule(r, s, w, sms)
+    err = _fn("pair_gram")(
+        row_matrix.data_ptr(), out.data_ptr(), s, r, w, ss, rs, sched["n_blocks"],
+        _stream(row_matrix),
+    )
+    _check(err, "pair_gram")
+    LAUNCHES["pair_gram"] += 1
+    return out.to(torch.int64)
