@@ -8,8 +8,7 @@
    nvcc (one process per source, all started together), and beside them
    compiles the resident, fold, row-major, TopN, Gram and gather pair
    kernels once more with ``-Xptxas -v`` to report their registers and
-   shared memory.  Builds and runs ``csrc/mma_probe.cu``: the tensor-core
-   rate of the b1 AND-popc and s8 instructions (an "mma_probe" line).
+   shared memory.
 3. Holds each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it, for every op variant; exact equality
    (integer counts), and times both with CUDA events beside the kernel's
@@ -35,13 +34,15 @@
    parameters), through its entry point and as a launch alone (B
    = 16 also at 1-16 segments a row).  The Gram kernel (``pair_gram``)
    is held exactly at R = 1, 17, 64, 256 x S = 1, 7, 64, a strided
-   300-of-512-row pool view, a narrow ragged view and R = 1,024 at S =
-   16, and timed at the executor's S = 64, R = 256 beside its plain
-   version and the library yardstick (bits unpacked to int8 and
-   ``torch._int_mm`` per slice; the port never calls it), and at the
-   executor's row buckets of 64 to 4,096 rows at the pool's 2 GiB.  It
-   is also rebuilt at other tilings and timed against itself on the
-   same inputs (a "gram_tilings" line).
+   300-of-512-row pool view, a narrow ragged view, R = 1,024 at S = 16
+   and the executor's row buckets of 64 to 4,096 rows (whole over 4,096
+   words, and the first slice at the full W), and timed at the
+   executor's S = 64, R = 256 beside its plain version and the library
+   yardstick (bits unpacked to int8 and ``torch._int_mm`` per slice; the
+   port never calls it), and at the buckets at the pool's 2 GiB.  Its
+   bound takes the bit products at the b1 tensor-core rate that
+   ``csrc/mma_probe.cu`` measures in the same run (the data sheet gives
+   none; the reading is the kernels line's ``b1_probe``).
 4. The diffcheck path: the differential sweep ``ops/diffcheck.py`` over
    every lane on the card (its ``topn_counts`` lane is that kernel's path).
 5. Drives the executor path — ``Executor.execute`` over a ``Holder`` — at
@@ -83,9 +84,9 @@
 8. Fails unless every kernel's launch counter moved during its path: the
    counters are set to 0 just before each path and read just after it.
 
-Prints a ptxas line, an mma_probe line, two staged-checks lines, ``{"card": ..., "layout" /
+Prints a ptxas line, two staged-checks lines, ``{"card": ..., "layout" /
 "tree_gate" / "multi_paths" / "multi_tilings" / "multi_gate" /
-"gram_tilings" / "gather2_paths": [...]}`` lines, a ``{"card": ..., "requests": [...]}`` line
+"gather2_paths": [...]}`` lines, a ``{"card": ..., "requests": [...]}`` line
 per path, a ``{"kernels": [...]}`` line, and last ``{"ok": true,
 "device": {...}}``.  Any failure raises.
 
@@ -157,9 +158,10 @@ TALL_XOR = 64
 WIDE_UNION = 640
 
 # H100 SXM published peaks (NVIDIA data sheet) used for the bounds: HBM3
-# bandwidth, the 32-bit non-tensor-core rate for the integer word ops, and
-# the dense int8 tensor-core rate for the Gram's bit products (2 ops a
-# product; the data sheet publishes no 1-bit rate).
+# bandwidth and the 32-bit non-tensor-core rate for the integer word ops.
+# The data sheet publishes no 1-bit rate: the Gram's bit products are
+# bounded by the rate ``b1_rate`` measures in the same run.  The dense
+# int8 tensor-core rate (2 ops a product) is reported beside it only.
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 PEAK_INT8_OPS_S = 1979e12
@@ -251,7 +253,7 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
 
 def bound(nbytes: int, ops: int, ops_s: float = PEAK_OPS_S) -> tuple[float, str]:
     """Least time the card could take: the larger of bytes over the HBM
-    rate and operations over ``ops_s`` (the 32-bit rate; the int8
+    rate and operations over ``ops_s`` (the 32-bit rate; the measured b1
     tensor-core rate for the Gram), in ms, and which of the two it is."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / ops_s * 1e3
@@ -1515,22 +1517,21 @@ GRAM_NARROW = (3, 40, 100)
 GRAM_TALL = (16, 1024)
 GRAM_SEED = SEED + 11
 # The executor's Gram buckets (powers of two up to its 4,096-row ceiling)
-# at the row pool's 2 GiB budget.
+# at the row pool's 2 GiB budget, each also held whole at its S and R over
+# GRAM_BUCKET_CHECK_WORDS words (the plain version unpacks a slice to
+# float32: 16 GiB at R = 4,096 and the full W).
 GRAM_POOL_BYTES = 2 << 30
 GRAM_BUCKETS = (64, 128, 512, 2048, 4096)
-# Tilings gram_tilings compares (chunk words, stages, blocks an SM; the
-# first is the kernel's first design, 32 x 2 x 2 the one kept), at S x R.
-GRAM_TILINGS = ((64, 3, 1), (64, 2, 1), (32, 4, 1), (32, 3, 2), (32, 2, 2), (16, 4, 2))
-GRAM_TILING_SHAPES = ((64, 256), (16, 1024), (256, 64), (32, 512))
+GRAM_BUCKET_CHECK_WORDS = 4096
 # Steps each warp of the probe runs (16 products a step).
 PROBE_ITERS = 4096
 
 
-def mma_probe() -> dict:
-    """Build ``csrc/mma_probe.cu`` and time its three loops (b1 AND-popc
-    m16n8k256; s8 m16n8k32; s8 with each fragment expanded from packed
-    bits) over 4 blocks an SM: bit products a second, and their share of
-    the int8 tensor-core peak (2 ops a product)."""
+def b1_rate() -> dict:
+    """Build ``csrc/mma_probe.cu`` and time its loop of b1 AND-popc
+    m16n8k256 over 4 blocks an SM: bit products a second, the ceiling of
+    the Gram's products (and its share of the int8 peak's 2 ops a
+    product)."""
     import ctypes
 
     src = os.path.join(kernels._CSRC, "mma_probe.cu")
@@ -1539,34 +1540,34 @@ def mma_probe() -> dict:
     subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", lib, src], check=True,
                    capture_output=True)
     fn = ctypes.CDLL(lib).pk_mma_probe
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
-    blocks = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = 4 * kernels.sm_count(torch.device("cuda"))
     out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
-    res = {}
-    for kind, name, per in ((0, "b1_and_popc_m16n8k256", 32768), (1, "s8_m16n8k32", 4096),
-                            (2, "s8_m16n8k32_expand", 4096)):
-        def run(kind=kind):
-            err = fn(kind, blocks, PROBE_ITERS, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"mma_probe {kind}: cudaError {err}")
-        ms = cuda_ms(run, reps=5)
-        products = blocks * 8 * PROBE_ITERS * 16 * per
-        res[name] = {"ms": ms, "bit_products_per_s": products / ms * 1e3,
-                     "share_of_int8_peak": 2 * products / ms * 1e3 / PEAK_INT8_OPS_S}
-    return res
+
+    def run():
+        err = fn(blocks, PROBE_ITERS, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"mma_probe: cudaError {err}")
+
+    ms = cuda_ms(run, reps=5)
+    products = blocks * 8 * PROBE_ITERS * 16 * 32768
+    return {"ms": ms, "bit_products_per_s": products / ms * 1e3,
+            "share_of_int8_peak": 2 * products / ms * 1e3 / PEAK_INT8_OPS_S}
 
 
-def gram_bound(s: int, r: int, w: int) -> dict:
-    """The Gram's bound both ways: every word read once and the int64
-    R x R written once over the HBM rate; the upper triangle's bit
-    products (diagonal included, 2 ops each) over the int8 tensor-core
-    rate."""
+def gram_bound(s: int, r: int, w: int, b1_s: float) -> dict:
+    """The Gram's bound: the larger of every word read once and the
+    int64 R x R written once over the HBM rate, and the upper triangle's
+    bit products (diagonal included) over the b1 rate ``b1_s``; beside
+    it, the same products over the int8 tensor-core rate (2 ops each),
+    which b1 outruns, so it bounds nothing."""
     nbytes = s * r * w * 4 + r * r * 8
-    ops = 2 * (r * (r + 1) // 2) * s * w * 32
-    ms, by = bound(nbytes, ops, PEAK_INT8_OPS_S)
+    products = (r * (r + 1) // 2) * s * w * 32
+    ms, by = bound(nbytes, products, b1_s)
     return {"bound_ms": ms, "bound_by": by, "bytes_bound_ms": nbytes / PEAK_BYTES_S * 1e3,
-            "ops_bound_ms": ops / PEAK_INT8_OPS_S * 1e3}
+            "ops_bound_ms": products / b1_s * 1e3,
+            "int8_ops_bound_ms": 2 * products / PEAK_INT8_OPS_S * 1e3}
 
 
 def _int8_bits(rows: torch.Tensor) -> torch.Tensor:
@@ -1590,8 +1591,10 @@ def library_gram(m: torch.Tensor) -> torch.Tensor:
 def check_gram(diff) -> dict:
     """pair_gram == its plain version on the card, exactly, over the
     grid above; timed at the executor's shape (S=64, R=256) against the
-    plain version and the library yardstick, and at the strided and
-    tall shapes."""
+    plain version and the library yardstick, and at the strided, tall
+    and bucket shapes, each beside its bound at this run's b1 rate."""
+    probe = b1_rate()
+    b1_s = probe["bit_products_per_s"]
     gen = _gen(GRAM_SEED)
     pool = _rand_words(gen, (N_SLICES, GRAM_POOL_ROWS, W))
     checked = []
@@ -1614,7 +1617,7 @@ def check_gram(diff) -> dict:
     def entry(m, shape, plain_reps=2):
         e = dict(shape=shape, ms=cuda_ms(lambda: kernels.pair_gram(m), reps=5),
                  plain_ms=cuda_ms(lambda: kernels.pair_gram_plain(m), reps=plain_reps, warm=1))
-        e.update(gram_bound(*m.shape))
+        e.update(gram_bound(*m.shape, b1_s))
         return e
 
     strided = entry(view, f"[{GRAM_STRIDED[0]}, {GRAM_STRIDED[1]} of {GRAM_POOL_ROWS}, {W}] view")
@@ -1639,79 +1642,26 @@ def check_gram(diff) -> dict:
     del tall
     torch.cuda.empty_cache()
     # The executor's row buckets at the 2 GiB pool budget (S x R x W x 4
-    # bytes), each held exactly on its first slice.
+    # bytes): each held exactly whole at S x R x GRAM_BUCKET_CHECK_WORDS
+    # (every tile pair, units whose runs cross slices) and on its first
+    # slice at the full W, then timed at the full W.
     buckets = []
     for r in GRAM_BUCKETS:
-        m = _rand_words(gen, (GRAM_POOL_BYTES // (r * W * 4), r, W))
+        s = GRAM_POOL_BYTES // (r * W * 4)
+        m = _rand_words(gen, (s, r, GRAM_BUCKET_CHECK_WORDS))
+        diff("pair_gram", kernels.pair_gram(m), kernels.pair_gram_plain(m))
+        checked.append({"S": s, "R": r, "W": GRAM_BUCKET_CHECK_WORDS})
+        m = _rand_words(gen, (s, r, W))
         one = m[:1]
         diff("pair_gram", kernels.pair_gram(one), kernels.pair_gram_plain(one))
-        buckets.append(dict(S=m.shape[0], R=r, ms=cuda_ms(lambda: kernels.pair_gram(m), reps=3),
-                            **gram_bound(*m.shape)))
+        buckets.append(dict(S=s, R=r, ms=cuda_ms(lambda: kernels.pair_gram(m), reps=3),
+                            **gram_bound(*m.shape, b1_s)))
         del m, one
         torch.cuda.empty_cache()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    sched = kernels.gram_schedule(N_ROWS, N_SLICES, W, sms)
-    main.update(checked=checked, schedule=sched, shapes=[strided, tall_e], buckets=buckets)
+    sched = kernels.gram_schedule(N_ROWS, N_SLICES, W, kernels.sm_count(torch.device("cuda")))
+    main.update(checked=checked, schedule=sched, shapes=[strided, tall_e], buckets=buckets,
+                b1_probe=probe)
     return {"pair_gram": main}
-
-
-def gram_tilings() -> list:
-    """``csrc/pair_gram.cu`` rebuilt at other tilings (its kChunk,
-    kStages and kBlocksPerSm replaced; grid: that many blocks an SM),
-    each held exactly against the kernel as built and timed on the same
-    inputs at four shapes of 2 GiB: the data behind the tiling kept."""
-    import ctypes
-
-    with open(os.path.join(kernels._CSRC, "pair_gram.cu")) as f:
-        src = f.read()
-    consts = {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
-              for name in ("kChunk", "kStages", "kBlocksPerSm")}
-    procs = {}
-    for chunk, stages, per_sm in GRAM_TILINGS:
-        v = src
-        for name, val in zip(consts, (chunk, stages, per_sm)):
-            v = v.replace(f"constexpr int {name} = {consts[name]};", f"constexpr int {name} = {val};")
-        tag = f"c{chunk}s{stages}b{per_sm}"
-        path = os.path.join(kernels.BUILD_DIR, f"gram_{tag}.cu")
-        with open(path, "w") as f:
-            f.write(v)
-        lib = os.path.join(kernels.BUILD_DIR, f"libgram_{tag}.so")
-        procs[(chunk, stages, per_sm)] = (subprocess.Popen(
-            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", kernels._CSRC, "-o", lib, path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT), lib)
-    fns = {}
-    for key, (p, lib) in procs.items():
-        out = p.communicate()[0].decode(errors="replace")
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for pair_gram.cu at tiling {key}:\n{out}")
-        fn = ctypes.CDLL(lib).pk_pair_gram
-        fn.argtypes, fn.restype = kernels._ARGTYPES["pair_gram"][1], ctypes.c_int
-        fns[key] = fn
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    gen = _gen(GRAM_SEED + 1)
-    rows = []
-    for s, r in GRAM_TILING_SHAPES:
-        m = _rand_words(gen, (s, r, W))
-        want = kernels.pair_gram(m)
-        row = {"S": s, "R": r, "ms": {}}
-        for (chunk, stages, per_sm), fn in fns.items():
-            out = torch.zeros((r, r), dtype=torch.int32, device="cuda")
-            n_units = kernels.gram_schedule(r, s, W, sms)["n_pairs"] * s * -(-W // chunk)
-            n_blocks = min(n_units, per_sm * sms)
-
-            def run(fn=fn, out=out, n_blocks=n_blocks):
-                out.zero_()
-                kernels._check(fn(m.data_ptr(), out.data_ptr(), s, r, W, m.stride(0), m.stride(1),
-                                  n_blocks, kernels._stream(m)), "pair_gram tiling")
-
-            run()
-            if not torch.equal(out.long(), want):
-                raise AssertionError(f"pair_gram at tiling {(chunk, stages, per_sm)} differs")
-            row["ms"][f"{chunk}w x{stages} {per_sm}/SM"] = cuda_ms(run, reps=5)
-        rows.append(row)
-        del m, want
-        torch.cuda.empty_cache()
-    return rows
 
 
 # Every pair batch the executor path hands dispatch, as (layout, S, R,
@@ -1780,7 +1730,8 @@ def gather2_times(op, m, pairs, sweep: bool = False) -> dict:
     dev_pairs = kernels._ids(a, r, m.device, "pairs")
     ids = a.ctypes.data if len(a) <= kernels.GATHER2_PARAM_PAIRS else dev_pairs.data_ptr()
     out = torch.empty(len(a), dtype=torch.int32, device=m.device)
-    n_seg, seg_vecs = kernels.gather2_segments(len(a), s, w)
+    sms = kernels.sm_count(m.device)
+    n_seg, seg_vecs = kernels.gather2_segments(len(a), s, w, sms)
     fn = kernels._fn("gather_count2")
     stream = kernels._stream(m)
 
@@ -1804,7 +1755,7 @@ def gather2_times(op, m, pairs, sweep: bool = False) -> dict:
             res["kernel_ms_by_n_seg"][n_seg] = cuda_ms(kernel_only)
             if not torch.equal(out, want):
                 raise AssertionError(f"gather_count2 B={len(a)} n_seg={n_seg}: differs")
-        n_seg, seg_vecs = kernels.gather2_segments(len(a), s, w)
+        n_seg, seg_vecs = kernels.gather2_segments(len(a), s, w, sms)
     return res
 
 
@@ -2198,7 +2149,6 @@ def main() -> int:
         "resident_count2", "gather_count_multi", "gather_count_tree", "resident_count_tree",
         "gather_count2_rowmajor", "gather_count_multi_rowmajor", "topn_counts",
         "resident_count_multi", "pair_gram", "gather_count2"))}), flush=True)
-    print(json.dumps({"card": card, "mma_probe": mma_probe()}), flush=True)
 
     timings, layout, gate, multi = check_kernels()
     print("kernels match their plain versions on the card", flush=True)
@@ -2207,7 +2157,6 @@ def main() -> int:
     print(json.dumps({"card": card, "multi_paths": multi["paths"]}), flush=True)
     print(json.dumps({"card": card, "multi_tilings": multi["tilings"]}), flush=True)
     print(json.dumps({"card": card, "multi_gate": multi["gate"]}), flush=True)
-    print(json.dumps({"card": card, "gram_tilings": gram_tilings()}), flush=True)
 
     kernels.reset_launches()
     sweep = diffcheck_path()
@@ -2295,7 +2244,8 @@ def main() -> int:
         for extra in ("count_path", "shapes", "gathered_bound_ms", "all_rows_floor_ms",
                       "chunk_words", "stages", "smem_bytes", "kernel_ms", "n_seg",
                       "kernel_ms_by_n_seg", "host_ms", "bytes_bound_ms", "ops_bound_ms",
-                      "int_mm_only_ms", "checked", "schedule", "buckets"):
+                      "int8_ops_bound_ms", "int_mm_only_ms", "checked", "schedule", "buckets",
+                      "b1_probe"):
             if extra in t:
                 entry[extra] = t[extra]
         line.append(entry)

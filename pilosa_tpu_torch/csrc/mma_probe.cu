@@ -1,17 +1,12 @@
-// mma_probe: the tensor-core rate of the two instructions a bit Gram can
-// run on, from registers, at pair_gram.cu's warp tile (64 x 32 outputs:
-// 4 x 4 fragments a k-step, 16 independent accumulators a thread).
+// mma_probe: the tensor-core rate of pair_gram.cu's instruction,
+// mma.sync m16n8k256 b1 AND-popc on packed words (32,768 bit products an
+// instruction), from registers, at pair_gram.cu's warp tile (64 x 32
+// outputs: 4 x 4 fragments a k-step, 16 independent accumulators a
+// thread).
 //
-//   kind 0, b1:        mma.sync m16n8k256 b1 AND-popc on packed words
-//                      (32,768 bit products an instruction);
-//   kind 1, s8:        mma.sync m16n8k32 s8 on bytes already 0/1
-//                      (4,096 an instruction);
-//   kind 2, s8 expand: the same, each fragment register expanded from a
-//                      packed word first (4 bits to 4 bytes: shift,
-//                      multiply, mask), as the int8 route must.
-//
-// Not a kernel of the port: chip_smoke.py builds it beside the kernels
-// and prints the three rates, which chose pair_gram's route.
+// Not a kernel of the port: the card's data sheet gives no 1-bit rate, so
+// chip_smoke.py builds this beside the kernels and bounds the Gram's bit
+// products by the rate it measures.
 
 #include <stdint.h>
 
@@ -27,65 +22,23 @@ __device__ __forceinline__ void mma_b1(int* d, const uint32_t* a, const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Four bits (x >> sh) & 15 as four 0/1 bytes.
-__device__ __forceinline__ uint32_t expand4(uint32_t x, int sh) {
-  return (((x >> sh) & 15u) * 0x00204081u) & 0x01010101u;
-}
-
-template <int KIND>
 __global__ void __launch_bounds__(256) probe_kernel(int iters, int* __restrict__ out) {
   const uint32_t seed = threadIdx.x * 0x9E3779B9u + blockIdx.x;
   uint32_t a[4][4], b[4][2];
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) a[mi][e] = (seed * (mi * 4 + e + 1)) & (KIND == 1 ? 0x01010101u : ~0u);
+    for (int e = 0; e < 4; ++e) a[mi][e] = seed * (mi * 4 + e + 1);
 #pragma unroll
   for (int nj = 0; nj < 4; ++nj)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) b[nj][e] = (seed ^ (nj * 2 + e + 7) * 0x85EBCA6Bu) & (KIND == 1 ? 0x01010101u : ~0u);
+    for (int e = 0; e < 2; ++e) b[nj][e] = seed ^ (nj * 2 + e + 7) * 0x85EBCA6Bu;
   int acc[4][4][4] = {};
-  const int sh = (threadIdx.x & 3) * 4;
   for (int it = 0; it < iters; ++it) {
-    if (KIND == 2) {
-      // The packed words change every step, so no expansion is hoisted.
-      uint32_t ea[4][4], eb[4][2];
-      const uint32_t k = (uint32_t)it;
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        ea[mi][0] = expand4(a[mi][0] ^ k, sh);
-        ea[mi][1] = expand4(a[mi][1] ^ k, sh);
-        ea[mi][2] = expand4(a[mi][0] ^ k, sh + 16);
-        ea[mi][3] = expand4(a[mi][1] ^ k, sh + 16);
-      }
+    for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        eb[nj][0] = expand4(b[nj][0] ^ k, sh);
-        eb[nj][1] = expand4(b[nj][0] ^ k, sh + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) mma_s8(acc[mi][nj], ea[mi], eb[nj]);
-    } else {
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) {
-          if (KIND == 0)
-            mma_b1(acc[mi][nj], a[mi], b[nj]);
-          else
-            mma_s8(acc[mi][nj], a[mi], b[nj]);
-        }
-    }
+      for (int nj = 0; nj < 4; ++nj) mma_b1(acc[mi][nj], a[mi], b[nj]);
   }
   int sum = 0;
 #pragma unroll
@@ -101,16 +54,7 @@ __global__ void __launch_bounds__(256) probe_kernel(int iters, int* __restrict__
 
 // out: int32[blocks * 256].  Each of the blocks' 8 warps runs iters
 // steps of 16 products.
-extern "C" int pk_mma_probe(int kind, int blocks, int iters, void* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int* o = static_cast<int*>(out);
-  if (kind == 0)
-    probe_kernel<0><<<blocks, 256, 0, st>>>(iters, o);
-  else if (kind == 1)
-    probe_kernel<1><<<blocks, 256, 0, st>>>(iters, o);
-  else if (kind == 2)
-    probe_kernel<2><<<blocks, 256, 0, st>>>(iters, o);
-  else
-    return (int)cudaErrorInvalidValue;
+extern "C" int pk_mma_probe(int blocks, int iters, void* out, void* stream) {
+  probe_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(iters, static_cast<int*>(out));
   return (int)cudaGetLastError();
 }

@@ -6,19 +6,19 @@
 // product on the MXU over the bits unpacked to 0/1 bytes.  The executor
 // builds it once per warm pool and answers every pair op from it.
 //
-// Bound on this card: operations.  At S = 64, R = 256 the upper triangle
-// is 2.2e12 bit products (2.2 ms at the int8 tensor-core rate) against
-// 2 GiB read once (0.64 ms).  The b1 instruction below does 4.7x the
-// int8 rate's bit products (chip_smoke.py's "mma_probe"), so this kernel
-// runs under that bound; its shared-memory fragment traffic and the
-// mma.sync issue rate bind it.
+// Bound on this card: bytes at the executor's shape.  At S = 64, R = 256
+// the upper triangle is 2.2e12 bit products, 0.47 ms at the b1
+// instruction's rate below (4.7e15 a second from registers: mma_probe.cu,
+// which chip_smoke.py runs to bound this kernel), against 2 GiB read once
+// (0.64 ms); at R = 4,096 over 2 GiB the products bind.  Its shared-memory
+// fragment traffic and the mma.sync issue rate hold it above that bound.
 //
 // Design: tensor cores through mma.sync m16n8k256 b1 with AND-popc, which
 // takes 256 packed bits of a row as they lie in memory (no unpack): A is
 // 16 rows x 8 words, B 8 rows x 8 words, D[m][n] += popc(A[m] & B[n]).
 // (The int8 route, m16n8k32 on bits expanded to 0/1 bytes, needs 3
 // integer ops a register to expand and 8x the fragment traffic per bit;
-// chip_smoke.py's mma probe times both instructions.)  The fragment
+// on the H100 it did 1/17 of b1's bit products: PERF_GATES.md.)  The fragment
 // layouts of b1 m16n8k256 are those of f16 m16n8k16 in 32-bit words, so
 // ldmatrix.x4 loads them from shared memory.
 //
@@ -39,7 +39,7 @@
 // bytes so the 8 rows an ldmatrix reads fall on distinct banks.  (On the
 // H100, 32-word chunks in 2 stages at two blocks an SM ran 3-13% faster
 // than 64-word chunks in 3 stages at one, and 4 stages of 32 words or
-// 16-word chunks were slower still: chip_smoke.py's "gram_tilings".)  Rows past R and words
+// 16-word chunks were slower still: PERF_GATES.md.)  Rows past R and words
 // past W are zero-filled (cp.async's source size 0), so any R and any W
 // % 4 == 0 work; a warp whose 64 x 32 sub-tile lies wholly past R skips
 // its products.  Slice and row strides are arguments: the executor hands

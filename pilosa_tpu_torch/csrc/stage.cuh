@@ -14,7 +14,7 @@
 // thread of the block, one commit group per tile, cp.async.wait_group to
 // wait.  (TMA bulk copies, one per row segment, were slower on the H100:
 // a tile is hundreds of 256-512-byte segments, and their issue rate set
-// the pace; PERF.md records the times.)  With two stages tile t + 1 is in
+// the pace; PERF_GATES.md records the times.)  With two stages tile t + 1 is in
 // flight while tile t is folded; where two tiles do not fit, one stage
 // (load, fold, load, ...) inside the same kernel.  Blocks are persistent:
 // block g of G walks the contiguous, balanced run of tiles [g*T/G,

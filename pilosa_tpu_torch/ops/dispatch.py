@@ -83,7 +83,7 @@ def topn_scorer_counts(row_matrix: torch.Tensor, pos, src_stack: torch.Tensor):
 # query's distinct operands: a Range cover's pads repeat its first id,
 # and both kernels read a repeat almost free (the gather kernel from L1,
 # the staged kernel not at all).
-# Measured on the H100 (PERF.md, the multi gate: both layouts, unpadded
+# Measured on the H100 (PERF_GATES.md, the multi gate: both layouts, unpadded
 # folds and Range-like folds padded to K = 23): at 8-12 distinct
 # operands a fold the gather kernel, whose repeats L2 serves, wins or
 # ties unless rows repeat 8 times; at 15-16 one group of 128 folds is
@@ -169,7 +169,7 @@ def gather_count_multi(op: str, row_matrix: torch.Tensor, idx):
 # The staged tree kernel serves a batch whose leaf references reach this
 # many per distinct leaf row in each of the kernel's groups of 64 trees
 # (every group stages all of the batch's rows).  Measured on the H100
-# (PERF.md, the tree gate): at about 2.3 references a row the two kernels
+# (PERF_GATES.md, the tree gate): at about 2.3 references a row the two kernels
 # tie or the gather kernel, whose repeated rows L2 serves, wins; at 4 and
 # more the staged kernel is faster: by 13-35% at one group of 16-leaf
 # trees, 20-45% at two and four, 1-15% at batches of 4-8 leaves.

@@ -188,6 +188,20 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+_sms: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device (read once a device): the launches
+    size their waves and persistent grids by it."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    n = _sms.get(idx)
+    if n is None:
+        n = _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
+
+
 def _words(t: torch.Tensor, what: str, ndim: int) -> None:
     if t.dtype != torch.int32:
         raise TypeError(f"{what}: expected int32 words, got {t.dtype}")
@@ -386,25 +400,27 @@ def resident_count2(op: str, row_matrix: torch.Tensor, pairs) -> torch.Tensor:
 # gather_count2 (fused_gather_count2)
 # ---------------------------------------------------------------------------
 
-# Blocks of 256 threads the card holds at once (8 an SM on 132 SMs), the
-# 16-byte vectors of each row a block reads per step (256 threads x 4),
-# and the most pairs a launch carries in its own parameters:
-# gather_count2.cu's kThreads, kVecs and kParamPairs.
-GATHER2_WAVE = 8 * 132
+# Blocks of 256 threads an SM holds at once (a wave is that many per SM
+# of the card), the 16-byte vectors of each row a block reads per step
+# (256 threads x 4), and the most pairs a launch carries in its own
+# parameters: gather_count2.cu's kThreads, kVecs and kParamPairs.
+GATHER2_BLOCKS_PER_SM = 8
 GATHER2_STEP_VECS = 256 * 4
 GATHER2_PARAM_PAIRS = 500
 
 
-def gather2_segments(b: int, s: int, w: int) -> tuple[int, int]:
-    """(n_seg, seg_vecs) of a gather_count2 launch: each row of W words
-    in n_seg segments of seg_vecs 16-byte vectors, one block each.  The
-    segments double until the B x S x n_seg blocks make two waves, while
+def gather2_segments(b: int, s: int, w: int, sms: int) -> tuple[int, int]:
+    """(n_seg, seg_vecs) of a gather_count2 launch on a card of ``sms``
+    SMs: each row of W words in n_seg segments of seg_vecs 16-byte
+    vectors, one block each.  The segments double until the B x S x
+    n_seg blocks make two waves (GATHER2_BLOCKS_PER_SM an SM), while
     a segment keeps at least one block step (so wide batches keep whole
     rows).  Segment g covers vectors [g * seg_vecs, min((g + 1) *
     seg_vecs, W / 4))."""
     wv = w // 4
     n_seg = 1
-    while b * s * n_seg < 2 * GATHER2_WAVE and -(-wv // (2 * n_seg)) >= GATHER2_STEP_VECS:
+    wave = GATHER2_BLOCKS_PER_SM * sms
+    while b * s * n_seg < 2 * wave and -(-wv // (2 * n_seg)) >= GATHER2_STEP_VECS:
         n_seg *= 2
     return n_seg, max(1, -(-wv // n_seg))
 
@@ -429,7 +445,7 @@ def gather_count2(op: str, row_matrix: torch.Tensor, pairs) -> torch.Tensor:
         raise ValueError(f"gather_count2: pairs shape {p.shape}, want [B, 2]")
     b = p.shape[0]
     out = torch.empty(b, dtype=torch.int32, device=row_matrix.device)
-    n_seg, seg_vecs = gather2_segments(b, s, w)
+    n_seg, seg_vecs = gather2_segments(b, s, w, sm_count(row_matrix.device))
     dev = None if b <= GATHER2_PARAM_PAIRS else _ints(p, row_matrix.device)
     err = _fn("gather_count2")(
         row_matrix.data_ptr(), p.ctypes.data if dev is None else dev.data_ptr(), out.data_ptr(),
@@ -895,8 +911,7 @@ def pair_gram(row_matrix: torch.Tensor) -> torch.Tensor:
     out = torch.zeros((r, r), dtype=torch.int32, device=row_matrix.device)
     if s == 0 or r == 0 or w == 0:
         return out.to(torch.int64)
-    sms = torch.cuda.get_device_properties(row_matrix.device).multi_processor_count
-    sched = gram_schedule(r, s, w, sms)
+    sched = gram_schedule(r, s, w, sm_count(row_matrix.device))
     err = _fn("pair_gram")(
         row_matrix.data_ptr(), out.data_ptr(), s, r, w, ss, rs, sched["n_blocks"],
         _stream(row_matrix),

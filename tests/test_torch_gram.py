@@ -190,28 +190,33 @@ def test_numpy_model_of_the_gram_schedule_matches_jax(r, s, w, sms):
 # gather_count2's row segments
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("b,s,w,want", [
-    (16, 64, 32768, (4, 2048)),   # gather-1: four segments, 4,096 blocks
-    (4, 64, 32768, (8, 1024)),    # a gather-3 group: narrowed to one block step
-    (64, 64, 32768, (1, 8192)),   # two waves already: whole rows
-    (256, 64, 32768, (1, 8192)),
-    (2, 1, 1024, (1, 256)),       # narrower than one step: one segment
+@pytest.mark.parametrize("b,s,w,sms,want", [
+    (16, 64, 32768, 132, (4, 2048)),   # gather-1: four segments, 4,096 blocks
+    (4, 64, 32768, 132, (8, 1024)),    # a gather-3 group: narrowed to one block step
+    (64, 64, 32768, 132, (1, 8192)),   # two waves already: whole rows
+    (256, 64, 32768, 132, (1, 8192)),
+    (2, 1, 1024, 132, (1, 256)),       # narrower than one step: one segment
+    (16, 64, 32768, 114, (2, 4096)),   # a 114-SM card: 2,048 blocks make two waves
+    (4, 64, 32768, 114, (8, 1024)),
+    (64, 64, 32768, 66, (1, 8192)),
+    (64, 16, 32768, 132, (4, 2048)),
 ])
-def test_gather2_segments_at_the_paths_batches(b, s, w, want):
-    assert kernels.gather2_segments(b, s, w) == want
+def test_gather2_segments_at_the_paths_batches(b, s, w, sms, want):
+    assert kernels.gather2_segments(b, s, w, sms) == want
 
 
+@pytest.mark.parametrize("sms", [114, 132])
 @pytest.mark.parametrize("b", [1, 3, 16, 64, 256, 600, 5000])
 @pytest.mark.parametrize("s,w", [(1, 4), (2, 1024), (7, 4100), (64, 32768)])
-def test_gather2_segments_cover_each_vector_once(b, s, w):
-    n_seg, seg = kernels.gather2_segments(b, s, w)
+def test_gather2_segments_cover_each_vector_once(b, s, w, sms):
+    n_seg, seg = kernels.gather2_segments(b, s, w, sms)
     wv = w // 4
     cover = Counter(v for g in range(n_seg) for v in range(g * seg, min((g + 1) * seg, wv)))
     assert set(cover) == set(range(wv)) and set(cover.values()) == {1}
     # Segments double only while the launch is under two waves, and each
     # keeps at least one block step of a row.
     if n_seg > 1:
-        assert b * s * (n_seg // 2) < 2 * kernels.GATHER2_WAVE
+        assert b * s * (n_seg // 2) < 2 * kernels.GATHER2_BLOCKS_PER_SM * sms
         assert -(-wv // n_seg) >= kernels.GATHER2_STEP_VECS
 
 
