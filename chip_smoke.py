@@ -12,8 +12,16 @@
 3. Holds each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it, for every op variant; exact equality
    (integer counts), and times both with CUDA events beside the kernel's
-   memory bound.  The row-major kernels are also timed against the
-   slice-major ones on the transposed matrix with the same ids.  The two
+   memory bound (the L2 flushed before each launch by reading 128 MB).
+   ``count_rows`` is also held on ragged and split stacks and timed at
+   [256, W] & src, [64, W] and one 16-byte row (its floor), each through
+   its entry point, as a launch alone (also with the L2 flushed by
+   writes) and by its host work a call.  ``gather_count_tree`` is held
+   on PASS-only trees, PASS roots, dead leaves moved to row R - 1, one
+   tree, a batch past the launch's parameters and a ragged W (a
+   "tree_checks" line), and its bound counts the rows its live leaves
+   name.  The row-major kernels are also timed against the slice-major
+   ones on the transposed matrix with the same ids.  The two
    staged kernels (``resident_count2``, ``resident_count_tree``) are held
    exactly on their edge cases — duplicate ids, self-pairs, unreferenced
    rows, padded trees, ragged and multi-group batches, the resident
@@ -81,26 +89,36 @@
    refreshes the pool's resident planes, and a planner pinned to the
    "rmgather" lane serves a batch from it; each checked against the numpy
    engine.
+   After the HTTP path, ``gather_count_tree`` is held and timed at every
+   tree batch the executor ("gather-3") and HTTP ("tree", "tree-wide")
+   paths handed the gather kernel, rebuilt at its own shape, through its
+   entry point and as a launch alone beside its live-row bound (a
+   "tree_paths" line).
 8. Fails unless every kernel's launch counter moved during its path: the
    counters are set to 0 just before each path and read just after it.
 
-Prints a ptxas line, two staged-checks lines, ``{"card": ..., "layout" /
-"tree_gate" / "multi_paths" / "multi_tilings" / "multi_gate" /
-"gather2_paths": [...]}`` lines, a ``{"card": ..., "requests": [...]}`` line
+Prints a ptxas line, a tree-checks and two staged-checks lines,
+``{"card": ..., "layout" / "tree_gate" / "multi_paths" / "multi_tilings" /
+"multi_gate" / "gather2_paths" / "tree_paths": [...]}`` lines, a ``{"card": ..., "requests": [...]}`` line
 per path, a ``{"kernels": [...]}`` line, and last ``{"ok": true,
 "device": {...}}``.  Any failure raises.
 
     python3 chip_smoke.py --resident-against DIR
 
-times ``resident_count2``, ``gather_count2`` and the two multi-fold entry points
+times ``resident_count2``, ``gather_count2``, the two count entry points
+(``dispatch.count``, ``dispatch.batch_intersection_count``), the tree entry
+point (``dispatch.gather_count_tree``) and the two multi-fold entry points
 (``dispatch.gather_count_multi``, ``dispatch.gather_count_multi_rowmajor``)
 of this checkout against those of the checkout at DIR (for example an
 earlier commit unpacked with ``git archive``) on the same inputs —
-pairs at S=64 R=256 for B = 256 to 4,096, folds at every batch the paths
+pairs at S=64 R=256 for B = 256 to 4,096, counts at [64, W], [256, W] &
+src and [1, 4], trees at the kernels line's shapes and every tree bucket
+of the paths (``tree_path_batches``), folds at every batch the paths
 launch and at the kernels line's timed shapes — in the order DIR, this,
 this, DIR, after checking that the two agree exactly; it prints a
-``{"card": ..., "resident_against": [...]}``, a ``"gather2_against"``
-and a ``{"card": ..., "multi_against": [...]}`` line.
+``{"card": ..., "resident_against": [...]}``, a ``"gather2_against"``, a
+``"count_against"``, a ``"tree_against"`` and a ``{"card": ...,
+"multi_against": [...]}`` line.
 """
 
 from __future__ import annotations
@@ -223,24 +241,29 @@ PQL_OPS = {"and": "Intersect", "or": "Union", "andnot": "Difference", "xor": "Xo
 _flush_buf = None
 
 
-def _flush_l2() -> None:
-    """Overwrite more than the 50 MB L2 so the next launch reads cold,
-    as the main path's callers find the matrices."""
+def _flush_l2(write: bool = False) -> None:
+    """Read more than the 50 MB L2 so the next launch reads cold, as the
+    main path's callers find the matrices, and finds no dirty line to
+    write back; ``write``: overwrite it instead, which leaves up to 50 MB
+    of dirty lines for the timed launch to write back."""
     global _flush_buf
     if _flush_buf is None:
-        _flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-    _flush_buf.zero_()
+        _flush_buf = torch.zeros(128 << 20, dtype=torch.uint8, device="cuda")
+    if write:
+        _flush_buf.zero_()
+    else:
+        _flush_buf.max()
 
 
-def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
+def cuda_ms(fn, reps: int = 10, warm: int = 2, write_flush: bool = False) -> float:
     """Mean device time of fn() in ms: CUDA events around each launch,
-    the L2 flushed before each."""
+    the L2 flushed before each (``_flush_l2``)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(reps):
-        _flush_l2()
+        _flush_l2(write_flush)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -395,6 +418,11 @@ def _rand_words(gen, shape) -> torch.Tensor:
     return torch.randint(-(2**31), 2**31, shape, dtype=torch.int32, device="cuda", generator=gen)
 
 
+# count_rows's edge shapes (M, W): one 16-byte row, a ragged W, a row of
+# one segment, and 1,000 rows of four.
+COUNT_EDGES = ((1, 4), (3, 1028), (300, 4096), (1000, W))
+
+
 def check_kernels() -> tuple[dict, list, list, dict]:
     """Every kernel == its plain version on the card for every op
     variant, at the main path's shapes; returns per-kernel timings, the
@@ -434,7 +462,16 @@ def check_kernels() -> tuple[dict, list, list, dict]:
     diff("gather_src_counts", kernels.gather_src_counts(rm, pos, stack),
          kernels.gather_src_counts_plain(rm, pos, stack))
     torch.cuda.synchronize()
+    # count_rows on stacks one segment a row and split into several, ragged.
+    gen_c = _gen(SEED + 15)
+    for m, w in COUNT_EDGES:
+        a = _rand_words(gen_c, (m, w))
+        one = _rand_words(gen_c, (w,))
+        diff("count_rows", kernels.count_rows(a), kernels.count_rows_plain(a))
+        diff("count_rows", kernels.count_rows(a, one, "xor"), kernels.count_rows_plain(a, one, "xor"))
+    del a, one
     fold_cases = check_fold_kernels(rm, rng, diff)
+    print(json.dumps({"tree_checks": check_tree_edges(rm, diff)}), flush=True)
     print(json.dumps({"narrow_folds": check_narrow_folds(rm, diff)}), flush=True)
     check_staged_kernels(rm, diff)
     print(json.dumps({"staged_checks": {"resident_count_multi": check_staged_multi(rm, diff)}}),
@@ -447,20 +484,16 @@ def check_kernels() -> tuple[dict, list, list, dict]:
 
     row_b = W * 4
     res = {}
-    nb, by = bound(N_ROWS * row_b + row_b + N_ROWS * 4, N_ROWS * W * OPS_PER_WORD)
+    # count_rows at TopN phase 1's [256, W] & src (the line's numbers), the
+    # sequential Count's [64, W], and its floor: one 16-byte row.
     res["count_rows"] = dict(
-        shape=f"[{N_ROWS}, {W}] & shared src (TopN phase 1)",
-        ms=cuda_ms(lambda: kernels.count_rows(rows, src, "and")),
-        plain_ms=cuda_ms(lambda: kernels.count_rows_plain(rows, src, "and"), reps=5),
-        bound_ms=nb, bound_by=by,
-    )
-    nb, by = bound(N_SLICES * W * 4 + N_SLICES * 4, N_SLICES * W * 2)
+        count_times(rows, src, "and"), shape=f"[{N_ROWS}, {W}] & shared src (TopN phase 1)",
+        plain_ms=cuda_ms(lambda: kernels.count_rows_plain(rows, src, "and"), reps=5))
     res["count_rows"]["count_path"] = dict(
-        shape=f"[{N_SLICES}, {W}] no op (sequential Count)",
-        ms=cuda_ms(lambda: kernels.count_rows(stack)),
-        plain_ms=cuda_ms(lambda: kernels.count_rows_plain(stack), reps=5),
-        bound_ms=nb, bound_by=by,
-    )
+        count_times(stack, None, "none"), shape=f"[{N_SLICES}, {W}] no op (sequential Count)",
+        plain_ms=cuda_ms(lambda: kernels.count_rows_plain(stack), reps=5))
+    res["count_rows"]["floor"] = dict(count_times(stack[:1, :4].contiguous(), None, "none"),
+                                      shape="[1, 4] no op (one launch's floor)")
     # gather_count2 at B = 16 (the kernels line) and 64, 256, 600 ("shapes"),
     # each also timed without the entry point's host work ("kernel_ms").
     g2 = [gather2_times("and", rm, rng.integers(0, N_ROWS, size=(b, 2)).astype(np.int32))
@@ -757,6 +790,143 @@ def _multi_entry(dispatch_mod, batch, m):
     return lambda: fn(batch["op"], m, batch["idx"])
 
 
+# ---------------------------------------------------------------------------
+# The tree batches the paths launch
+# ---------------------------------------------------------------------------
+
+# The requests that hand the tree lane nested Counts (``_tree_call``'s four
+# shapes in turn) and how many Counts each carries: the executor path's
+# "gather-3 mixed" (8), the HTTP path's "tree" (FOLD_BATCH) and "tree-wide"
+# (TREE_WIDE_BATCH).  ``tree_path_batches`` draws them anew from a
+# generator of its own.
+TREE_PATH_REQUESTS = (("gather-3", 8), ("tree", FOLD_BATCH), ("tree-wide", TREE_WIDE_BATCH))
+TREE_PATHS_SEED = SEED + 13
+
+
+def tree_encodings(calls) -> list:
+    """The executor's own tree encodings of Count calls over frame "f", one
+    bucket per leaf count as the tree lane launches them: [(leaves
+    int32[B, K], opc int32[B, K - 1])], K ascending.  Compiled by the
+    port's executor over an empty index (the encoding reads only the
+    calls)."""
+    from pilosa_tpu_torch.core.frame import FrameOptions
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.pql.parser import parse
+
+    by_k: dict = {}
+    with tempfile.TemporaryDirectory() as d:
+        h = Holder(d)
+        h.open()
+        try:
+            h.create_index("i").create_frame("f", FrameOptions())
+            ex = Executor(h, engine="numpy")
+            for call in parse(" ".join(calls)).calls:
+                _, _, (_, k), lv, oc = ex._compile_count_tree("i", call.children[0])
+                by_k.setdefault(k, []).append((lv, oc))
+        finally:
+            h.close()
+    return [(np.array([lv for lv, _ in v], np.int32), np.array([oc for _, oc in v], np.int32))
+            for _, v in sorted(by_k.items())]
+
+
+def tree_path_batches() -> list:
+    """Every tree bucket of TREE_PATH_REQUESTS over the pool [S, R] = [64,
+    256], drawn anew: {"request", "S", "R", "leaves", "opc"}."""
+    rng = np.random.default_rng(TREE_PATHS_SEED)
+    out = []
+    for request, n in TREE_PATH_REQUESTS:
+        for lv, oc in tree_encodings([_tree_call(rng, N_ROWS, i) for i in range(n)]):
+            out.append({"request": request, "S": N_SLICES, "R": N_ROWS, "leaves": lv, "opc": oc})
+    return out
+
+
+def tree_bound(s: int, w: int, leaves, opc) -> dict:
+    """The least time for a tree batch: the distinct rows its LIVE leaves
+    name (``kernels.tree_live_leaves``), each slice read once, the ids and
+    opcodes read and the counts written; a node op for each live leaf, a
+    popcount and an add a word.  Beside it the batch's live leaves and
+    the bound the first design counted (every leaf's distinct rows)."""
+    live = kernels.tree_live_leaves(opc)
+    u = len(np.unique(leaves[live]))
+    b, k = leaves.shape
+    nb, by = bound(s * u * w * 4 + leaves.nbytes + opc.nbytes + b * 4,
+                   s * w * (int(live.sum()) + b))
+    return {"B": b, "K": k, "live_leaves": int(live.sum()), "leaves": b * k,
+            "distinct_live": u, "distinct": len(np.unique(leaves)), "bound_ms": nb, "bound_by": by,
+            "all_leaves_bound_ms": s * len(np.unique(leaves)) * w * 4 / PEAK_BYTES_S * 1e3}
+
+
+def tree_times(m, leaves, opc) -> dict:
+    """gather_count_tree on one batch: exact against its plain version,
+    then the entry point's device time (its host work included, as the
+    path pays it), the launch's alone (ids packed, ``kernel_ms``) and the
+    entry point's host work a call (``host_ms``), beside its live-row
+    bound (``tree_bound``)."""
+    s, r, w = m.shape
+    lv = np.ascontiguousarray(leaves, dtype=np.int32)
+    oc = np.ascontiguousarray(opc, dtype=np.int32)
+    want = _chunked(lambda x, y: kernels.gather_count_tree_plain(m, x, y), lv, oc)
+    if not torch.equal(kernels.gather_count_tree(m, lv, oc), want):
+        raise AssertionError(f"gather_count_tree B={len(lv)} K={lv.shape[1]}: kernel differs "
+                             "from its plain version")
+    ints = np.concatenate([lv.reshape(-1), kernels.tree_opcode_words(oc).reshape(-1)])
+    dev = kernels._ints(ints, m.device)
+    ptr = ints.ctypes.data if ints.size <= kernels.TREE_PARAM_INTS else dev.data_ptr()
+    out = torch.empty(len(lv), dtype=torch.int32, device=m.device)
+    fn = kernels._fn("gather_count_tree")
+    stream = kernels._stream(m)
+
+    def kernel_only():
+        kernels._check(fn(m.data_ptr(), ptr, out.data_ptr(), s, r, w, len(lv), lv.shape[1],
+                          stream), "gather_count_tree")
+
+    kernel_only()
+    if not torch.equal(out, want):
+        raise AssertionError(f"gather_count_tree B={len(lv)}: kernel-only launch differs")
+    return dict(tree_bound(s, w, lv, oc), S=s, R=r,
+                ms=cuda_ms(lambda: kernels.gather_count_tree(m, lv, oc)),
+                kernel_ms=cuda_ms(kernel_only),
+                host_ms=host_ms(lambda: kernels.gather_count_tree(m, lv, oc)))
+
+
+# Every tree batch the executor and HTTP paths hand the tree dispatch, as
+# (S, R, leaves, opc, the kernel dispatch picks): the batches
+# time_tree_paths rebuilds.
+TREE_SEEN: list = []
+
+
+def record_tree_batches() -> None:
+    """Wrap the tree dispatch so that each call appends its batch to
+    TREE_SEEN; the request records carry a summary."""
+    from pilosa_tpu_torch.ops import dispatch
+
+    def seen(m, leaves, opc, _fn=dispatch.gather_count_tree):
+        s, r, w = m.shape
+        lv = np.array(leaves, np.int32)
+        staged = dispatch.tree_strategy(len(np.unique(lv)), w, *lv.shape, s)
+        TREE_SEEN.append({"S": s, "R": r, "leaves": lv, "opc": np.array(opc, np.int32),
+                          "pick": "resident_count_tree" if staged else "gather_count_tree"})
+        return _fn(m, leaves, opc)
+
+    dispatch.gather_count_tree = seen
+
+
+def _tree_summary(b) -> dict:
+    live = kernels.tree_live_leaves(b["opc"])
+    return {"S": b["S"], "R": b["R"], "B": len(b["leaves"]), "K": b["leaves"].shape[1],
+            "live_leaves": int(live.sum()), "distinct_live": len(np.unique(b["leaves"][live])),
+            "pick": b["pick"]}
+
+
+def time_tree_paths() -> list:
+    """gather_count_tree at every tree batch the executor and HTTP paths
+    handed the gather kernel, each rebuilt over random words at its own
+    matrix shape (``tree_times``)."""
+    return _time_path_batches(TREE_SEEN, "gather_count_tree", SEED + 14,
+                              lambda m, b: tree_times(m, b["leaves"], b["opc"]))
+
+
 def check_fold_kernels(rm, rng, diff) -> dict:
     """gather_count_multi (and, or, andnot; K = 2-5 and 16; padded and
     unpadded) and gather_count_tree (K = 2, 4, 8, 16; opcodes 0-5, so
@@ -845,8 +1015,9 @@ def check_narrow_folds(rm, diff) -> list:
 def time_fold_kernels(rm, cases) -> dict:
     """CUDA-event times of the two fold kernels and their plain versions
     at each checked main-path shape.  ``bound_ms`` counts each referenced
-    row once (the function's inputs); ``gathered_bound_ms`` is the bytes
-    the kernel gathers, B x S x K x W x 4 (a row named twice is read
+    row once (the function's inputs; for the tree, the rows its live
+    leaves name: ``tree_bound``); ``gathered_bound_ms`` is the bytes the
+    first designs gathered, B x S x K x W x 4 (a row named twice is read
     twice), over the same rate."""
     row_b = W * 4
 
@@ -873,15 +1044,58 @@ def time_fold_kernels(rm, cases) -> dict:
     tree = []
     for c in cases["gather_count_tree"]:
         lv, oc = c["leaves"], c["opc"]
-        tree.append(entry(
-            "gather_count_tree", f"pool [{N_SLICES}, {N_ROWS}, {W}], B={lv.shape[0]}, K={lv.shape[1]}",
-            rm, lv, lambda: kernels.gather_count_tree(rm, lv, oc),
-            lambda: _chunked(lambda x, y: kernels.gather_count_tree_plain(rm, x, y), lv, oc)))
+        tree.append(dict(
+            tree_times(rm, lv, oc),
+            shape=f"pool [{N_SLICES}, {N_ROWS}, {W}], B={lv.shape[0]}, K={lv.shape[1]}, opcodes 0-5",
+            plain_ms=cuda_ms(lambda: _chunked(lambda x, y: kernels.gather_count_tree_plain(rm, x, y),
+                                              lv, oc), reps=2, warm=1),
+            gathered_bound_ms=lv.size * N_SLICES * row_b / PEAK_BYTES_S * 1e3))
     # The line's own numbers: the N-ary Intersect shape (K=3) and the
     # depth-3 tree (K=8); every other shape rides along under "shapes".
     out = {"gather_count_multi": dict(multi[0], shapes=multi[1:]),
            "gather_count_tree": dict(tree[2], shapes=tree[:2] + tree[3:])}
     return out
+
+
+def check_tree_edges(rm, diff) -> list:
+    """gather_count_tree against its plain version on the card, exactly,
+    for each K: every node a PASS (only the leftmost leaf live); a PASS
+    root over random subtrees (the right half dead); opcodes 0-5 with
+    every dead leaf moved to row R - 1 (the counts must not move); one
+    tree; the smallest batch past the launch's parameters (ids in a
+    device array); and a ragged W of 1,028 words over 3 slices.  Returns
+    the case names."""
+    from pilosa_tpu_torch.ops import bitwise
+
+    rng = np.random.default_rng(TREE_PATHS_SEED + 1)
+    r = N_ROWS
+    ragged = _rand_words(_gen(TREE_PATHS_SEED), (3, 40, 1028))
+    names = []
+    for k in kernels.TREE_LEAVES:
+        past = kernels.TREE_PARAM_INTS // (k + 2) + 1
+
+        def trees(b, rows=r):
+            return (rng.integers(0, rows, size=(b, k)).astype(np.int32),
+                    rng.integers(0, 6, size=(b, k - 1)).astype(np.int32))
+
+        lv, oc = trees(FOLD_BATCH)
+        every = np.full_like(oc, bitwise.TREE_PASS)
+        root = oc.copy()
+        root[:, -1] = bitwise.TREE_PASS
+        moved = lv.copy()
+        moved[~kernels.tree_live_leaves(oc)] = r - 1
+        cases = [("all PASS", rm, lv, every), ("PASS root", rm, lv, root),
+                 ("opcodes 0-5", rm, lv, oc), ("dead leaves on R-1", rm, moved, oc),
+                 ("B=1", rm, *trees(1)), (f"B={past} (ids in an array)", rm, *trees(past)),
+                 ("W=1028 over 3 slices", ragged, *trees(5, 40))]
+        for name, m, a, o in cases:
+            diff("gather_count_tree", kernels.gather_count_tree(m, a, o),
+                 _chunked(lambda x, y, _m=m: kernels.gather_count_tree_plain(_m, x, y), a, o))
+            names.append(f"K={k} {name}")
+        diff("gather_count_tree", kernels.gather_count_tree(rm, moved, oc),
+             kernels.gather_count_tree(rm, lv, oc))
+    torch.cuda.synchronize()
+    return names
 
 
 # The staged kernels' exact checks use a generator of their own, so the
@@ -1326,6 +1540,16 @@ def _load_other(other_root: str):
 MULTI_ABBA_ROUNDS = 3
 
 
+def _abba_rounds(fa, fb) -> tuple[list, list]:
+    """MULTI_ABBA_ROUNDS rounds of ``_abba``: the readings of a, of b."""
+    a_ms, b_ms = [], []
+    for _ in range(MULTI_ABBA_ROUNDS):
+        a, b = _abba(fa, fb)
+        a_ms += a
+        b_ms += b
+    return a_ms, b_ms
+
+
 def resident_against(other_root: str) -> int:
     """``resident_count2``, ``gather_count2`` and the two multi-fold entry
     points (``dispatch.gather_count_multi``,
@@ -1364,17 +1588,17 @@ def resident_against(other_root: str) -> int:
         for op in PAIR_OPS:
             if not torch.equal(kernels.gather_count2(op, rm, pairs), other.gather_count2(op, rm, pairs)):
                 raise AssertionError(f"gather_count2 {op} B={b}: the checkouts disagree")
-        o_ms, ms = [], []
-        for _ in range(MULTI_ABBA_ROUNDS):
-            theirs_ms, mine_ms = _abba(lambda: other.gather_count2("and", rm, pairs),
-                                       lambda: kernels.gather_count2("and", rm, pairs))
-            o_ms += theirs_ms
-            ms += mine_ms
+        o_ms, ms = _abba_rounds(lambda: other.gather_count2("and", rm, pairs),
+                                lambda: kernels.gather_count2("and", rm, pairs))
         rows.append({"S": N_SLICES, "R": N_ROWS, "B": b, "distinct": len(np.unique(pairs)),
                      "other_ms": o_ms, "ms": ms,
                      "other_host_ms": host_ms(lambda: other.gather_count2("and", rm, pairs)),
                      "host_ms": host_ms(lambda: kernels.gather_count2("and", rm, pairs))})
     print(json.dumps({"card": card, "other": other_root, "gather2_against": rows}), flush=True)
+    print(json.dumps({"card": card, "other": other_root,
+                      "count_against": count_against(rm, dispatch, other_dispatch)}), flush=True)
+    print(json.dumps({"card": card, "other": other_root,
+                      "tree_against": tree_against(rm, dispatch, other_dispatch)}), flush=True)
     del rm
     torch.cuda.empty_cache()
     words = _Words()
@@ -1384,11 +1608,7 @@ def resident_against(other_root: str) -> int:
         mine, theirs = _multi_entry(dispatch, batch, m), _multi_entry(other_dispatch, batch, m)
         if not torch.equal(mine(), theirs()):
             raise AssertionError(f"multi-fold {batch['request']}: the checkouts disagree")
-        o_ms, ms = [], []
-        for _ in range(MULTI_ABBA_ROUNDS):
-            theirs_ms, mine_ms = _abba(theirs, mine)
-            o_ms += theirs_ms
-            ms += mine_ms
+        o_ms, ms = _abba_rounds(theirs, mine)
         row_major = batch["layout"] == "row"
         idx = batch["idx"]
         a, c = batch["matrix"]
@@ -1403,6 +1623,55 @@ def resident_against(other_root: str) -> int:
                           dispatch=multi_choice(batch)))
     print(json.dumps({"card": card, "other": other_root, "multi_against": multi}), flush=True)
     return 0
+
+
+def count_against(rm, mine, theirs) -> list:
+    """The two count entry points of this checkout's dispatch (``mine``)
+    against another's (``theirs``) on the same inputs: the sequential
+    Count's [64, W] stack (``count``), TopN phase 1's [256, W] against a
+    shared src (``batch_intersection_count``) and one 16-byte row; exact
+    agreement, then ABBA rounds and each one's host work a call."""
+    stack = rm[:, 0].contiguous()
+    cand, src = rm[0], rm[1, 0]
+    tiny = stack[:1, :4].contiguous()
+    out = []
+    for name, call in (("[64, W] Count", lambda d: d.count(stack)),
+                       ("[256, W] & shared src", lambda d: d.batch_intersection_count(cand, src)),
+                       ("[1, 4] Count", lambda d: d.count(tiny))):
+        if not torch.equal(call(mine), call(theirs)):
+            raise AssertionError(f"count_rows {name}: the checkouts disagree")
+        o_ms, ms = _abba_rounds(lambda: call(theirs), lambda: call(mine))
+        out.append({"shape": name, "other_ms": o_ms, "ms": ms,
+                    "other_host_ms": host_ms(lambda: call(theirs)), "host_ms": host_ms(lambda: call(mine))})
+    return out
+
+
+def tree_against(rm, mine, theirs) -> list:
+    """The tree entry point (``dispatch.gather_count_tree``, with its gate)
+    of this checkout's dispatch (``mine``) against another's (``theirs``)
+    on the same inputs over the pool [64, 256, W]: the kernels line's
+    shapes (B=64, K = 2-16, opcodes 0-5) drawn anew and every tree bucket
+    of the paths (``tree_path_batches``); exact agreement, then ABBA
+    rounds, each one's host work a call and the live-row bound."""
+    from pilosa_tpu_torch.ops import dispatch
+
+    rng = np.random.default_rng(TREE_PATHS_SEED + 2)
+    batches = [{"request": f"timed K={k}", "leaves": rng.integers(0, N_ROWS, size=(FOLD_BATCH, k)).astype(np.int32),
+                "opc": rng.integers(0, 6, size=(FOLD_BATCH, k - 1)).astype(np.int32)}
+               for k in kernels.TREE_LEAVES]
+    out = []
+    for bt in batches + tree_path_batches():
+        lv, oc = bt["leaves"], bt["opc"]
+        if not torch.equal(mine.gather_count_tree(rm, lv, oc), theirs.gather_count_tree(rm, lv, oc)):
+            raise AssertionError(f"tree {bt['request']} K={lv.shape[1]}: the checkouts disagree")
+        o_ms, ms = _abba_rounds(lambda: theirs.gather_count_tree(rm, lv, oc),
+                                lambda: mine.gather_count_tree(rm, lv, oc))
+        staged = dispatch.tree_strategy(len(np.unique(lv)), W, *lv.shape, N_SLICES)
+        out.append(dict(tree_bound(N_SLICES, W, lv, oc), request=bt["request"], other_ms=o_ms, ms=ms,
+                        other_host_ms=host_ms(lambda: theirs.gather_count_tree(rm, lv, oc)),
+                        host_ms=host_ms(lambda: mine.gather_count_tree(rm, lv, oc)),
+                        pick="resident_count_tree" if staged else "gather_count_tree"))
+    return out
 
 
 def check_tall_kernels(rm, stack, rng, diff) -> tuple[dict, list]:
@@ -1714,6 +1983,41 @@ def host_ms(fn, n: int = 200) -> float:
     return (t1 - t0) / n * 1e3
 
 
+def count_times(a, b, op) -> dict:
+    """count_rows on one stack: exact against its plain version, then the
+    entry point's device time (its host work included, ``ms``), the
+    launch's alone (``kernel_ms``; with the L2 flushed by writes:
+    ``kernel_ms_write_flush``) and the entry point's host
+    work a call (``host_ms``), beside its byte bound (each row read once,
+    the counts written)."""
+    m, w = a.shape
+    want = kernels.count_rows_plain(a, b, op)
+    if not torch.equal(kernels.count_rows(a, b, op), want):
+        raise AssertionError(f"count_rows [{m}, {w}] {op}: kernel differs from its plain version")
+    out = torch.empty(m, dtype=torch.int32, device=a.device)
+    n_seg, seg_vecs = kernels.count_rows_segments(m, w, kernels.sm_count(a.device))
+    stride = 0 if b is None or b.dim() == 1 else w
+    fn = kernels._fn("count_rows")
+    stream = kernels._stream(a)
+
+    def kernel_only():
+        kernels._check(fn(a.data_ptr(), None if b is None else b.data_ptr(), stride, out.data_ptr(),
+                          m, w, kernels.OPS[op], n_seg, seg_vecs, stream), "count_rows")
+
+    kernel_only()
+    if not torch.equal(out, want):
+        raise AssertionError(f"count_rows [{m}, {w}]: kernel-only launch differs")
+    nb, by = bound(a.numel() * 4 + (0 if b is None else b.numel() * 4) + m * 4,
+                   m * w * (2 if b is None else OPS_PER_WORD))
+    # Launches of 0.006-0.03 ms: 50 readings each, where one slow reading
+    # moves a mean of 10 by a fifth.
+    return {"M": m, "W": w, "n_seg": n_seg,
+            "ms": cuda_ms(lambda: kernels.count_rows(a, b, op), reps=50),
+            "kernel_ms": cuda_ms(kernel_only, reps=50),
+            "kernel_ms_write_flush": cuda_ms(kernel_only, reps=50, write_flush=True),
+            "host_ms": host_ms(lambda: kernels.count_rows(a, b, op)), "bound_ms": nb, "bound_by": by}
+
+
 def gather2_times(op, m, pairs, sweep: bool = False) -> dict:
     """gather_count2 on one batch: exact against its plain version, then
     the entry point's device time (its host work included, as the path
@@ -1759,26 +2063,36 @@ def gather2_times(op, m, pairs, sweep: bool = False) -> dict:
     return res
 
 
-def time_gather2_paths() -> list:
-    """gather_count2 at every pair batch the executor path handed the
-    gather kernel, and at the row-major pair batches (gather-2) as
-    slice-major batches of the same pairs, each rebuilt over random words
-    at its own matrix shape."""
+def _time_path_batches(seen, pick: str, seed: int, times) -> list:
+    """``times(matrix, batch)`` at every recorded batch that dispatch gave
+    the kernel ``pick``, each over random words at its own [S, R, W]
+    (one matrix on the card at a time)."""
     out = []
-    gen = _gen(SEED + 12)
+    gen = _gen(seed)
     mats = {}
-    for b in PAIR_SEEN:
-        if b["pick"] == "resident_count2":
+    for b in seen:
+        if b["pick"] != pick:
             continue
         key = (b["S"], b["R"])
         if key not in mats:
             mats.clear()
             torch.cuda.empty_cache()
             mats[key] = _rand_words(gen, (b["S"], b["R"], W))
-        out.append(dict(gather2_times("xor", mats[key], b["pairs"]), path_layout=b["layout"]))
+        out.append(times(mats[key], b))
     mats.clear()
     torch.cuda.empty_cache()
     return out
+
+
+def time_gather2_paths() -> list:
+    """gather_count2 at every pair batch the executor path handed the
+    gather kernel, and at the row-major pair batches (gather-2) as
+    slice-major batches of the same pairs, each rebuilt over random words
+    at its own matrix shape."""
+    rebuilt = [dict(b, pick="gather_count2") if b["pick"] == "gather_count2_rowmajor" else b
+               for b in PAIR_SEEN]
+    return _time_path_batches(rebuilt, "gather_count2", SEED + 12, lambda m, b: dict(
+        gather2_times("xor", m, b["pairs"]), path_layout=b["layout"]))
 
 
 # ---------------------------------------------------------------------------
@@ -1841,7 +2155,7 @@ def run_request(records, name, ex, ex_ref, calls, sub=None, expect=(), sync=lamb
     the engine uploaded).  Returns the answers."""
     before = dict(kernels.LAUNCHES)
     up0 = ex.engine.stat_upload_bytes
-    n_seen, n_pairs = len(MULTI_SEEN), len(PAIR_SEEN)
+    n_seen, n_pairs, n_trees = len(MULTI_SEEN), len(PAIR_SEEN), len(TREE_SEEN)
     t0 = time.perf_counter()
     got = _norm(ex.execute("i", " ".join(calls), opt=opt))
     sync()
@@ -1862,6 +2176,8 @@ def run_request(records, name, ex, ex_ref, calls, sub=None, expect=(), sync=lamb
         records[-1]["multi_batches"] = MULTI_SEEN[n_seen:]
     if len(PAIR_SEEN) > n_pairs:
         records[-1]["pair_batches"] = [_pair_summary(b) for b in PAIR_SEEN[n_pairs:]]
+    if len(TREE_SEEN) > n_trees:
+        records[-1]["tree_batches"] = [_tree_summary(b) for b in TREE_SEEN[n_trees:]]
     return got
 
 
@@ -1990,7 +2306,7 @@ def http_path(host: str, ex_ref, n_rows: int, time_rows: int, engine) -> list[di
     def run(name, calls, expect=()):
         before = dict(kernels.LAUNCHES)
         up0 = engine.stat_upload_bytes
-        n_seen = len(MULTI_SEEN)
+        n_seen, n_trees = len(MULTI_SEEN), len(TREE_SEEN)
         req = urllib.request.Request(f"http://{host}/index/i/query",
                                      data=" ".join(calls).encode(), method="POST")
         t0 = time.perf_counter()
@@ -2014,6 +2330,8 @@ def http_path(host: str, ex_ref, n_rows: int, time_rows: int, engine) -> list[di
                         "upload_bytes": upload})
         if len(MULTI_SEEN) > n_seen:
             records[-1]["multi_batches"] = MULTI_SEEN[n_seen:]
+        if len(TREE_SEEN) > n_trees:
+            records[-1]["tree_batches"] = [_tree_summary(b) for b in TREE_SEEN[n_trees:]]
 
     # The pair lanes behind the server: a cold pair batch naming every row
     # takes the resident kernel.
@@ -2146,7 +2464,7 @@ def main() -> int:
     per_source = kernels.build()
     print(f"build_s {time.perf_counter() - t0:.3f} per-source {json.dumps(per_source)}", flush=True)
     print(json.dumps({"ptxas": ptxas_usage((
-        "resident_count2", "gather_count_multi", "gather_count_tree", "resident_count_tree",
+        "count_rows", "resident_count2", "gather_count_multi", "gather_count_tree", "resident_count_tree",
         "gather_count2_rowmajor", "gather_count_multi_rowmajor", "topn_counts",
         "resident_count_multi", "pair_gram", "gather_count2"))}), flush=True)
 
@@ -2169,6 +2487,7 @@ def main() -> int:
 
     record_multi_batches()
     record_pair_batches()
+    record_tree_batches()
 
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
@@ -2210,6 +2529,7 @@ def main() -> int:
             srv.close()
         del srv, ex_ref
         torch.cuda.empty_cache()
+        print(json.dumps({"card": card, "tree_paths": time_tree_paths()}), flush=True)
 
     # The tall path, in a data directory of its own.
     with tempfile.TemporaryDirectory() as d2:
@@ -2241,7 +2561,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms"), "shape": t["shape"],
         }
-        for extra in ("count_path", "shapes", "gathered_bound_ms", "all_rows_floor_ms",
+        for extra in ("count_path", "floor", "shapes", "gathered_bound_ms", "all_rows_floor_ms",
+                      "all_leaves_bound_ms", "live_leaves", "distinct_live", "kernel_ms_write_flush",
                       "chunk_words", "stages", "smem_bytes", "kernel_ms", "n_seg",
                       "kernel_ms_by_n_seg", "host_ms", "bytes_bound_ms", "ops_bound_ms",
                       "int8_ops_bound_ms", "int_mm_only_ms", "checked", "schedule", "buckets",

@@ -22,13 +22,17 @@ from pilosa_tpu_torch.ops import kernels
 
 
 def _rows2d(x: torch.Tensor) -> torch.Tensor:
-    """[..., W] -> contiguous [M, W] (the count_rows kernel's shape)."""
+    """[..., W] -> contiguous [M, W] (the count_rows kernel's shape); a
+    contiguous [M, W] as it is."""
+    if x.dim() == 2 and x.is_contiguous():
+        return x
     return x.reshape(-1, x.shape[-1]).contiguous()
 
 
 def count(x: torch.Tensor) -> torch.Tensor:
     """Total set bits over the last axis. [..., W] -> int32[...]."""
-    return kernels.count_rows(_rows2d(x)).reshape(x.shape[:-1])
+    out = kernels.count_rows(_rows2d(x))
+    return out if x.dim() == 2 else out.reshape(x.shape[:-1])
 
 
 def batch_intersection_count(rows: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
@@ -36,7 +40,8 @@ def batch_intersection_count(rows: torch.Tensor, src: torch.Tensor) -> torch.Ten
     hot loop.  A [W] src is shared by every row (read with stride 0, no
     K-way broadcast in memory); otherwise src is per row."""
     b = src.contiguous() if src.dim() == 1 else _rows2d(src.expand_as(rows))
-    return kernels.count_rows(_rows2d(rows), b, "and").reshape(rows.shape[:-1])
+    out = kernels.count_rows(_rows2d(rows), b, "and")
+    return out if rows.dim() == 2 else out.reshape(rows.shape[:-1])
 
 
 # Gram gate the executor imports: per-pair counts must stay inside int32
@@ -169,10 +174,11 @@ def gather_count_multi(op: str, row_matrix: torch.Tensor, idx):
 # The staged tree kernel serves a batch whose leaf references reach this
 # many per distinct leaf row in each of the kernel's groups of 64 trees
 # (every group stages all of the batch's rows).  Measured on the H100
-# (PERF_GATES.md, the tree gate): at about 2.3 references a row the two kernels
-# tie or the gather kernel, whose repeated rows L2 serves, wins; at 4 and
-# more the staged kernel is faster: by 13-35% at one group of 16-leaf
-# trees, 20-45% at two and four, 1-15% at batches of 4-8 leaves.
+# (PERF_GATES.md, the tree gate, re-derived after the gather kernel
+# learned to skip dead leaves): to about 2.4 references a row the gather
+# kernel, whose repeated rows L2 serves, wins by 2-17%; at 4 and more the
+# staged kernel is faster: by 17% at one group of 16-leaf trees, 20-40%
+# at two and four, 12-16% at batches of 4-8 leaves.
 TREE_REUSE_MIN = 3
 
 

@@ -81,12 +81,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = {
-    "count_rows": ("pk_count_rows", [_P, _P, _L, _P, _I, _I, _I, _P]),
+    "count_rows": ("pk_count_rows", [_P, _P, _L, _P, _I, _I, _I, _I, _I, _P]),
     "resident_count2": ("pk_resident_count2", [_P, _P, _P, _P] + [_I] * 8 + [_P]),
     "gather_count2": ("pk_gather_count2", [_P, _P, _P] + [_I] * 7 + [_P]),
     "gather_src_counts": ("pk_gather_src_counts", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "gather_count_multi": ("pk_gather_count_multi", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "gather_count_tree": ("pk_gather_count_tree", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "gather_count_tree": ("pk_gather_count_tree", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "resident_count_tree": ("pk_resident_count_tree", [_P] * 5 + [_I] * 8 + [_P]),
     "gather_count2_rowmajor": ("pk_gather_count2_rowmajor", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "gather_count_multi_rowmajor": (
@@ -185,7 +185,10 @@ def _check(err: int, name: str) -> None:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of a CUDA tensor's device, as a raw handle (a
+    fraction of ``torch.cuda.current_stream(device).cuda_stream``'s host
+    time)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 _sms: dict = {}
@@ -244,14 +247,36 @@ def count_rows_plain(a, b=None, op: str = "none"):
     return bitwise.count_op(op, a, b)
 
 
+# count_rows.cu's block step (256 threads x 8 16-byte vectors) and the
+# waves of one block an SM that a launch's (row, segment) units cover.
+COUNT_STEP_VECS = 256 * 8
+COUNT_WAVES = 2
+
+
+def count_rows_segments(m: int, w: int, sms: int) -> tuple[int, int]:
+    """(n_seg, seg_vecs) of a count_rows launch on a card of ``sms`` SMs:
+    each of the M rows of W words in n_seg segments of seg_vecs 16-byte
+    vectors, one block each.  The segments double until the M x n_seg
+    blocks cover COUNT_WAVES waves of one block an SM, while a segment
+    keeps at least one block step.  Segment g covers vectors [g *
+    seg_vecs, min((g + 1) * seg_vecs, W / 4))."""
+    wv = w // 4
+    n_seg = 1
+    while m * n_seg < COUNT_WAVES * sms and -(-wv // (2 * n_seg)) >= COUNT_STEP_VECS:
+        n_seg *= 2
+    return n_seg, max(1, -(-wv // n_seg))
+
+
 def count_rows(a: torch.Tensor, b=None, op: str = "none") -> torch.Tensor:
     """out[m] = popcount(op(a[m], b[m] or b)) summed over words -> int32[M].
 
     a: int32[M, W]; b: None (op "none"), int32[M, W] (per row) or
-    int32[W] (one row shared by every a row, read with stride 0)."""
-    if op not in OPS:
+    int32[W] (one row shared by every a row, read with stride 0).  Each
+    row in ``count_rows_segments`` segments."""
+    code = OPS.get(op)
+    if code is None:
         raise ValueError(f"unknown op {op!r}")
-    if (op == "none") != (b is None):
+    if (code == 0) != (b is None):
         raise ValueError("op 'none' takes no b; a pair op needs one")
     if _on_cpu(a):
         return count_rows_plain(a, b, op)
@@ -262,16 +287,15 @@ def count_rows(a: torch.Tensor, b=None, op: str = "none") -> torch.Tensor:
         if b.device != a.device:
             raise ValueError("count_rows: a and b on different devices")
         _words(b, "count_rows b", b.dim())
-        if tuple(b.shape) == (w,):
-            stride = 0
-        elif tuple(b.shape) == (m, w):
+        if b.shape == a.shape:
             stride = w
-        else:
+        elif b.shape != (w,):
             raise ValueError(f"count_rows: b shape {tuple(b.shape)} vs a {tuple(a.shape)}")
-    out = torch.empty(m, dtype=torch.int32, device=a.device)
+    out = a.new_empty(m)
+    n_seg, seg_vecs = count_rows_segments(m, w, sm_count(a.device))
     err = _fn("count_rows")(
-        a.data_ptr(), b.data_ptr() if b is not None else None, stride,
-        out.data_ptr(), m, w, OPS[op], _stream(a),
+        a.data_ptr(), None if b is None else b.data_ptr(), stride, out.data_ptr(), m, w, code,
+        n_seg, seg_vecs, _stream(a),
     )
     _check(err, "count_rows")
     LAUNCHES["count_rows"] += 1
@@ -530,6 +554,45 @@ def gather_count_multi(op: str, row_matrix: torch.Tensor, idx) -> torch.Tensor:
 # Leaf counts the tree kernel is built for: depths 1-4 (the executor's
 # _TREE_DEPTH_MAX is 4).
 TREE_LEAVES = (2, 4, 8, 16)
+# The most ints a launch carries in its own parameters (B x K leaf ids and
+# two opcode words a tree): gather_count_tree.cu's kParamInts.
+TREE_PARAM_INTS = 1000
+
+
+def tree_live_leaves(opc) -> np.ndarray:
+    """Which leaves of each perfect tree reach its root -> bool[B, K], for
+    opcodes int[B, K - 1] level-major bottom-up: the root is live, a node
+    whose opcode is not 0-3 (TREE_PASS) passes its left child and drops
+    its right one, and everything under a dead node is dead.  The rule
+    gather_count_tree.cu applies in each block (the launch does not call
+    this); a dead leaf's row never changes a count."""
+    oc = np.asarray(opc)
+    b, k = oc.shape[0], oc.shape[1] + 1
+    live = np.ones((b, 1), dtype=bool)
+    n = 1
+    while n < k:  # the level of n nodes starts at opcode k - 2n
+        ops = oc[:, k - 2 * n:k - n]
+        keep = (ops >= 0) & (ops <= 3)
+        live = np.stack([live, live & keep], axis=2).reshape(b, 2 * n)
+        n *= 2
+    return live
+
+
+# Opcode i of a tree times 16^(i % 8) in column i // 8: a tree's K - 1
+# opcodes times the first K - 1 rows are its two packed words (the 4-bit
+# fields never overlap, so the product's sums are their ORs).
+_TREE_PACK = np.zeros((15, 2), dtype=np.uint64)  # K - 1 <= 15
+_TREE_PACK[np.arange(15), np.arange(15) // 8] = np.uint64(16) ** (np.arange(15) % 8).astype(np.uint64)
+
+
+def tree_opcode_words(opc) -> np.ndarray:
+    """Each tree's K - 1 opcodes packed 4 bits apiece into two words ->
+    int32[B, 2]: opcode i in bits 4 (i % 8) of word i // 8, every value
+    outside 0-3 as TREE_PASS (the kernel's layout)."""
+    oc = np.asarray(opc, dtype=np.int64)
+    # A negative opcode wraps past 3 as uint64: it packs as TREE_PASS too.
+    oc = np.minimum(oc.astype(np.uint64), bitwise.TREE_PASS)
+    return (oc @ _TREE_PACK[:oc.shape[1]]).astype(np.uint32).view(np.int32)
 
 
 def gather_count_tree_plain(row_matrix, leaves, opc):
@@ -539,22 +602,27 @@ def gather_count_tree_plain(row_matrix, leaves, opc):
 def gather_count_tree(row_matrix: torch.Tensor, leaves, opc) -> torch.Tensor:
     """Per-query ``sum_s popcount(tree(rm[s, leaves[q]]))`` -> int32[B] for
     a perfect tree of K = 2^D leaves and K - 1 opcodes, level-major
-    bottom-up (``bitwise.gather_count_tree`` gives the encoding)."""
+    bottom-up (``bitwise.gather_count_tree`` gives the encoding).  The
+    kernel loads only live leaves (``tree_live_leaves``).  A batch of up
+    to TREE_PARAM_INTS ids and opcode words crosses in the launch's
+    parameters (no upload); a larger batch is uploaded."""
     if _on_cpu(row_matrix):
         return gather_count_tree_plain(row_matrix, leaves, opc)
     _words(row_matrix, "gather_count_tree matrix", 3)
     s, r, w = row_matrix.shape
-    lv = _ids(leaves, r, row_matrix.device, "gather_count_tree leaves")
-    oc = _ints(opc, row_matrix.device)
-    if lv.dim() != 2 or lv.shape[1] not in TREE_LEAVES:
-        raise ValueError(f"gather_count_tree: leaves shape {tuple(lv.shape)}, want [B, K in {TREE_LEAVES}]")
+    lv = _host_ids(leaves, r, "gather_count_tree leaves")
+    if lv.ndim != 2 or lv.shape[1] not in TREE_LEAVES:
+        raise ValueError(f"gather_count_tree: leaves shape {lv.shape}, want [B, K in {TREE_LEAVES}]")
     b, k = lv.shape
-    if tuple(oc.shape) != (b, k - 1):
-        raise ValueError(f"gather_count_tree: opc shape {tuple(oc.shape)}, want {(b, k - 1)}")
-    out = torch.zeros(b, dtype=torch.int32, device=row_matrix.device)
+    oc = np.asarray(opc)
+    if oc.shape != (b, k - 1):
+        raise ValueError(f"gather_count_tree: opc shape {oc.shape}, want {(b, k - 1)}")
+    ints = np.concatenate([lv.reshape(-1), tree_opcode_words(oc).reshape(-1)])
+    out = row_matrix.new_empty(b)
+    dev = None if ints.size <= TREE_PARAM_INTS else _ints(ints, row_matrix.device)
     err = _fn("gather_count_tree")(
-        row_matrix.data_ptr(), lv.data_ptr(), oc.data_ptr(), out.data_ptr(), s, r, w, b, k,
-        _stream(row_matrix),
+        row_matrix.data_ptr(), ints.ctypes.data if dev is None else dev.data_ptr(),
+        out.data_ptr(), s, r, w, b, k, _stream(row_matrix),
     )
     _check(err, "gather_count_tree")
     LAUNCHES["gather_count_tree"] += 1
