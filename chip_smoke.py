@@ -12,11 +12,10 @@
 3. Holds each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it, for every op variant; exact equality
    (integer counts), and times both with CUDA events beside the kernel's
-   memory bound (the L2 flushed before each launch by reading 128 MB).
+   memory bound (the L2 flushed before each launch by writing 128 MB).
    ``count_rows`` is also held on ragged and split stacks and timed at
    [256, W] & src, [64, W] and one 16-byte row (its floor), each through
-   its entry point, as a launch alone (also with the L2 flushed by
-   writes) and by its host work a call.  ``gather_count_tree`` is held
+   its entry point, as a launch alone and by its host work a call.  ``gather_count_tree`` is held
    on PASS-only trees, PASS roots, dead leaves moved to row R - 1, one
    tree, a batch past the launch's parameters and a ragged W (a
    "tree_checks" line), and its bound counts the rows its live leaves
@@ -73,13 +72,13 @@
    (engine on the card) on an ephemeral port, ``POST /index/i/query``
    over urllib — a pair batch, N-ary Intersect / Union / Difference
    batches (multi-fold kernel), nested and multi-operand Xor Counts
-   (tree-fold kernel), two ``Count(Range(...))`` batches over the
-   multi-view matrix (range-1's covers name each (view, row) row 2.6
-   times: the staged multi-fold kernel; range-2's 2.0: the gather kernel),
-   and "tree-wide":
-   256 nested Counts
-   whose K=16 bucket names its rows often enough for the staged tree
-   kernel.  A seeded 16-query subset of each
+   (tree-fold kernel), three ``Count(Range(...))`` batches over the
+   multi-view matrix (range-1 and range-2: the gather multi-fold kernel;
+   "range-wide", whose long covers fold 17.5 operands: the staged one),
+   "tree-wide": 256 nested Counts over the 256 rows (the gather tree
+   kernel), and "tree-hot": 256 nested Counts over 64 hot rows, whose
+   K=8 and K=16 buckets name their rows often enough with their live
+   leaves for the staged tree kernel.  A seeded 16-query subset of each
    answer is checked against ``Executor(srv.holder, engine="numpy")``.
 7. Drives the tall path in a data directory of its own: 32 slices x 1,024
    rows x 1,000 distinct bits per row per slice, 4 GiB dense, twice what
@@ -90,10 +89,10 @@
    "rmgather" lane serves a batch from it; each checked against the numpy
    engine.
    After the HTTP path, ``gather_count_tree`` is held and timed at every
-   tree batch the executor ("gather-3") and HTTP ("tree", "tree-wide")
-   paths handed the gather kernel, rebuilt at its own shape, through its
-   entry point and as a launch alone beside its live-row bound (a
-   "tree_paths" line).
+   tree batch the executor ("gather-3") and HTTP ("tree", "tree-wide",
+   "tree-hot") paths handed the tree dispatch, rebuilt at its own shape,
+   through its entry point and as a launch alone beside its live-row
+   bound, and the staged kernel on the same batch (a "tree_paths" line).
 8. Fails unless every kernel's launch counter moved during its path: the
    counters are set to 0 just before each path and read just after it.
 
@@ -119,6 +118,15 @@ this, DIR, after checking that the two agree exactly; it prints a
 ``{"card": ..., "resident_against": [...]}``, a ``"gather2_against"``, a
 ``"count_against"``, a ``"tree_against"`` and a ``{"card": ...,
 "multi_against": [...]}`` line.
+
+    python3 chip_smoke.py --requests-against DIR
+
+drives the executor and HTTP paths' requests (no kernel phase, no tall
+path) with the package of the checkout at DIR and with this one, each in
+a process of its own (``--requests ROOT``), in the order DIR, this,
+this, DIR, every answer checked against the numpy engine, and prints a
+``{"card": ..., "requests_against": [...]}`` line of each request's wall
+ms a side.
 """
 
 from __future__ import annotations
@@ -136,7 +144,12 @@ from datetime import datetime
 import numpy as np
 import torch
 
-from pilosa_tpu_torch.ops import kernels
+# ``--requests ROOT`` drives the paths with the package of the checkout at
+# ROOT (see ``requests_of``).
+if sys.argv[1:2] == ["--requests"]:
+    sys.path.insert(0, os.path.abspath(sys.argv[2]))
+
+from pilosa_tpu_torch.ops import kernels  # noqa: E402
 
 SLICE_WIDTH = 1 << 20
 W = SLICE_WIDTH // 32
@@ -161,6 +174,8 @@ STAMPS = [datetime(2017, m, d, hh) for m in range(1, 13) for d in (1, 15) for hh
 FOLD_BATCH = 64
 RANGE_BATCH = 128
 TREE_WIDE_BATCH = 256
+# "tree-hot" draws its nested Counts from the first 64 rows only.
+TREE_HOT_ROWS = 64
 
 # The tall path: 32 slices x 1,024 rows x 128 KiB = 4 GiB, twice the
 # default pool budget (which holds 512 rows at 32 slices), so batches
@@ -220,7 +235,7 @@ REPLACES = {
 }
 # Which path must launch each kernel: the executor path keeps the four
 # pair/TopN kernels, the HTTP path the four fold kernels (the staged tree
-# kernel through the "tree-wide" request, the staged multi kernel through
+# kernel through the "tree-hot" request, the staged multi kernel through
 # the "range-wide" request), the tall path the two row-major kernels, and the
 # differential sweep the whole-row scorer.
 PATH_OF = {
@@ -241,29 +256,24 @@ PQL_OPS = {"and": "Intersect", "or": "Union", "andnot": "Difference", "xor": "Xo
 _flush_buf = None
 
 
-def _flush_l2(write: bool = False) -> None:
-    """Read more than the 50 MB L2 so the next launch reads cold, as the
-    main path's callers find the matrices, and finds no dirty line to
-    write back; ``write``: overwrite it instead, which leaves up to 50 MB
-    of dirty lines for the timed launch to write back."""
+def _flush_l2() -> None:
+    """Overwrite more than the 50 MB L2 so the next launch reads cold,
+    as the main path's callers find the matrices."""
     global _flush_buf
     if _flush_buf is None:
-        _flush_buf = torch.zeros(128 << 20, dtype=torch.uint8, device="cuda")
-    if write:
-        _flush_buf.zero_()
-    else:
-        _flush_buf.max()
+        _flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    _flush_buf.zero_()
 
 
-def cuda_ms(fn, reps: int = 10, warm: int = 2, write_flush: bool = False) -> float:
+def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     """Mean device time of fn() in ms: CUDA events around each launch,
-    the L2 flushed before each (``_flush_l2``)."""
+    the L2 flushed before each."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(reps):
-        _flush_l2(write_flush)
+        _flush_l2()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -795,11 +805,13 @@ def _multi_entry(dispatch_mod, batch, m):
 # ---------------------------------------------------------------------------
 
 # The requests that hand the tree lane nested Counts (``_tree_call``'s four
-# shapes in turn) and how many Counts each carries: the executor path's
-# "gather-3 mixed" (8), the HTTP path's "tree" (FOLD_BATCH) and "tree-wide"
-# (TREE_WIDE_BATCH).  ``tree_path_batches`` draws them anew from a
-# generator of its own.
-TREE_PATH_REQUESTS = (("gather-3", 8), ("tree", FOLD_BATCH), ("tree-wide", TREE_WIDE_BATCH))
+# shapes in turn), how many Counts each carries and the rows they name:
+# the executor path's "gather-3 mixed" (8), the HTTP path's "tree"
+# (FOLD_BATCH), "tree-wide" (TREE_WIDE_BATCH) and "tree-hot"
+# (TREE_WIDE_BATCH over TREE_HOT_ROWS).  ``tree_path_batches`` draws them
+# anew from a generator of its own.
+TREE_PATH_REQUESTS = (("gather-3", 8, N_ROWS), ("tree", FOLD_BATCH, N_ROWS),
+                      ("tree-wide", TREE_WIDE_BATCH, N_ROWS), ("tree-hot", TREE_WIDE_BATCH, TREE_HOT_ROWS))
 TREE_PATHS_SEED = SEED + 13
 
 
@@ -835,8 +847,8 @@ def tree_path_batches() -> list:
     256], drawn anew: {"request", "S", "R", "leaves", "opc"}."""
     rng = np.random.default_rng(TREE_PATHS_SEED)
     out = []
-    for request, n in TREE_PATH_REQUESTS:
-        for lv, oc in tree_encodings([_tree_call(rng, N_ROWS, i) for i in range(n)]):
+    for request, n, rows in TREE_PATH_REQUESTS:
+        for lv, oc in tree_encodings([_tree_call(rng, rows, i) for i in range(n)]):
             out.append({"request": request, "S": N_SLICES, "R": N_ROWS, "leaves": lv, "opc": oc})
     return out
 
@@ -904,7 +916,7 @@ def record_tree_batches() -> None:
     def seen(m, leaves, opc, _fn=dispatch.gather_count_tree):
         s, r, w = m.shape
         lv = np.array(leaves, np.int32)
-        staged = dispatch.tree_strategy(len(np.unique(lv)), w, *lv.shape, s)
+        staged = dispatch.tree_strategy(len(np.unique(lv)), w, opc, s)
         TREE_SEEN.append({"S": s, "R": r, "leaves": lv, "opc": np.array(opc, np.int32),
                           "pick": "resident_count_tree" if staged else "gather_count_tree"})
         return _fn(m, leaves, opc)
@@ -921,10 +933,20 @@ def _tree_summary(b) -> dict:
 
 def time_tree_paths() -> list:
     """gather_count_tree at every tree batch the executor and HTTP paths
-    handed the gather kernel, each rebuilt over random words at its own
-    matrix shape (``tree_times``)."""
-    return _time_path_batches(TREE_SEEN, "gather_count_tree", SEED + 14,
-                              lambda m, b: tree_times(m, b["leaves"], b["opc"]))
+    handed the tree dispatch, each rebuilt over random words at its own
+    matrix shape (``tree_times``), and beside it the staged kernel's
+    device time on the same batch where that has a tiling
+    (``staged_ms``), whichever of the two the gate picked (``pick``)."""
+    def times(m, b):
+        lv, oc = b["leaves"], b["opc"]
+        t = dict(tree_times(m, lv, oc), pick=b["pick"], staged_ms=None)
+        if kernels.tree_tiling(len(np.unique(lv)), m.shape[2], lv.shape[1], m.shape[0])[1]:
+            if not torch.equal(kernels.resident_count_tree(m, lv, oc), kernels.gather_count_tree(m, lv, oc)):
+                raise AssertionError(f"tree path batch B={len(lv)} K={lv.shape[1]}: the kernels disagree")
+            t["staged_ms"] = cuda_ms(lambda: kernels.resident_count_tree(m, lv, oc))
+        return t
+
+    return _time_path_batches(TREE_SEEN, SEED + 14, times)
 
 
 def check_fold_kernels(rm, rng, diff) -> dict:
@@ -1112,6 +1134,12 @@ TREE_GATE_BATCHES = (16, 32, 64)
 TREE_GATE_KS = (4, 8, 16)
 TREE_GATE_WIDE = ((128, 16, 256), (256, 16, 256), (128, 16, 96), (256, 16, 96),
                   (128, 8, 128), (256, 8, 256), (256, 4, 64))
+# Trees as the executor pads them (PASS nodes over the tree's leftmost
+# leaf): one of _tree_call's shapes — 0, the 3-operand Xor (3 of 4 leaves
+# live); 2, depth 3 (6 of 8); 3, depth 4 (8 of 16) — B trees over rows
+# drawn from the first ``rows``, as (shape, B, rows).
+TREE_GATE_PADDED = tuple((shape, b, rows) for shape in (0, 2, 3) for b in (64, 128)
+                         for rows in (256, 128, 64, 32))
 
 
 def check_staged_kernels(rm, diff) -> None:
@@ -1224,19 +1252,21 @@ def time_staged_kernels(rm, pairs_r) -> tuple[dict, list]:
 
     gate, tree_entries = [], {}
 
-    def gate_entry(lv, oc):
+    def gate_entry(lv, oc, padded=False):
         b, k = lv.shape
         u = len(np.unique(lv))
+        live = int(kernels.tree_live_leaves(oc).sum())
         gathered = b * N_SLICES * k * row_b
         g_ms = cuda_ms(lambda: kernels.gather_count_tree(rm, lv, oc))
         s_ms = cuda_ms(lambda: kernels.resident_count_tree(rm, lv, oc))
         return {
-            "B": b, "K": k, "distinct": u, "reuse": b * k / u, "gather_ms": g_ms,
+            "B": b, "K": k, "distinct": u, "reuse": b * k / u, "padded": padded, "live_leaves": live,
+            "live_reuse": live / u, "gather_ms": g_ms,
             "staged_ms": s_ms, "gather_gathered_tb_s": gathered / g_ms / 1e9,
             "staged_gathered_tb_s": gathered / s_ms / 1e9,
             "unique_bound_ms": N_SLICES * u * row_b / PEAK_BYTES_S * 1e3,
             "staged_tiling": list(kernels.tree_tiling(u, W, k, N_SLICES)),
-            "dispatch": "staged" if dispatch.tree_strategy(u, W, b, k, N_SLICES) else "gather"}
+            "dispatch": "staged" if dispatch.tree_strategy(u, W, oc, N_SLICES) else "gather"}
 
     for b in TREE_GATE_BATCHES:
         for k in TREE_GATE_KS:
@@ -1248,6 +1278,9 @@ def time_staged_kernels(rm, pairs_r) -> tuple[dict, list]:
     for b, k, rows in TREE_GATE_WIDE:
         lv = rng.integers(0, rows, size=(b, k)).astype(np.int32)
         gate.append(gate_entry(lv, rng.integers(0, 4, size=(b, k - 1)).astype(np.int32)))
+    for shape, b, rows in TREE_GATE_PADDED:
+        (lv, oc), = tree_encodings([_tree_call(rng, rows, shape) for _ in range(b)])
+        gate.append(gate_entry(lv, oc, padded=True))
 
     entries = []
     for k in (16, 8, 4):
@@ -1666,7 +1699,7 @@ def tree_against(rm, mine, theirs) -> list:
             raise AssertionError(f"tree {bt['request']} K={lv.shape[1]}: the checkouts disagree")
         o_ms, ms = _abba_rounds(lambda: theirs.gather_count_tree(rm, lv, oc),
                                 lambda: mine.gather_count_tree(rm, lv, oc))
-        staged = dispatch.tree_strategy(len(np.unique(lv)), W, *lv.shape, N_SLICES)
+        staged = dispatch.tree_strategy(len(np.unique(lv)), W, oc, N_SLICES)
         out.append(dict(tree_bound(N_SLICES, W, lv, oc), request=bt["request"], other_ms=o_ms, ms=ms,
                         other_host_ms=host_ms(lambda: theirs.gather_count_tree(rm, lv, oc)),
                         host_ms=host_ms(lambda: mine.gather_count_tree(rm, lv, oc)),
@@ -1986,10 +2019,9 @@ def host_ms(fn, n: int = 200) -> float:
 def count_times(a, b, op) -> dict:
     """count_rows on one stack: exact against its plain version, then the
     entry point's device time (its host work included, ``ms``), the
-    launch's alone (``kernel_ms``; with the L2 flushed by writes:
-    ``kernel_ms_write_flush``) and the entry point's host
-    work a call (``host_ms``), beside its byte bound (each row read once,
-    the counts written)."""
+    launch's alone (``kernel_ms``) and the entry point's host work a call
+    (``host_ms``), beside its byte bound (each row read once, the counts
+    written)."""
     m, w = a.shape
     want = kernels.count_rows_plain(a, b, op)
     if not torch.equal(kernels.count_rows(a, b, op), want):
@@ -2014,7 +2046,6 @@ def count_times(a, b, op) -> dict:
     return {"M": m, "W": w, "n_seg": n_seg,
             "ms": cuda_ms(lambda: kernels.count_rows(a, b, op), reps=50),
             "kernel_ms": cuda_ms(kernel_only, reps=50),
-            "kernel_ms_write_flush": cuda_ms(kernel_only, reps=50, write_flush=True),
             "host_ms": host_ms(lambda: kernels.count_rows(a, b, op)), "bound_ms": nb, "bound_by": by}
 
 
@@ -2063,16 +2094,14 @@ def gather2_times(op, m, pairs, sweep: bool = False) -> dict:
     return res
 
 
-def _time_path_batches(seen, pick: str, seed: int, times) -> list:
-    """``times(matrix, batch)`` at every recorded batch that dispatch gave
-    the kernel ``pick``, each over random words at its own [S, R, W]
-    (one matrix on the card at a time)."""
+def _time_path_batches(seen, seed: int, times) -> list:
+    """``times(matrix, batch)`` at every recorded batch in ``seen``, each
+    over random words at its own [S, R, W] (one matrix on the card at a
+    time)."""
     out = []
     gen = _gen(seed)
     mats = {}
     for b in seen:
-        if b["pick"] != pick:
-            continue
         key = (b["S"], b["R"])
         if key not in mats:
             mats.clear()
@@ -2089,9 +2118,8 @@ def time_gather2_paths() -> list:
     gather kernel, and at the row-major pair batches (gather-2) as
     slice-major batches of the same pairs, each rebuilt over random words
     at its own matrix shape."""
-    rebuilt = [dict(b, pick="gather_count2") if b["pick"] == "gather_count2_rowmajor" else b
-               for b in PAIR_SEEN]
-    return _time_path_batches(rebuilt, "gather_count2", SEED + 12, lambda m, b: dict(
+    rebuilt = [b for b in PAIR_SEEN if b["pick"] in ("gather_count2", "gather_count2_rowmajor")]
+    return _time_path_batches(rebuilt, SEED + 12, lambda m, b: dict(
         gather2_times("xor", m, b["pairs"]), path_layout=b["layout"]))
 
 
@@ -2352,9 +2380,13 @@ def http_path(host: str, ex_ref, n_rows: int, time_rows: int, engine) -> list[di
     run("range-2", [_range_call(r, sp) for r, sp in two], expect=("gather_count_multi",))
     run("range-wide", [_range_call(r, sp) for r, sp in wide], expect=("resident_count_multi",))
     # Nested Counts four times as many as "tree": buckets of 128 trees at
-    # K=4 and 64 at K=8 and K=16.  The K=16 bucket names its rows often
-    # enough for the staged tree kernel (dispatch.tree_strategy).
+    # K=4 and 64 at K=8 and K=16, 1.1-2.3 live references a row: the
+    # gather kernel (dispatch.tree_strategy).  The same over 64 hot rows:
+    # the K=8 and K=16 buckets name each row 6 and 8 times with their
+    # live leaves, enough for the staged tree kernel.
     run("tree-wide", [_tree_call(rng, n_rows, i) for i in range(TREE_WIDE_BATCH)],
+        expect=("gather_count_tree",))
+    run("tree-hot", [_tree_call(rng, TREE_HOT_ROWS, i) for i in range(TREE_WIDE_BATCH)],
         expect=("resident_count_tree",))
     return records
 
@@ -2458,6 +2490,114 @@ def diffcheck_path() -> dict:
             "s": time.perf_counter() - t0}
 
 
+def paths_data(d: str):
+    """The executor and HTTP paths' holder in directory ``d``: frame
+    ``f`` and the time frame ``t``."""
+    t0 = time.perf_counter()
+    h = build_holder(d, N_SLICES, N_ROWS, BITS_PER_ROW, SEED)
+    print(f"holder_s {time.perf_counter() - t0:.3f} ({N_SLICES} slices x {N_ROWS} rows)", flush=True)
+    t0 = time.perf_counter()
+    add_time_frame(h, N_SLICES, TIME_ROWS, BITS_PER_ROW, SEED + 4)
+    print(f"time_frame_s {time.perf_counter() - t0:.3f} ({N_SLICES} slices x {TIME_ROWS} rows, YMD)",
+          flush=True)
+    return h
+
+
+def executor_path(h) -> tuple[list, dict]:
+    """``main_path`` through ``Executor(h)`` (the default engine, on the
+    card); closes ``h``.  Returns its records and the launches it made."""
+    from pilosa_tpu_torch.executor import Executor
+
+    ex = Executor(h)  # engine "auto": TorchEngine("cuda")
+    ex_nogram = Executor(h, no_gram=True)
+    ex_ref = Executor(h, engine="numpy")
+    if ex.engine.name != "torch" or ex.engine.device.type != "cuda":
+        raise AssertionError(f"default engine is {ex.engine.name} on {ex.engine.device}")
+    if not ex.engine.supports_row_major_gather:
+        raise AssertionError("TorchEngine on the card must take the row-major lane")
+    kernels.reset_launches()
+    records = main_path(ex, ex_nogram, ex_ref, N_ROWS, sync=torch.cuda.synchronize)
+    launches = dict(kernels.LAUNCHES)
+    h.close()
+    del ex, ex_nogram, ex_ref
+    torch.cuda.empty_cache()
+    return records, launches
+
+
+def server_path(d: str) -> tuple[list, dict]:
+    """``http_path`` against the port's server with its default config
+    over the data directory ``d``.  Returns its records and the launches
+    it made."""
+    from pilosa_tpu_torch.config import Config
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.server.server import Server
+
+    t0 = time.perf_counter()
+    srv = Server(Config(data_dir=d, host="127.0.0.1:0"))
+    srv.open()
+    try:
+        print(f"server_open_s {time.perf_counter() - t0:.3f} on {srv.host}", flush=True)
+        if srv.executor.engine.name != "torch" or srv.executor.engine.device.type != "cuda":
+            raise AssertionError(f"server engine is {srv.executor.engine.name}")
+        ex_ref = Executor(srv.holder, engine="numpy")
+        kernels.reset_launches()
+        records = http_path(srv.host, ex_ref, N_ROWS, TIME_ROWS, srv.executor.engine)
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        srv.close()
+    del srv, ex_ref
+    torch.cuda.empty_cache()
+    return records, launches
+
+
+def requests_of(root: str) -> int:
+    """The executor and HTTP paths' requests driven with the package of
+    the checkout at ``root`` (put first on the import path at import), no
+    kernel checked or timed beside them; prints their records last."""
+    card = probe()
+    kernels.build()
+    with tempfile.TemporaryDirectory() as d:
+        records, _ = executor_path(paths_data(d))
+        http_records, _ = server_path(d)
+    print(json.dumps({"card": card, "root": root, "requests": {"executor": records, "http": http_records}}),
+          flush=True)
+    return 0
+
+
+# Request-level ABBA rounds of --requests-against: each round drives the
+# paths in four processes, the other checkout's, this one's twice, the
+# other's.
+REQUEST_ABBA_ROUNDS = 1
+
+
+def requests_against(other_root: str) -> int:
+    """Wall ms of every executor and HTTP request, this checkout against
+    the checkout at ``other_root``: ``requests_of`` in a process of its
+    own for each, in the order other, this, this, other
+    (REQUEST_ABBA_ROUNDS times); each process checks its answers against
+    the numpy engine."""
+    card = probe()
+    here = os.path.dirname(os.path.abspath(__file__))
+    readings = {"other": [], "this": []}
+    for _ in range(REQUEST_ABBA_ROUNDS):
+        for side in ("other", "this", "this", "other"):
+            root = other_root if side == "other" else here
+            run = subprocess.run([sys.executable, os.path.abspath(__file__), "--requests", root],
+                                 capture_output=True, text=True, timeout=1200)
+            if run.returncode != 0:
+                raise AssertionError(f"requests of {root}: exit {run.returncode}: {run.stderr[-4000:]}")
+            readings[side].append(json.loads(run.stdout.strip().splitlines()[-1])["requests"])
+    rows = []
+    for path, recs in readings["this"][0].items():
+        for i, rec in enumerate(recs):
+            rows.append({"path": path, "request": rec["request"],
+                         "other_ms": [r[path][i]["ms"] for r in readings["other"]],
+                         "ms": [r[path][i]["ms"] for r in readings["this"]],
+                         "launches": rec["launches"]})
+    print(json.dumps({"card": card, "other": other_root, "requests_against": rows}), flush=True)
+    return 0
+
+
 def main() -> int:
     card = probe()
     t0 = time.perf_counter()
@@ -2481,57 +2621,20 @@ def main() -> int:
     launches = {"diffcheck": dict(kernels.LAUNCHES)}
     print(json.dumps({"card": card, "diffcheck": sweep}), flush=True)
 
-    from pilosa_tpu_torch.config import Config
-    from pilosa_tpu_torch.executor import Executor
-    from pilosa_tpu_torch.server.server import Server
-
     record_multi_batches()
     record_pair_batches()
     record_tree_batches()
 
     with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        h = build_holder(d, N_SLICES, N_ROWS, BITS_PER_ROW, SEED)
-        print(f"holder_s {time.perf_counter() - t0:.3f} ({N_SLICES} slices x {N_ROWS} rows)", flush=True)
-        t0 = time.perf_counter()
-        add_time_frame(h, N_SLICES, TIME_ROWS, BITS_PER_ROW, SEED + 4)
-        print(f"time_frame_s {time.perf_counter() - t0:.3f} ({N_SLICES} slices x {TIME_ROWS} rows, YMD)",
-              flush=True)
-        ex = Executor(h)  # engine "auto": TorchEngine("cuda")
-        ex_nogram = Executor(h, no_gram=True)
-        ex_ref = Executor(h, engine="numpy")
-        if ex.engine.name != "torch" or ex.engine.device.type != "cuda":
-            raise AssertionError(f"default engine is {ex.engine.name} on {ex.engine.device}")
-        if not ex.engine.supports_row_major_gather:
-            raise AssertionError("TorchEngine on the card must take the row-major lane")
-        kernels.reset_launches()
-        records = main_path(ex, ex_nogram, ex_ref, N_ROWS, sync=torch.cuda.synchronize)
-        launches["executor"] = dict(kernels.LAUNCHES)
-        h.close()
-        del ex, ex_nogram, ex_ref
-        torch.cuda.empty_cache()
+        h = paths_data(d)
+        records, launches["executor"] = executor_path(h)
         print(json.dumps({"card": card, "gather2_paths": time_gather2_paths()}), flush=True)
-
-        # The HTTP path: the port's server with its default config opens
-        # the same data directory.
-        t0 = time.perf_counter()
-        srv = Server(Config(data_dir=d, host="127.0.0.1:0"))
-        srv.open()
-        try:
-            print(f"server_open_s {time.perf_counter() - t0:.3f} on {srv.host}", flush=True)
-            if srv.executor.engine.name != "torch" or srv.executor.engine.device.type != "cuda":
-                raise AssertionError(f"server engine is {srv.executor.engine.name}")
-            ex_ref = Executor(srv.holder, engine="numpy")
-            kernels.reset_launches()
-            http_records = http_path(srv.host, ex_ref, N_ROWS, TIME_ROWS, srv.executor.engine)
-            launches["http"] = dict(kernels.LAUNCHES)
-        finally:
-            srv.close()
-        del srv, ex_ref
-        torch.cuda.empty_cache()
+        http_records, launches["http"] = server_path(d)
         print(json.dumps({"card": card, "tree_paths": time_tree_paths()}), flush=True)
 
     # The tall path, in a data directory of its own.
+    from pilosa_tpu_torch.executor import Executor
+
     with tempfile.TemporaryDirectory() as d2:
         t0 = time.perf_counter()
         h2 = build_holder(d2, TALL_SLICES, TALL_ROWS, TALL_BITS, SEED + 5)
@@ -2562,7 +2665,7 @@ def main() -> int:
             "library_ms": t.get("library_ms"), "shape": t["shape"],
         }
         for extra in ("count_path", "floor", "shapes", "gathered_bound_ms", "all_rows_floor_ms",
-                      "all_leaves_bound_ms", "live_leaves", "distinct_live", "kernel_ms_write_flush",
+                      "all_leaves_bound_ms", "live_leaves", "distinct_live",
                       "chunk_words", "stages", "smem_bytes", "kernel_ms", "n_seg",
                       "kernel_ms_by_n_seg", "host_ms", "bytes_bound_ms", "ops_bound_ms",
                       "int8_ops_bound_ms", "int_mm_only_ms", "checked", "schedule", "buckets",
@@ -2585,4 +2688,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--resident-against"]:
         sys.exit(resident_against(sys.argv[2]))
+    if sys.argv[1:2] == ["--requests-against"]:
+        sys.exit(requests_against(sys.argv[2]))
+    if sys.argv[1:2] == ["--requests"]:
+        sys.exit(requests_of(sys.argv[2]))
     sys.exit(main())

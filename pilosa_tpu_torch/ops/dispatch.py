@@ -171,25 +171,33 @@ def gather_count_multi(op: str, row_matrix: torch.Tensor, idx):
     return kernels.gather_count_multi(op, row_matrix, idx) if got is None else got
 
 
-# The staged tree kernel serves a batch whose leaf references reach this
-# many per distinct leaf row in each of the kernel's groups of 64 trees
-# (every group stages all of the batch's rows).  Measured on the H100
-# (PERF_GATES.md, the tree gate, re-derived after the gather kernel
-# learned to skip dead leaves): to about 2.4 references a row the gather
-# kernel, whose repeated rows L2 serves, wins by 2-17%; at 4 and more the
-# staged kernel is faster: by 17% at one group of 16-leaf trees, 20-40%
-# at two and four, 12-16% at batches of 4-8 leaves.
-TREE_REUSE_MIN = 3
+# The staged tree kernel serves a batch whose LIVE leaf references (the
+# leaves that reach the root, ``kernels.tree_live_leaves``: the only ones
+# the gather kernel loads) reach this many per distinct leaf row in each
+# of the kernel's groups of 64 trees (every group stages all of the
+# batch's rows and folds every leaf, dead ones too).  Measured on the
+# H100 (PERF_GATES.md, the tree gate, on random trees and on trees padded
+# with PASS nodes as the executor pads them): to about 3 live references
+# a row the gather kernel wins or ties; from 4 on trees whose leaves all
+# live, and from 8 on padded ones, the staged kernel is faster.
+TREE_REUSE_MIN = 4
 
 
-def tree_strategy(n_distinct: int, w: int, batch: int, k: int, n_slices: int) -> bool:
+def tree_strategy(n_distinct: int, w: int, opc, n_slices: int) -> bool:
     """Whether the staged tree kernel (``resident_count_tree``) serves a
-    batch of B trees of K leaves naming ``n_distinct`` rows: each group of
-    up to 64 trees names them often enough (``min(B, 64) x K >=
-    TREE_REUSE_MIN x U``) and two stages of them fit one block's shared
-    memory (at W = 32,768 the first clause keeps U <= 341, which always
-    fits; a W with no 64-word chunk has no tiling)."""
-    if min(batch, kernels.TREE_GROUP) * k < TREE_REUSE_MIN * n_distinct:
+    batch of B trees of K leaves with opcodes ``opc`` (int[B, K - 1])
+    naming ``n_distinct`` rows: each group of up to 64 trees names them
+    often enough with its live leaves (``min(B, 64) x live / B >=
+    TREE_REUSE_MIN x U``; live counted only where all B x K leaves would
+    be enough) and two stages of them fit one block's shared memory (at W
+    = 32,768 the reuse clause keeps U <= 256, which always fits; a W with
+    no 64-word chunk has no tiling)."""
+    batch, k = np.shape(opc)[0], np.shape(opc)[1] + 1
+    group = min(batch, kernels.TREE_GROUP)
+    if group * k < TREE_REUSE_MIN * n_distinct:
+        return False
+    live = int(kernels.tree_live_leaves(opc).sum())
+    if group * live < TREE_REUSE_MIN * n_distinct * batch:
         return False
     return kernels.tree_tiling(n_distinct, w, k, n_slices)[1] == 2
 
@@ -197,13 +205,14 @@ def tree_strategy(n_distinct: int, w: int, batch: int, k: int, n_slices: int) ->
 def gather_count_tree(row_matrix: torch.Tensor, leaves, opc):
     """Perfect-tree opcode-fold counts (nested Count trees) -> int32[B]:
     the staged kernel where ``tree_strategy`` admits the batch, else the
-    gather kernel.  The choice reads shapes only; the batch's rows are
-    compacted once, for the gate and the staged kernel both."""
+    gather kernel.  The choice reads the batch's shape, distinct rows and
+    live leaves; the batch's rows are compacted once, for the gate and the
+    staged kernel both."""
     lv = np.asarray(leaves)
     if lv.ndim == 2 and lv.size:
         n_slices, n_rows, w = row_matrix.shape
         ids, local = kernels.compact_rows(lv, n_rows, "gather_count_tree leaves")
-        if tree_strategy(ids.size, w, lv.shape[0], lv.shape[1], n_slices):
+        if tree_strategy(ids.size, w, opc, n_slices):
             return kernels.resident_count_tree(row_matrix, lv, opc, compacted=(ids, local))
     return kernels.gather_count_tree(row_matrix, leaves, opc)
 

@@ -185,10 +185,7 @@ def _check(err: int, name: str) -> None:
 
 
 def _stream(t: torch.Tensor) -> int:
-    """The current stream of a CUDA tensor's device, as a raw handle (a
-    fraction of ``torch.cuda.current_stream(device).cuda_stream``'s host
-    time)."""
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 _sms: dict = {}
@@ -559,23 +556,39 @@ TREE_LEAVES = (2, 4, 8, 16)
 TREE_PARAM_INTS = 1000
 
 
+def _right_turns(k: int) -> np.ndarray:
+    """float32[K - 1, K]: 1 where node i (level-major bottom-up, as the
+    opcodes) lies on leaf j's path to the root and leaf j comes up to it
+    from the right, so that a PASS at node i kills leaf j."""
+    m = np.zeros((max(k - 1, 0), k), dtype=np.float32)
+    for j in range(k):
+        off, n, level = 0, k // 2, 0
+        while n >= 1:
+            if (j >> level) & 1:
+                m[off + (j >> (level + 1)), j] = 1
+            off += n
+            n //= 2
+            level += 1
+    return m
+
+
+_RIGHT_TURNS = {k: _right_turns(k) for k in TREE_LEAVES}
+
+
 def tree_live_leaves(opc) -> np.ndarray:
     """Which leaves of each perfect tree reach its root -> bool[B, K], for
     opcodes int[B, K - 1] level-major bottom-up: the root is live, a node
     whose opcode is not 0-3 (TREE_PASS) passes its left child and drops
     its right one, and everything under a dead node is dead.  The rule
     gather_count_tree.cu applies in each block (the launch does not call
-    this); a dead leaf's row never changes a count."""
+    this); a dead leaf's row never changes a count.  One small product a
+    batch: the gate calls it on every batch its reuse clause admits."""
     oc = np.asarray(opc)
-    b, k = oc.shape[0], oc.shape[1] + 1
-    live = np.ones((b, 1), dtype=bool)
-    n = 1
-    while n < k:  # the level of n nodes starts at opcode k - 2n
-        ops = oc[:, k - 2 * n:k - n]
-        keep = (ops >= 0) & (ops <= 3)
-        live = np.stack([live, live & keep], axis=2).reshape(b, 2 * n)
-        n *= 2
-    return live
+    k = oc.shape[1] + 1
+    turns = _RIGHT_TURNS[k] if k in _RIGHT_TURNS else _right_turns(k)
+    # A negative opcode wraps past 3 as uint32: it passes too.
+    passing = (oc.astype(np.uint32) > 3).astype(np.float32)
+    return passing @ turns == 0
 
 
 # Opcode i of a tree times 16^(i % 8) in column i // 8: a tree's K - 1

@@ -117,16 +117,17 @@ def test_tree_dispatch_matches_pallas(k, case, monkeypatch):
     sparse one the gather kernel; both equal the Pallas tree fold."""
     rng = np.random.default_rng([k, len(case)])
     s, w = 2, 1024
-    for r, b, staged in ((12, 24, True), (96, 3, False)):
+    for r, b, staged in ((12, 48, True), (96, 3, False)):
         rm = _words(rng, (s, r, w))
         leaves, opc = _trees(rng, case, r, b, k)
         u = len(np.unique(leaves))
-        assert dispatch.tree_strategy(u, w, b, k, s) == (b * k >= dispatch.TREE_REUSE_MIN * u)
+        live = kernels.tree_live_leaves(opc).sum()
+        assert dispatch.tree_strategy(u, w, opc, s) == (live >= dispatch.TREE_REUSE_MIN * u)
         want = np.asarray(pk.fused_gather_count_tree(
             jnp.asarray(rm), jnp.asarray(leaves), jnp.asarray(opc), interpret=True))
         seen = _spy(monkeypatch)
         np.testing.assert_array_equal(dispatch.gather_count_tree(_t(rm), leaves, opc).numpy(), want)
-        expect = "resident_count_tree" if dispatch.tree_strategy(u, w, b, k, s) else "gather_count_tree"
+        expect = "resident_count_tree" if dispatch.tree_strategy(u, w, opc, s) else "gather_count_tree"
         assert seen == [expect]
         if staged:
             assert expect == "resident_count_tree"
@@ -185,20 +186,25 @@ def test_tree_tiling(u, k, want):
     assert kernels.tree_tiling(u, 32768, k, 64) == want
 
 
+def _live(b, k):
+    """Opcodes of b trees of k leaves that keep every leaf live."""
+    return np.zeros((b, k - 1), np.int32)
+
+
 def test_tree_gate_needs_reuse_in_each_group_and_a_tiling():
     w = 32768
-    assert dispatch.tree_strategy(251, w, 64, 16, 64)
-    assert dispatch.tree_strategy(256, w, 256, 16, 64)  # four groups, each 1,024 references
-    assert not dispatch.tree_strategy(160, w, 16, 16, 64)  # 256 references of 160 rows
-    assert not dispatch.tree_strategy(400, w, 128, 16, 64)  # 2,048 references, 1,024 a group
-    assert not dispatch.tree_strategy(4, 96, 64, 16, 64)  # no chunk of 64+ words divides W
+    assert dispatch.tree_strategy(251, w, _live(64, 16), 64)
+    assert dispatch.tree_strategy(256, w, _live(256, 16), 64)  # four groups, each 1,024 references
+    assert not dispatch.tree_strategy(160, w, _live(16, 16), 64)  # 256 references of 160 rows
+    assert not dispatch.tree_strategy(400, w, _live(128, 16), 64)  # 2,048 references, 1,024 a group
+    assert not dispatch.tree_strategy(4, 96, _live(64, 16), 64)  # no chunk of 64+ words divides W
     assert kernels.tree_tiling(430, w, 16, 64) == (64, 1)
     assert kernels.tree_tiling(1000, w, 16, 64) == (0, 0)
-    # Within one group the reuse clause keeps U <= 64 x 16 / 3 = 341 rows,
+    # Within one group the reuse clause keeps U <= 64 x 16 / 4 = 256 rows,
     # whose two stages fit at every K.
     for k in kernels.TREE_LEAVES:
         u = kernels.TREE_GROUP * k // dispatch.TREE_REUSE_MIN
-        assert dispatch.tree_strategy(u, w, kernels.TREE_GROUP, k, 64)
+        assert dispatch.tree_strategy(u, w, _live(kernels.TREE_GROUP, k), 64)
 
 
 def test_tree_dispatch_compacts_the_batch_once(monkeypatch):

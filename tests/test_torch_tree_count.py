@@ -164,24 +164,32 @@ def _count(shape):
                              shape) + ")"
 
 
+def _port_encoding(path, call):
+    """The port's executor's tree encoding of one Count call over frame
+    "f" of an empty index at ``path``."""
+    h = Holder(str(path))
+    h.open()
+    try:
+        h.create_index("i").create_frame("f", FrameOptions())
+        return Executor(h, engine="numpy")._compile_count_tree("i", parse(call).calls[0].children[0])
+    finally:
+        h.close()
+
+
 @pytest.mark.parametrize("shape,k,n_live", TREE_SHAPES, ids=["xor3", "depth2", "depth3", "depth4"])
 def test_live_leaves_of_the_executors_tree_shapes(tmp_path, shape, k, n_live):
     """The port's executor encodes each shape as the JAX executor does;
     its live leaves are the shape's own Bitmaps (3/4, 4/4, 6/8, 8/16),
     each named once, and every dead leaf is the fill (the leftmost
     leaf)."""
-    th = Holder(str(tmp_path / "torch"))
-    th.open()
     jh = JHolder(str(tmp_path / "jax"))
     jh.open()
     try:
-        th.create_index("i").create_frame("f", FrameOptions())
         jh.create_index("i").create_frame("f", JFrameOptions())
         call = _count(shape)
-        got = Executor(th, engine="numpy")._compile_count_tree("i", parse(call).calls[0].children[0])
+        got = _port_encoding(tmp_path / "torch", call)
         want = JExecutor(jh)._compile_count_tree("i", jparse(call).calls[0].children[0])
     finally:
-        th.close()
         jh.close()
     assert got == want
     _, _, bucket, leaves, opc = got
@@ -191,6 +199,44 @@ def test_live_leaves_of_the_executors_tree_shapes(tmp_path, shape, k, n_live):
     assert live.sum() == n_live
     assert sorted(lv[live]) == [3 * i + 1 for i in range(1, n_live + 1)]
     assert (lv[~live] == lv[0]).all()
+
+
+# ---------------------------------------------------------------------------
+# (b2) the tree gate counts live leaves
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,k,n_rows", [(TREE_SHAPES[0][0], 4, 60), (TREE_SHAPES[2][0], 8, 120),
+                                            (TREE_SHAPES[3][0], 16, 200)], ids=["xor3", "depth3", "depth4"])
+def test_tree_gate_counts_live_leaves(tmp_path, monkeypatch, shape, k, n_rows):
+    """64 trees padded as the executor pads the shape (every dead leaf the
+    tree's leftmost row) whose leaves name their rows TREE_REUSE_MIN times
+    a row, but whose live leaves do not, take the gather kernel; the same
+    leaves under opcodes that keep every leaf live take the staged kernel.
+    Both answers equal Pallas."""
+    *_, opc1 = _port_encoding(tmp_path, _count(shape))
+    dead = ~kernels.tree_live_leaves(np.array([opc1]))[0]
+    rng = np.random.default_rng(k)
+    b = kernels.TREE_GROUP
+    leaves = rng.integers(0, n_rows, size=(b, k)).astype(np.int32)
+    leaves[:, dead] = leaves[:, :1]
+    padded = np.tile(np.array(opc1, np.int32), (b, 1))
+    every = np.where(padded > 3, 0, padded).astype(np.int32)
+    u = len(np.unique(leaves))
+    live = int(kernels.tree_live_leaves(padded).sum())
+    assert b * k >= dispatch.TREE_REUSE_MIN * u > live
+    s, w = 2, 1024
+    assert not dispatch.tree_strategy(u, w, padded, s)
+    assert dispatch.tree_strategy(u, w, every, s)
+    rm = _words(rng, (s, n_rows, w))
+    for opc, kernel in ((padded, "gather_count_tree"), (every, "resident_count_tree")):
+        seen = []
+        for name in ("resident_count_tree", "gather_count_tree"):
+            monkeypatch.setattr(kernels, name, lambda *a, _o=getattr(kernels, name), _n=name, **kw:
+                                seen.append(_n) or _o(*a, **kw))
+        got = dispatch.gather_count_tree(_t(rm), leaves, opc).numpy()
+        monkeypatch.undo()
+        assert seen == [kernel]
+        np.testing.assert_array_equal(got, _pallas_tree(rm, leaves, opc))
 
 
 # ---------------------------------------------------------------------------
