@@ -4,11 +4,11 @@
 
 1. Probes the card (fails without CUDA) and prints its name and power
    limit as nvidia-smi reports them.
-2. Builds the twelve CUDA kernels from ``pilosa_tpu_torch/csrc`` with
+2. Builds the thirteen CUDA kernels from ``pilosa_tpu_torch/csrc`` with
    nvcc (one process per source, all started together), and beside them
-   compiles the resident, fold, row-major, TopN, Gram and gather pair
-   kernels once more with ``-Xptxas -v`` to report their registers and
-   shared memory.
+   compiles the resident, fold, row-major, TopN, Gram, gather pair and
+   plane-build kernels once more with ``-Xptxas -v`` to report their
+   registers and shared memory.
 3. Holds each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it, for every op variant; exact equality
    (integer counts), and times both with CUDA events beside the kernel's
@@ -49,7 +49,15 @@
    port never calls it), and at the buckets at the pool's 2 GiB.  Its
    bound takes the bit products at the b1 tensor-core rate that
    ``csrc/mma_probe.cu`` measures in the same run (the data sheet gives
-   none; the reading is the kernels line's ``b1_probe``).
+   none; the reading is the kernels line's ``b1_probe``).  The bulk
+   plane build (``build_planes``) is held exactly on tests/test_bulk.py's
+   ragged case, one pair, one word's 32 bits, the last bit of a slice,
+   one group, ids past 2^22, unsorted keys with some outside the arena,
+   and its three timed shapes (N pairs x G groups: the bulk path's chunk
+   131,072 x 66, bench.py's 2^20 x 256, and 2^23 x 4,096, a 512 MiB
+   arena), through its entry point and as a launch alone, beside its
+   bound (the arena written once, the keys read once); the
+   whole device lane equals the host lane, and G = 0 launches nothing.
 4. The diffcheck path: the differential sweep ``ops/diffcheck.py`` over
    every lane on the card (its ``topn_counts`` lane is that kernel's path).
 5. Drives the executor path — ``Executor.execute`` over a ``Holder`` — at
@@ -93,12 +101,25 @@
    "tree-hot") paths handed the tree dispatch, rebuilt at its own shape,
    through its entry point and as a launch alone beside its live-row
    bound, and the staged kernel on the same batch (a "tree_paths" line).
+   Then the bulk path, on the HTTP path's data directory with a new port
+   ``Server`` (default config): the pairs ``build_holder`` loaded into
+   ``f`` (regenerated from its seed) go to frame ``fb`` through
+   ``Client.bulk_stream`` in 250 chunks of 131,072 pairs, one
+   ``build_planes`` launch each; before any roaring materialization a
+   16-pair Count batch, a Count and a TopN with a src on ``fb`` equal the
+   same on ``f`` and the numpy engine's; the 64 fragment checksums of
+   ``fb`` equal ``f``'s; a small inverse-enabled frame equals its twin
+   through ``/ingest`` in both views; and, with pyarrow, the Arrow export
+   of ``fb``'s slice 0 re-ingested through ``/bulk`` exports the same
+   bytes.  A chunk's time is split into its steps, each timed inside
+   the server on every chunk it applies (a "bulk" line).
 8. Fails unless every kernel's launch counter moved during its path: the
    counters are set to 0 just before each path and read just after it.
 
 Prints a ptxas line, a tree-checks and two staged-checks lines,
 ``{"card": ..., "layout" / "tree_gate" / "multi_paths" / "multi_tilings" /
-"multi_gate" / "gather2_paths" / "tree_paths": [...]}`` lines, a ``{"card": ..., "requests": [...]}`` line
+"multi_gate" / "gather2_paths" / "tree_paths": [...]}`` lines, a ``{"card": ..., "bulk": {...}}``
+line, a ``{"card": ..., "requests": [...]}`` line
 per path, a ``{"kernels": [...]}`` line, and last ``{"ok": true,
 "device": {...}}``.  Any failure raises.
 
@@ -214,6 +235,7 @@ SOURCES = {
     "topn_counts": "pilosa_tpu_torch/csrc/topn_counts.cu",
     "resident_count_multi": "pilosa_tpu_torch/csrc/resident_count_multi.cu",
     "pair_gram": "pilosa_tpu_torch/csrc/pair_gram.cu",
+    "build_planes": "pilosa_tpu_torch/csrc/build_planes.cu",
 }
 # The def line of each Pallas kernel in pilosa_tpu/ops/pallas_kernels.py.
 REPLACES = {
@@ -232,18 +254,21 @@ REPLACES = {
     "resident_count_multi": "pilosa_tpu/ops/pallas_kernels.py:554",
     # not Pallas: the reference's all-pairs Gram, an int8 product on the MXU
     "pair_gram": "pilosa_tpu/ops/bitwise.py:282",
+    # not Pallas: the reference's device bulk build lane, a jitted sort,
+    # dedup and scatter-add (its kernel body: _jax_kernel, :152)
+    "build_planes": "pilosa_tpu/bulk/build.py:181",
 }
 # Which path must launch each kernel: the executor path keeps the four
 # pair/TopN kernels, the HTTP path the four fold kernels (the staged tree
 # kernel through the "tree-hot" request, the staged multi kernel through
 # the "range-wide" request), the tall path the two row-major kernels, and the
-# differential sweep the whole-row scorer.
+# differential sweep the whole-row scorer, the bulk path the plane build.
 PATH_OF = {
     "count_rows": "executor", "resident_count2": "executor", "gather_count2": "executor",
     "gather_src_counts": "executor", "gather_count_multi": "http", "gather_count_tree": "http",
     "resident_count_tree": "http", "resident_count_multi": "http",
     "gather_count2_rowmajor": "tall", "gather_count_multi_rowmajor": "tall",
-    "topn_counts": "diffcheck", "pair_gram": "executor",
+    "topn_counts": "diffcheck", "pair_gram": "executor", "build_planes": "bulk",
 }
 PAIR_OPS = ("and", "or", "xor", "andnot")
 PQL_OPS = {"and": "Intersect", "or": "Union", "andnot": "Difference", "xor": "Xor"}
@@ -536,6 +561,7 @@ def check_kernels() -> tuple[dict, list, list, dict]:
     del rm, stack, rows
     torch.cuda.empty_cache()
     res.update(check_gram(diff))
+    res.update(check_build_planes(diff))
     for name in res:
         res[name]["max_abs_err"] = err[name]
     return res, layout, gate, multi
@@ -2127,6 +2153,19 @@ def time_gather2_paths() -> list:
 # phase 3: the main path through Executor.execute
 # ---------------------------------------------------------------------------
 
+def holder_slices(n_slices: int, n_rows: int, bits: int, seed: int):
+    """The (rows, cols) pairs ``build_holder`` loads, one slice at a time
+    in its order (row by row): every row gets ``bits`` distinct seeded
+    random columns in every slice."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n_rows, dtype=np.uint64), bits)
+    for s in range(n_slices):
+        cols = np.concatenate(
+            [rng.choice(SLICE_WIDTH, size=bits, replace=False) for _ in range(n_rows)]
+        ).astype(np.uint64) + np.uint64(s * SLICE_WIDTH)
+        yield rows, cols
+
+
 def build_holder(path: str, n_slices: int, n_rows: int, bits: int, seed: int):
     """Index ``i``, frame ``f``; every row gets ``bits`` distinct seeded
     random columns in every slice (so every row counts exactly ``bits``
@@ -2140,12 +2179,7 @@ def build_holder(path: str, n_slices: int, n_rows: int, bits: int, seed: int):
     idx = h.create_index("i")
     idx.create_frame("f", FrameOptions())
     fr = idx.frame("f")
-    rng = np.random.default_rng(seed)
-    rows = np.repeat(np.arange(n_rows, dtype=np.uint64), bits)
-    for s in range(n_slices):
-        cols = np.concatenate(
-            [rng.choice(SLICE_WIDTH, size=bits, replace=False) for _ in range(n_rows)]
-        ).astype(np.uint64) + np.uint64(s * SLICE_WIDTH)
+    for rows, cols in holder_slices(n_slices, n_rows, bits, seed):
         fr.import_bits(rows, cols)
     return h
 
@@ -2219,6 +2253,11 @@ def _pair_calls(ops, pairs) -> list[str]:
             for i, (a, b) in enumerate(pairs)]
 
 
+# The bits main_path sets in frame ``f`` beyond build_holder's, as (row,
+# column): the bulk path replays them into ``fb``.
+F_WRITES: list = []
+
+
 def main_path(ex, ex_nogram, ex_ref, n_rows: int, sync=lambda: None) -> list[dict]:
     """Drive the requests; check every answer against ``ex_ref``.
     Returns per-request records (wall ms, launches by kernel)."""
@@ -2264,6 +2303,7 @@ def main_path(ex, ex_nogram, ex_ref, n_rows: int, sync=lambda: None) -> list[dic
     one = f'Count(Intersect(Bitmap(rowID={a}, frame="f"), Bitmap(rowID={b}, frame="f")))'
     run("count-single", ex, [one], expect=("count_rows",))
     col = int(rng.integers(0, SLICE_WIDTH))
+    F_WRITES.append((a, col))
     got = run("setbit+count", ex, [f'SetBit(rowID={a}, frame="f", columnID={col})', one],
               sub=[1], expect=("count_rows",))
     if not isinstance(got[0], bool):
@@ -2598,15 +2638,463 @@ def requests_against(other_root: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the bulk build kernel (build_planes) against its plain version
+# ---------------------------------------------------------------------------
+
+# The build's timed shapes (pairs N, groups G): the bulk path's chunk
+# (131,072 of build_holder's pairs, 66 (slice, row) groups), bench.py's
+# bulk shape (a million pairs over 64 rows x 4 slices), and a 512 MiB arena.
+BUILD_TIMED = ((131072, 66), (1 << 20, 256), (1 << 23, 4096))
+BUILD_SEED = SEED + 17
+
+
+def build_cases() -> dict:
+    """The build lane's edge cases, (rows, cols) uint64 each:
+    tests/test_bulk.py's ragged case (seed 5, 3,000 pairs, 100 duplicates,
+    a lone pair in slice 5), one pair, all 32 bits of one word (twice,
+    shuffled), local = 2^20 - 1, one group, and slice and row ids past
+    2^22 (group_pairs' lexsort branch)."""
+    u = lambda a: np.asarray(a, dtype=np.uint64)  # noqa: E731
+    rng = np.random.default_rng(5)
+    rows = rng.integers(0, 6, size=3000).astype(np.uint64)
+    cols = rng.integers(0, 2 * SLICE_WIDTH, size=3000).astype(np.uint64)
+    rng = np.random.default_rng(BUILD_SEED)
+    word = np.tile(np.arange(64, 96, dtype=np.uint64) + np.uint64(3 * SLICE_WIDTH), 2)
+    big = rng.integers(0, 2, size=300).astype(np.uint64) + np.uint64(1 << 23)
+    return {
+        "ragged": (np.concatenate([rows, rows[:100], u([2])]),
+                   np.concatenate([cols, cols[:100], u([5 * SLICE_WIDTH + 17])])),
+        "one_pair": (u([3]), u([SLICE_WIDTH + 40])),
+        "one_word": (np.full(64, 9, dtype=np.uint64), rng.permutation(word)),
+        "last_bit": (u([0, 1, 1]), u([SLICE_WIDTH - 1, 2 * SLICE_WIDTH - 1, 8 * SLICE_WIDTH - 1])),
+        "one_group": (np.full(500, 4, dtype=np.uint64),
+                      rng.integers(0, SLICE_WIDTH, size=500).astype(np.uint64)),
+        "big_ids": (rng.integers(0, 3, size=300).astype(np.uint64) + np.uint64((1 << 23) + 5),
+                    big * np.uint64(SLICE_WIDTH)
+                    + rng.integers(0, SLICE_WIDTH, size=300).astype(np.uint64)),
+    }
+
+
+def build_timed_pairs(n: int, g: int) -> tuple[np.ndarray, np.ndarray]:
+    """The pairs of a timed shape: the path's chunk is the first BULK_CHUNK
+    of build_holder's; the others draw rows and columns at random (seeded)
+    over g // 4 rows x 4 slices, so every group is hit."""
+    if (n, g) == BUILD_TIMED[0]:
+        rows, cols = next(holder_slices(1, N_ROWS, BITS_PER_ROW, SEED))
+        return rows[:n], cols[:n]
+    rng = np.random.default_rng(BUILD_SEED + g)
+    return (rng.integers(0, g // 4, size=n).astype(np.uint64),
+            rng.integers(0, 4 * SLICE_WIDTH, size=n).astype(np.uint64))
+
+
+def _keys(rows, cols):
+    """group_pairs' table and each sorted pair's key on the card."""
+    from pilosa_tpu_torch.bulk import build
+
+    sl, rw, gid, local = build.group_pairs(rows, cols)
+    host = gid * SLICE_WIDTH + local
+    return sl, rw, host, torch.from_numpy(host).cuda()
+
+
+def build_times(rows, cols) -> dict:
+    """build_planes at one shape: the entry point's device time (its
+    output allocation included, ``ms``), the launch alone on a preallocated
+    arena (``kernel_ms``: the memset and the kernel), the plain version's,
+    the planes' copy to the host through pinned and pageable memory, and
+    the bound: the arena written once (G x 128 KiB) and the keys read
+    once (8 bytes a pair), at 3.35 TB/s."""
+    sl, _, host, keys = _keys(rows, cols)
+    n, g = len(host), len(sl)
+    out = torch.empty((g, W), dtype=torch.int32, device="cuda")
+    fn = kernels._fn("build_planes")
+    stream = kernels._stream(keys)
+
+    def launch():
+        kernels._check(fn(keys.data_ptr(), n, out.data_ptr(), out.numel(), stream), "build_planes")
+
+    launch()
+    if not torch.equal(out, kernels.build_planes_plain(keys, g)):
+        raise AssertionError(f"build_planes N={n} G={g}: launch alone differs from its plain version")
+    pinned = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    nb, by = bound(g * W * 4 + n * 8, n)
+    return {"shape": f"N={n} pairs, G={g} groups ({g * W * 4} arena bytes)",
+            "ms": cuda_ms(lambda: kernels.build_planes(keys, g)), "kernel_ms": cuda_ms(launch),
+            "plain_ms": cuda_ms(lambda: kernels.build_planes_plain(keys, g), reps=3),
+            "download_pinned_ms": cuda_ms(lambda: pinned.copy_(out)),
+            "download_pageable_ms": cuda_ms(lambda: out.cpu()),
+            "bound_ms": nb, "bound_by": by}
+
+
+def check_build_planes(diff) -> dict:
+    """build_planes == its plain version on the card, exactly, on the edge
+    cases, keys outside the arena and the timed shapes; the whole device
+    lane (``build_planes_torch``) == the host lane (``build_planes_numpy``);
+    G = 0 launches nothing.  Returns the kernels line's timings."""
+    from pilosa_tpu_torch.bulk import build
+
+    cases = build_cases()
+    cases.update({f"timed_{n}x{g}": build_timed_pairs(n, g) for n, g in BUILD_TIMED})
+    for name, (rows, cols) in cases.items():
+        sl, _, _, keys = _keys(rows, cols)
+        diff("build_planes", kernels.build_planes(keys, len(sl)),
+             kernels.build_planes_plain(keys, len(sl)))
+        for got, want in zip(build.build_planes_torch(rows, cols, "cuda"),
+                             build.build_planes_numpy(rows, cols)):
+            if got.dtype != want.dtype or not np.array_equal(got, want):
+                raise AssertionError(f"build_planes_torch differs from build_planes_numpy: {name}")
+    # Unsorted keys with repeats and keys outside the arena (dropped).
+    rng = np.random.default_rng(BUILD_SEED)
+    k = rng.integers(0, 3 * SLICE_WIDTH, size=5000)
+    k = np.concatenate([k, k[:500], [-1, 3 * SLICE_WIDTH, 1 << 40]]).astype(np.int64)
+    keys = torch.from_numpy(k).cuda()
+    diff("build_planes", kernels.build_planes(keys, 3), kernels.build_planes_plain(keys, 3))
+    before = kernels.LAUNCHES["build_planes"]
+    empty = build.build_planes_torch(np.zeros(0, np.uint64), np.zeros(0, np.uint64), "cuda")
+    if empty[2].shape != (0, W) or kernels.build_planes(keys[:0], 0).shape != (0, W):
+        raise AssertionError("build_planes: G = 0 must give [0, W]")
+    if kernels.LAUNCHES["build_planes"] != before:
+        raise AssertionError("build_planes: G = 0 launched")
+    torch.cuda.synchronize()
+    first, *rest = (build_times(*build_timed_pairs(n, g)) for n, g in BUILD_TIMED)
+    return {"build_planes": dict(
+        first, shapes=rest, checked=sorted(cases) + ["unsorted_out_of_range", "empty"],
+        library_ms=None,
+        library_note="no PyTorch call computes a scatter-OR (scatter_reduce has no OR)")}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the bulk door (POST /bulk -> TorchEngine.build_planes)
+# ---------------------------------------------------------------------------
+
+# build_holder's pairs go to frame ``fb`` through Client.bulk_stream in
+# chunks of 131,072 pairs: 2 MiB on the packed wire (16 bytes a pair),
+# half of the chunk wire's default 4 MiB ceiling ([ingest] chunk-bytes).
+# In build_holder's order (slice by slice, row by row) that is 250 chunks
+# of about 66 (slice, row) groups, one build_planes launch each.
+BULK_FRAME = "fb"
+BULK_CHUNK = 131072
+BULK_SEED = SEED + 16
+# The inverse-enabled frame: 4 slices x 64 rows x 64 bits a row, drawn from
+# 512 columns a slice, in 4,096-pair chunks (test_bulk.py:333-365's chunk
+# size).  An inverse chunk builds one plane per distinct column (the
+# inverse view's rows), so the pool bounds its arena (512 planes, 64 MiB).
+INV_SLICES, INV_ROWS, INV_BITS, INV_POOL, INV_CHUNK = 4, 64, 64, 512, 4096
+
+# (pairs, groups) of every TorchEngine.build_planes call; one record for
+# each bulk chunk the server applies (apply_bulk), holding the (start,
+# end) host-clock stamps of its steps; the seconds of every chunk's
+# decode and of every transfer's completion.
+BULK_SEEN: list = []
+BULK_CHUNKS: list = []
+BULK_DECODE_S: list = []
+BULK_COMPLETE_S: list = []
+# The record of the chunk being applied, while apply_bulk runs.
+_BULK_OPEN: list = []
+
+
+def record_bulk_builds() -> None:
+    """Time the bulk door's steps inside the server, on the chunks it
+    applies: ingest.decode_packed (decode) and ingress.complete_bulk (the
+    transfer's completion) by their seconds; within each ingress.apply_bulk
+    call, a record of build.group_pairs, kernels.build_planes (with a
+    synchronize on each side, so the time from group_pairs' end to the
+    launch is the keys' upload, and from the launch's end to
+    TorchEngine.build_planes' end the planes' download),
+    TorchEngine.build_planes, Fragment.bulk_set_planes (the commit, once
+    a slice) and Executor.note_external_write (the write note).
+    TorchEngine.build_planes also appends its pairs and groups to
+    BULK_SEEN."""
+    from pilosa_tpu_torch import ingest
+    from pilosa_tpu_torch.bulk import build, ingress
+    from pilosa_tpu_torch.core.fragment import Fragment
+    from pilosa_tpu_torch.engine import TorchEngine
+    from pilosa_tpu_torch.executor import Executor
+
+    def stamped(fn, step, sync=False):
+        def call(*a, **k):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            if _BULK_OPEN:
+                _BULK_OPEN[-1].setdefault(step, []).append((t0, time.perf_counter()))
+            return out
+        return call
+
+    def seconds(fn, into):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            into.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def apply(*a, _fn=ingress.apply_bulk, **k):
+        _BULK_OPEN.append({})
+        t0 = time.perf_counter()
+        try:
+            return _fn(*a, **k)
+        finally:
+            rec = _BULK_OPEN.pop()
+            rec["apply"] = [(t0, time.perf_counter())]
+            BULK_CHUNKS.append(rec)
+
+    def seen(self, rows, cols, _fn=stamped(TorchEngine.build_planes, "build")):
+        out = _fn(self, rows, cols)
+        BULK_SEEN.append((len(rows), len(out[0])))
+        return out
+
+    ingest.decode_packed = seconds(ingest.decode_packed, BULK_DECODE_S)
+    ingress.complete_bulk = seconds(ingress.complete_bulk, BULK_COMPLETE_S)
+    ingress.apply_bulk = apply
+    build.group_pairs = stamped(build.group_pairs, "group_pairs")
+    kernels.build_planes = stamped(kernels.build_planes, "launch", sync=True)
+    TorchEngine.build_planes = seen
+    Fragment.bulk_set_planes = stamped(Fragment.bulk_set_planes, "commit")
+    Executor.note_external_write = stamped(Executor.note_external_write, "note")
+
+
+def chunk_steps(chunks: list, decode_s: list) -> dict:
+    """A chunk's ms by step, from the server's own chunks (one
+    group_pairs, launch and build each): decode, group_pairs, upload,
+    launch (memset and kernel), download, commit, the write note, and
+    ``apply_rest`` (apply_bulk's time less its timed steps: its own
+    lines, among them the np.unique of the rows that the note takes);
+    median and mean over the chunks, and apply_bulk's whole time."""
+    span = lambda r, k: sum(b - a for a, b in r.get(k, ()))  # noqa: E731
+    steps = {k: [] for k in ("group_pairs", "upload", "launch", "download", "commit", "note",
+                             "apply_rest", "apply")}
+    for r in chunks:
+        if not all(len(r.get(k, ())) == 1 for k in ("group_pairs", "launch", "build", "apply")):
+            raise AssertionError(f"bulk chunk steps: {sorted((k, len(v)) for k, v in r.items())}")
+        (g0, g1), (k0, k1), (b0, b1) = r["group_pairs"][0], r["launch"][0], r["build"][0]
+        got = {"group_pairs": g1 - g0, "upload": k0 - g1, "launch": k1 - k0, "download": b1 - k1,
+               "commit": span(r, "commit"), "note": span(r, "note"), "apply": span(r, "apply")}
+        got["apply_rest"] = got["apply"] - sum(v for k, v in got.items() if k != "apply")
+        for k, v in got.items():
+            steps[k].append(v * 1e3)
+    steps["decode"] = [x * 1e3 for x in decode_s]
+    return {"median": {k: float(np.median(v)) for k, v in steps.items()},
+            "mean": {k: float(np.mean(v)) for k, v in steps.items()},
+            "apply_quantiles": [float(np.quantile(steps["apply"], q)) for q in (0, 0.5, 1)]}
+
+
+def inverse_pairs() -> tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(BULK_SEED)
+    rows, cols = [], []
+    for s in range(INV_SLICES):
+        pool = rng.choice(SLICE_WIDTH, size=INV_POOL, replace=False)
+        for r in range(INV_ROWS):
+            rows.append(np.full(INV_BITS, r, dtype=np.uint64))
+            cols.append(rng.choice(pool, size=INV_BITS, replace=False).astype(np.uint64)
+                        + np.uint64(s * SLICE_WIDTH))
+    return np.concatenate(rows), np.concatenate(cols)
+
+
+def _http_query(host: str, pql: str) -> list:
+    req = urllib.request.Request(f"http://{host}/index/i/query", data=pql.encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=600) as r:
+        got = json.loads(r.read())["results"]
+    # TopN answers as (id, count) pairs, as _norm gives the executor's.
+    return [[(p["id"], p["count"]) for p in g] if isinstance(g, list) else g for g in got]
+
+
+def bulk_path(d: str) -> tuple[dict, dict]:
+    """Drive the bulk door of the port's server (default config, engine on
+    the card) over the data directory ``d``: build_holder's pairs into
+    frame ``fb`` through ``Client.bulk_stream``; then, before any roaring
+    materialization (and after main_path's writes to ``f`` are replayed
+    into ``fb`` through the same door), a 16-pair Count batch, a Count and a TopN with a src
+    on ``fb``, each equal to the same on ``f`` and to the numpy engine's
+    answer on ``fb``; every fragment checksum of ``fb`` equal to ``f``'s;
+    a small inverse-enabled frame equal in both views to its twin built
+    through the streamed ``/ingest`` door; and, where pyarrow is present,
+    the Arrow export of ``fb``'s slice 0 re-ingested through ``/bulk``
+    exporting the same bytes.  Returns the "bulk" line and the launches of
+    the build and of the reads."""
+    from pilosa_tpu_torch import ingest
+    from pilosa_tpu_torch.config import Config
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.server.client import Client, ClientError
+    from pilosa_tpu_torch.server.server import Server
+
+    t_phase = time.perf_counter()
+    parts = list(holder_slices(N_SLICES, N_ROWS, BITS_PER_ROW, SEED))
+    rows = np.concatenate([r for r, _ in parts])
+    cols = np.concatenate([c for _, c in parts])
+    del parts
+    gen_s = time.perf_counter() - t_phase
+    n_chunks = -(-len(rows) // BULK_CHUNK)
+    srv = Server(Config(data_dir=d, host="127.0.0.1:0"))
+    srv.open()
+    try:
+        eng = srv.executor.engine
+        if eng.name != "torch" or eng.device.type != "cuda":
+            raise AssertionError(f"server engine is {eng.name} on {eng.device}")
+        c = Client(srv.host)
+        c.create_frame("i", BULK_FRAME)
+        n_seen, n_chunk, n_decode, n_complete = (len(BULK_SEEN), len(BULK_CHUNKS), len(BULK_DECODE_S),
+                                                 len(BULK_COMPLETE_S))
+        up0 = eng.stat_upload_bytes
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = c.bulk_stream("i", BULK_FRAME, rows, cols, chunk_pairs=BULK_CHUNK)
+        send_s = time.perf_counter() - t0
+        launches = {"bulk": dict(kernels.LAUNCHES)}
+        builds = BULK_SEEN[n_seen:]
+        steps = chunk_steps(BULK_CHUNKS[n_chunk:], BULK_DECODE_S[n_decode:])
+        complete_s = sum(BULK_COMPLETE_S[n_complete:])
+        if not out.get("done") or out.get("ops") != len(rows):
+            raise AssertionError(f"bulk stream: {out}")
+        if launches["bulk"]["build_planes"] != n_chunks or len(builds) != n_chunks:
+            raise AssertionError(f"bulk: {launches['bulk']['build_planes']} build_planes launches, "
+                                 f"{len(builds)} builds for {n_chunks} chunks")
+        upload = eng.stat_upload_bytes - up0
+        # The executor path's writes to f, replayed into fb through the door.
+        if F_WRITES:
+            wr, wc = (np.array(x, dtype=np.uint64) for x in zip(*F_WRITES))
+            c.bulk_stream("i", BULK_FRAME, wr, wc, chunk_pairs=BULK_CHUNK)
+
+        # Reads of the overlay, before any roaring materialization.
+        ex_ref = Executor(srv.holder, engine="numpy")
+        fb_view = srv.holder.index("i").frame(BULK_FRAME).view("standard")
+        f_view = srv.holder.index("i").frame("f").view("standard")
+        rng = np.random.default_rng(BULK_SEED)
+        pairs = rng.integers(0, N_ROWS, size=(GATHER_BATCH, 2))
+        r0, r1 = (int(x) for x in rng.integers(0, N_ROWS, size=2))
+        requests = {
+            "pairs": lambda fr: [f"Count(Intersect({_bm(a, fr)}, {_bm(b, fr)}))" for a, b in pairs],
+            "count": lambda fr: [f"Count({_bm(r0, fr)})"],
+            "topn": lambda fr: [f'TopN({_bm(r1, fr)}, frame="{fr}", n=10)'],
+        }
+        reads = []
+        t_reads = time.perf_counter()
+        kernels.reset_launches()
+        for name, calls in requests.items():
+            before = dict(kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            got = _http_query(srv.host, " ".join(calls(BULK_FRAME)))
+            ms = (time.perf_counter() - t0) * 1e3
+            launched = {k: kernels.LAUNCHES[k] - before[k] for k in before
+                        if kernels.LAUNCHES[k] > before[k]}
+            t0 = time.perf_counter()
+            on_f = _http_query(srv.host, " ".join(calls("f")))
+            f_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            want = _norm(ex_ref.execute("i", " ".join(calls(BULK_FRAME))))
+            numpy_ms = (time.perf_counter() - t0) * 1e3
+            if got != on_f or got != want:
+                raise AssertionError(f"bulk {name}: fb {got[:4]} vs f {on_f[:4]} vs numpy {want[:4]}")
+            if not launched:
+                raise AssertionError(f"bulk {name}: no kernel launched")
+            reads.append({"request": name, "ms": ms, "f_ms": f_ms, "numpy_ms": numpy_ms,
+                          "checked": len(got), "launches": launched})
+        launches["bulk_reads"] = dict(kernels.LAUNCHES)
+        reads_s = time.perf_counter() - t_reads
+        lazy = sum(1 for s in fb_view.fragments if fb_view.fragment(s)._bulk_planes)
+        if lazy != N_SLICES:
+            raise AssertionError(f"bulk: {N_SLICES - lazy} fragments of fb materialized by reads")
+
+        t0 = time.perf_counter()
+        if sorted(fb_view.fragments) != sorted(f_view.fragments) or len(f_view.fragments) != N_SLICES:
+            raise AssertionError(f"bulk: fb slices {sorted(fb_view.fragments)}")
+        diff = [s for s in sorted(f_view.fragments)
+                if fb_view.fragment(s).checksum() != f_view.fragment(s).checksum()]
+        if diff:
+            raise AssertionError(f"bulk: fb checksums differ from f's in slices {diff}")
+        checksum_s = time.perf_counter() - t0
+
+        # The inverse-enabled frame against its twin through /ingest.
+        t0 = time.perf_counter()
+        ir, ic = inverse_pairs()
+        for fr in ("fi", "fs"):
+            c.create_frame("i", fr, {"inverseEnabled": True})
+        before = kernels.LAUNCHES["build_planes"]
+        c.bulk_stream("i", "fi", ir, ic, chunk_pairs=INV_CHUNK)
+        inv_launches = kernels.LAUNCHES["build_planes"] - before
+        if inv_launches != 2 * -(-len(ir) // INV_CHUNK):
+            raise AssertionError(f"bulk inverse: {inv_launches} build_planes launches")
+        c.ingest_stream("i", "fs", ir, ic, chunk_pairs=INV_CHUNK)
+        idx = srv.holder.index("i")
+        inverse = {"pairs": len(ir), "chunks": -(-len(ir) // INV_CHUNK), "launches": inv_launches}
+        for vname in ("standard", "inverse"):
+            vb, vs = idx.frame("fi").view(vname), idx.frame("fs").view(vname)
+            if sorted(vb.fragments) != sorted(vs.fragments) or not vb.fragments:
+                raise AssertionError(f"bulk inverse {vname}: {sorted(vb.fragments)} vs {sorted(vs.fragments)}")
+            bad = [s for s in vb.fragments if vb.fragment(s).checksum() != vs.fragment(s).checksum()]
+            if bad:
+                raise AssertionError(f"bulk inverse {vname}: checksums differ in slices {bad}")
+            inverse[f"{vname}_fragments"] = len(vb.fragments)
+        inverse["s"] = time.perf_counter() - t0
+
+        # The Arrow round trip, where pyarrow is importable.
+        t0 = time.perf_counter()
+        if ingest.arrow_available():
+            a = c.export_arrow("i", BULK_FRAME, "standard", 0)
+            c.create_frame("i", "fr")
+            r2, c2 = ingest.decode_arrow(a)
+            c.bulk_stream("i", "fr", r2, c2, chunk_pairs=BULK_CHUNK, arrow=True)
+            if c.export_arrow("i", "fr", "standard", 0) != a:
+                raise AssertionError("bulk arrow: the re-ingested export differs")
+            arrow = {"case": "pyarrow present: export, re-ingest, export byte-identical",
+                     "bytes": len(a), "pairs": len(r2)}
+        else:
+            try:
+                c.export_arrow("i", BULK_FRAME, "standard", 0)
+            except ClientError as e:
+                if e.status != 415:
+                    raise
+            else:
+                raise AssertionError("bulk arrow: export answered without pyarrow")
+            arrow = {"case": "no pyarrow: the Arrow export answered 415, round trip not run"}
+        arrow["s"] = time.perf_counter() - t0
+        print(f"arrow: {arrow['case']}", flush=True)
+        t0 = time.perf_counter()
+    finally:
+        srv.close()
+    close_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    # group_pairs on the first chunks again, with the server closed: the
+    # sort's own time beside its time inside the server (chunk_steps).
+    from pilosa_tpu_torch.bulk import build
+
+    idle = []
+    for i in range(10):
+        t0 = time.perf_counter()
+        build.group_pairs(rows[i * BULK_CHUNK:(i + 1) * BULK_CHUNK], cols[i * BULK_CHUNK:(i + 1) * BULK_CHUNK])
+        idle.append((time.perf_counter() - t0) * 1e3)
+    groups = [g for _, g in builds]
+    line = {
+        "pairs": len(rows), "chunks": n_chunks, "chunk_pairs": BULK_CHUNK,
+        "build_planes_launches": launches["bulk"]["build_planes"],
+        "pairs_per_s": len(rows) / send_s, "send_s": send_s,
+        "chunk_ms": send_s / n_chunks * 1e3, "complete_s": complete_s,
+        "apply_ms": steps["apply_quantiles"],
+        "chunk_steps_ms": {"median": steps["median"], "mean": steps["mean"]},
+        "group_pairs_idle_ms": float(np.median(idle)),
+        "groups_per_chunk": [min(groups), float(np.mean(groups)), max(groups)],
+        "wire_bytes": 8 * n_chunks + 16 * len(rows), "upload_bytes": upload,
+        "download_bytes": sum(groups) * W * 4,
+        "reads": reads, "reads_s": reads_s, "checksum_s": checksum_s, "close_s": close_s, "slices_equal": N_SLICES,
+        "inverse": inverse, "arrow": arrow, "gen_s": gen_s, "replayed_writes": len(F_WRITES),
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    return line, launches
+
+
 def main() -> int:
     card = probe()
     t0 = time.perf_counter()
     per_source = kernels.build()
     print(f"build_s {time.perf_counter() - t0:.3f} per-source {json.dumps(per_source)}", flush=True)
-    print(json.dumps({"ptxas": ptxas_usage((
+    ptx = ptxas_usage((
         "count_rows", "resident_count2", "gather_count_multi", "gather_count_tree", "resident_count_tree",
         "gather_count2_rowmajor", "gather_count_multi_rowmajor", "topn_counts",
-        "resident_count_multi", "pair_gram", "gather_count2"))}), flush=True)
+        "resident_count_multi", "pair_gram", "gather_count2", "build_planes"))
+    print(json.dumps({"ptxas": ptx}), flush=True)
 
     timings, layout, gate, multi = check_kernels()
     print("kernels match their plain versions on the card", flush=True)
@@ -2624,6 +3112,7 @@ def main() -> int:
     record_multi_batches()
     record_pair_batches()
     record_tree_batches()
+    record_bulk_builds()
 
     with tempfile.TemporaryDirectory() as d:
         h = paths_data(d)
@@ -2631,6 +3120,9 @@ def main() -> int:
         print(json.dumps({"card": card, "gather2_paths": time_gather2_paths()}), flush=True)
         http_records, launches["http"] = server_path(d)
         print(json.dumps({"card": card, "tree_paths": time_tree_paths()}), flush=True)
+        bulk, bulk_launches = bulk_path(d)
+        launches.update(bulk_launches)
+        print(json.dumps({"card": card, "bulk": bulk}), flush=True)
 
     # The tall path, in a data directory of its own.
     from pilosa_tpu_torch.executor import Executor
@@ -2669,9 +3161,11 @@ def main() -> int:
                       "chunk_words", "stages", "smem_bytes", "kernel_ms", "n_seg",
                       "kernel_ms_by_n_seg", "host_ms", "bytes_bound_ms", "ops_bound_ms",
                       "int8_ops_bound_ms", "int_mm_only_ms", "checked", "schedule", "buckets",
-                      "b1_probe"):
+                      "b1_probe", "library_note", "download_pinned_ms", "download_pageable_ms"):
             if extra in t:
                 entry[extra] = t[extra]
+        if name in ptx:
+            entry["ptxas"] = ptx[name]
         line.append(entry)
     print(json.dumps({"card": card, "path": "executor", "requests": records}), flush=True)
     print(json.dumps({"card": card, "path": "http", "requests": http_records}), flush=True)

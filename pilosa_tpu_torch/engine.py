@@ -256,7 +256,8 @@ class NumpyEngine:
         """Bulk sort/segment/scatter build: (row, col) uint64 columns ->
         ``(slice_ids, row_ids, planes uint32[G, W])`` — the device-layout
         word planes the bulk ingest door commits into fragments.  Host
-        twin (vectorized numpy); the device lane is not ported yet."""
+        twin (vectorized numpy); the torch engine runs the same contract on
+        device."""
         from pilosa_tpu_torch.bulk.build import build_planes_numpy
 
         return build_planes_numpy(rows, cols)
@@ -561,10 +562,17 @@ class TorchEngine:
         return out
 
     def build_planes(self, rows, cols):
-        raise NotImplementedError(
-            "TorchEngine.build_planes: the device bulk build is not ported yet "
-            "(ROADMAP Queue 1.5)"
-        )
+        """Bulk build lane: ``(slice_ids, row_ids, planes uint32[G, W])``
+        with the planes packed on this engine's device
+        (``bulk.build.build_planes_torch``: the build_planes kernel on
+        the card).  The engine has no ``build_words``, so the bulk door
+        commits these dense planes, as on the reference's device engine."""
+        from pilosa_tpu_torch.bulk.build import build_planes_torch
+
+        out = build_planes_torch(rows, cols, self.device)
+        if len(out[0]):
+            self.stat_upload_bytes += 8 * len(rows)
+        return out
 
     # -- all-pairs Gram -------------------------------------------------
 

@@ -36,7 +36,11 @@ distinct rows through shared-memory tiles copied by cp.async
 (``compact_rows``).  The twelfth, ``pair_gram``, replaces the
 reference's all-pairs Gram (pilosa_tpu/ops/bitwise.py pair_gram, an MXU
 product rather than Pallas): it is bound by operations and runs on the
-tensor cores (mma.sync, 1-bit AND-popc).
+tensor cores (mma.sync, 1-bit AND-popc).  The thirteenth,
+``build_planes``, replaces the device half of the reference's bulk build
+lane (pilosa_tpu/bulk/build.py build_planes_jax, a jitted sort, dedup and
+scatter-add rather than Pallas): one atomicOr a bulk pair into a zeroed
+word arena, bound by the bytes of the arena and the pairs.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.ops import bitwise
+from pilosa_tpu_torch.pilosa import SLICE_WIDTH
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -65,7 +70,7 @@ KERNELS = (
     "count_rows", "resident_count2", "gather_count2", "gather_src_counts",
     "gather_count_multi", "gather_count_tree", "resident_count_tree",
     "gather_count2_rowmajor", "gather_count_multi_rowmajor", "topn_counts",
-    "resident_count_multi", "pair_gram",
+    "resident_count_multi", "pair_gram", "build_planes",
 )
 
 # Launch counters: one per kernel, bumped only where the kernel launches.
@@ -94,6 +99,7 @@ _ARGTYPES = {
     "topn_counts": ("pk_topn_counts", [_P, _P, _P, _I, _I, _I, _P]),
     "resident_count_multi": ("pk_resident_count_multi", [_P] * 6 + [_I] * 10 + [_P]),
     "pair_gram": ("pk_pair_gram", [_P, _P, _I, _I, _I, _L, _L, _I, _P]),
+    "build_planes": ("pk_build_planes", [_P, _L, _P, _L, _P]),
 }
 
 _build_mu = threading.Lock()
@@ -1000,3 +1006,51 @@ def pair_gram(row_matrix: torch.Tensor) -> torch.Tensor:
     _check(err, "pair_gram")
     LAUNCHES["pair_gram"] += 1
     return out.to(torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# build_planes (the reference's device bulk build, bulk/build.py build_planes_jax)
+# ---------------------------------------------------------------------------
+
+# Words a (slice, row) plane holds: the packed device row layout.
+PLANE_WORDS = SLICE_WIDTH // 32
+
+
+def build_planes_plain(keys, n_groups: int):
+    """The reference's steps: sort the keys, drop each key that repeats
+    the one before it (and any key outside the arena, as the reference
+    drops its pads), ``index_add_`` each bit value into an int64 arena
+    (distinct powers of two never carry, so the sum is the OR), and read
+    the low 32 bits of each int64 word as the int32 word."""
+    keys = torch.sort(keys).values
+    first = torch.ones_like(keys, dtype=torch.bool)
+    first[1:] = keys[1:] != keys[:-1]
+    k = keys[first & (keys >= 0) & (keys < n_groups * SLICE_WIDTH)]
+    out = torch.zeros(n_groups * PLANE_WORDS, dtype=torch.int64, device=keys.device)
+    out.index_add_(0, k >> 5, torch.ones_like(k) << (k & 31))
+    # Little-endian int64 words: the int32 view's even entries are the low halves.
+    return out.view(torch.int32)[0::2].reshape(n_groups, PLANE_WORDS)
+
+
+def build_planes(keys: torch.Tensor, n_groups: int) -> torch.Tensor:
+    """Word planes of a bulk chunk -> int32[G, PLANE_WORDS]: bit ``key %
+    2^20`` of plane ``key // 2^20`` set for every key (int64[N], key =
+    group * SLICE_WIDTH + local column, in any order, repeats allowed);
+    keys outside [0, G * SLICE_WIDTH) are dropped.  The arena is zeroed
+    with cudaMemsetAsync on the launch's stream; G = 0 launches nothing."""
+    if keys.dtype != torch.int64 or keys.dim() != 1:
+        raise TypeError(f"build_planes: expected int64[N] keys, got {keys.dtype}{tuple(keys.shape)}")
+    if n_groups < 0:
+        raise ValueError(f"build_planes: {n_groups} groups")
+    if _on_cpu(keys):
+        return build_planes_plain(keys, n_groups)
+    if not keys.is_contiguous():
+        raise ValueError("build_planes keys: must be contiguous")
+    out = torch.empty((n_groups, PLANE_WORDS), dtype=torch.int32, device=keys.device)
+    if n_groups == 0:
+        return out
+    err = _fn("build_planes")(keys.data_ptr(), keys.numel(), out.data_ptr(), out.numel(),
+                              _stream(keys))
+    _check(err, "build_planes")
+    LAUNCHES["build_planes"] += 1
+    return out

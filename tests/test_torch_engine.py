@@ -185,8 +185,12 @@ def test_engine_factory_and_devices():
     # reference's is off the TPU; the int32 slice bound admits 4 slices.
     assert te.supports_row_major_gather is False
     assert te.rowmajor_ok(4, W) is True
-    with pytest.raises(NotImplementedError, match="Queue 1.5"):
-        te.build_planes(np.zeros(1, np.uint64), np.zeros(1, np.uint64))
+    # The bulk build lane is ported: the plain version on the CPU.
+    got = te.build_planes(np.array([2, 2], np.uint64), np.array([5, 37], np.uint64))
+    want = NumpyEngine().build_planes(np.array([2, 2], np.uint64), np.array([5, 37], np.uint64))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
     with pytest.raises(ValueError):
         te.batch_intersection_count(te.asarray(np.zeros((2, W), np.uint32)),
                                     te.asarray(np.zeros(W, np.uint32)), tiled=True)
