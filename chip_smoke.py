@@ -46,18 +46,22 @@
    words, and the first slice at the full W), and timed at the
    executor's S = 64, R = 256 beside its plain version and the library
    yardstick (bits unpacked to int8 and ``torch._int_mm`` per slice; the
-   port never calls it), and at the buckets at the pool's 2 GiB.  Its
-   bound takes the bit products at the b1 tensor-core rate that
-   ``csrc/mma_probe.cu`` measures in the same run (the data sheet gives
-   none; the reading is the kernels line's ``b1_probe``).  The bulk
-   plane build (``build_planes``) is held exactly on tests/test_bulk.py's
-   ragged case, one pair, one word's 32 bits, the last bit of a slice,
-   one group, ids past 2^22, unsorted keys with some outside the arena,
-   and its three timed shapes (N pairs x G groups: the bulk path's chunk
-   131,072 x 66, bench.py's 2^20 x 256, and 2^23 x 4,096, a 512 MiB
-   arena), through its entry point and as a launch alone, beside its
-   bound (the arena written once, the keys read once); the
-   whole device lane equals the host lane, and G = 0 launches nothing.
+   port never calls it), and at the buckets at the pool's 2 GiB; both
+   of its producers (TMA and cp.async) are held exactly and timed ABBA
+   at S = 64, R = 256 (``producers``).  Its bound takes the bit products
+   at the faster of the two b1 tensor-core rates (mma.sync and wgmma)
+   that ``csrc/mma_probe.cu`` measures in the same run (the data sheet
+   gives none; the reading is the kernels line's ``b1_probe``).  The
+   bulk plane build (``build_planes``) is held exactly on
+   tests/test_bulk.py's ragged case, one pair, one word's 32 bits, the
+   last bit of a slice, one group, ids past 2^22, ascending keys with
+   some outside the arena, and its three timed shapes (N pairs x G
+   groups: the bulk path's chunk 131,072 x 66, bench.py's 2^20 x 256,
+   and 2^23 x 4,096, a 512 MiB arena), through its entry point and as a
+   launch alone (both ways of ORing a warp's bits, ABBA: ``or_ways``),
+   beside its bound (the arena written once, the keys read once); the
+   whole device lane equals the host lane, unsorted keys set a descent
+   flag and raise, and G = 0 launches nothing.
 4. The diffcheck path: the differential sweep ``ops/diffcheck.py`` over
    every lane on the card (its ``topn_counts`` lane is that kernel's path).
 5. Drives the executor path — ``Executor.execute`` over a ``Holder`` — at
@@ -125,7 +129,8 @@ per path, a ``{"kernels": [...]}`` line, and last ``{"ok": true,
 
     python3 chip_smoke.py --resident-against DIR
 
-times ``resident_count2``, ``gather_count2``, the two count entry points
+times ``pair_gram`` (at its four timed shapes), ``build_planes`` (at
+``BUILD_TIMED``), ``resident_count2``, ``gather_count2``, the two count entry points
 (``dispatch.count``, ``dispatch.batch_intersection_count``), the tree entry
 point (``dispatch.gather_count_tree``) and the two multi-fold entry points
 (``dispatch.gather_count_multi``, ``dispatch.gather_count_multi_rowmajor``)
@@ -136,7 +141,8 @@ src and [1, 4], trees at the kernels line's shapes and every tree bucket
 of the paths (``tree_path_batches``), folds at every batch the paths
 launch and at the kernels line's timed shapes — in the order DIR, this,
 this, DIR, after checking that the two agree exactly; it prints a
-``{"card": ..., "resident_against": [...]}``, a ``"gather2_against"``, a
+``{"card": ..., "gram_against": [...]}``, a ``"build_against"``, a
+``"resident_against"``, a ``"gather2_against"``, a
 ``"count_against"``, a ``"tree_against"`` and a ``{"card": ...,
 "multi_against": [...]}`` line.
 
@@ -290,15 +296,22 @@ def _flush_l2() -> None:
     _flush_buf.zero_()
 
 
-def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
+def _flush_l2_reading() -> None:
+    """Read more than the 50 MB L2: the next launch reads cold, and the
+    lines it evicts are clean (no flush writes are written back in it)."""
+    _flush_l2()
+    _flush_buf.max()
+
+
+def cuda_ms(fn, reps: int = 10, warm: int = 2, flush=_flush_l2) -> float:
     """Mean device time of fn() in ms: CUDA events around each launch,
-    the L2 flushed before each."""
+    the L2 flushed before each (by writing, unless ``flush`` says else)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(reps):
-        _flush_l2()
+        flush()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -1610,8 +1623,9 @@ def _abba_rounds(fa, fb) -> tuple[list, list]:
 
 
 def resident_against(other_root: str) -> int:
-    """``resident_count2``, ``gather_count2`` and the two multi-fold entry
-    points (``dispatch.gather_count_multi``,
+    """``pair_gram`` (``gram_against``), ``build_planes``
+    (``build_against``), ``resident_count2``, ``gather_count2`` and the
+    two multi-fold entry points (``dispatch.gather_count_multi``,
     ``dispatch.gather_count_multi_rowmajor``) of this checkout against
     those of ``other_root`` on the same inputs: exact agreement, then ABBA
     times (other, this, this, other) — resident pairs at S=64 R=256 for B
@@ -1628,6 +1642,11 @@ def resident_against(other_root: str) -> int:
     kernels.build()
     other, other_dispatch = _load_other(other_root)
     other.build()
+    print(json.dumps({"card": card, "other": other_root, "gram_against": gram_against(other)}),
+          flush=True)
+    torch.cuda.empty_cache()
+    print(json.dumps({"card": card, "other": other_root, "build_against": build_against(other)}),
+          flush=True)
     rm = _rand_words(_gen(SEED), (N_SLICES, N_ROWS, W))
     rng = np.random.default_rng(SEED)
     rows = []
@@ -1682,6 +1701,48 @@ def resident_against(other_root: str) -> int:
                           dispatch=multi_choice(batch)))
     print(json.dumps({"card": card, "other": other_root, "multi_against": multi}), flush=True)
     return 0
+
+
+def gram_against(other) -> list:
+    """``kernels.pair_gram`` of this checkout against ``other``'s at the
+    kernels line's four timed shapes (S=64 R=256, the executor's; 300 of
+    a 512-row pool's rows, strided; S=16 R=1,024; the 64-row bucket, S=256
+    R=64): exact agreement, then MULTI_ABBA_ROUNDS rounds of ABBA."""
+    gen = _gen(GRAM_SEED)
+    pool = _rand_words(gen, (N_SLICES, GRAM_POOL_ROWS, W))
+    s, r = GRAM_STRIDED
+    shapes = [("executor", pool[:, :N_ROWS].contiguous()),
+              (f"{r} of {GRAM_POOL_ROWS} rows, strided", pool[:s, :r])]
+    s, r = GRAM_TALL
+    shapes.append(("tall", _rand_words(gen, (s, r, W))))
+    r = GRAM_BUCKETS[0]
+    shapes.append(("bucket", _rand_words(gen, (GRAM_POOL_BYTES // (r * W * 4), r, W))))
+    rows = []
+    for name, m in shapes:
+        if not torch.equal(kernels.pair_gram(m), other.pair_gram(m)):
+            raise AssertionError(f"pair_gram {name}: the checkouts disagree")
+        o_ms, ms = _abba_rounds(lambda: other.pair_gram(m), lambda: kernels.pair_gram(m))
+        rows.append({"shape": name, "S": m.shape[0], "R": m.shape[1], "other_ms": o_ms, "ms": ms})
+    return rows
+
+
+def build_against(other) -> list:
+    """``kernels.build_planes`` of this checkout against ``other``'s at
+    BUILD_TIMED (entry points, output allocation included): exact
+    agreement, then MULTI_ABBA_ROUNDS rounds of ABBA."""
+    def theirs(keys, g):
+        res = other.build_planes(keys, g)
+        return res[0] if isinstance(res, tuple) else res
+
+    rows = []
+    for n, g in BUILD_TIMED:
+        sl, _, _, keys = _keys(*build_timed_pairs(n, g))
+        if not torch.equal(_built(keys, len(sl)), theirs(keys, len(sl))):
+            raise AssertionError(f"build_planes N={n} G={g}: the checkouts disagree")
+        o_ms, ms = _abba_rounds(lambda: theirs(keys, len(sl)),
+                                lambda: kernels.build_planes(keys, len(sl)))
+        rows.append({"N": n, "G": len(sl), "other_ms": o_ms, "ms": ms})
+    return rows
 
 
 def count_against(rm, mine, theirs) -> list:
@@ -1856,10 +1917,12 @@ PROBE_ITERS = 4096
 
 
 def b1_rate() -> dict:
-    """Build ``csrc/mma_probe.cu`` and time its loop of b1 AND-popc
-    m16n8k256 over 4 blocks an SM: bit products a second, the ceiling of
-    the Gram's products (and its share of the int8 peak's 2 ops a
-    product)."""
+    """Build ``csrc/mma_probe.cu`` and time its two loops of b1 AND-popc:
+    mma.sync m16n8k256 from registers over 4 blocks an SM, and wgmma
+    m64n128k256 from shared memory at pair_gram.cu's tile over 2 blocks
+    (4 warpgroups) an SM.  Bit products a second of each and their share
+    of the int8 peak's 2 ops a product; ``bit_products_per_s``, the
+    ceiling of the Gram's products, is the faster of the two."""
     import ctypes
 
     src = os.path.join(kernels._CSRC, "mma_probe.cu")
@@ -1867,21 +1930,29 @@ def b1_rate() -> dict:
     os.makedirs(kernels.BUILD_DIR, exist_ok=True)
     subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", lib, src], check=True,
                    capture_output=True)
-    fn = ctypes.CDLL(lib).pk_mma_probe
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    blocks = 4 * kernels.sm_count(torch.device("cuda"))
-    out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
+    so = ctypes.CDLL(lib)
+    sms = kernels.sm_count(torch.device("cuda"))
+    rates = {}
+    # (entry point, blocks an SM, bit products a block and step)
+    for name, per_sm, products in (("mma_sync", 4, 8 * 16 * 32768),
+                                   ("wgmma", 2, 2 * 4 * 64 * 128 * 256)):
+        fn = getattr(so, f"pk_{name.replace('_sync', '')}_probe")
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+        blocks = per_sm * sms
+        out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
 
-    def run():
-        err = fn(blocks, PROBE_ITERS, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"mma_probe: cudaError {err}")
+        def run(fn=fn, blocks=blocks, out=out):
+            err = fn(blocks, PROBE_ITERS, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"mma_probe: cudaError {err}")
 
-    ms = cuda_ms(run, reps=5)
-    products = blocks * 8 * PROBE_ITERS * 16 * 32768
-    return {"ms": ms, "bit_products_per_s": products / ms * 1e3,
-            "share_of_int8_peak": 2 * products / ms * 1e3 / PEAK_INT8_OPS_S}
+        ms = cuda_ms(run, reps=5)
+        total = blocks * PROBE_ITERS * products
+        rates[name] = {"ms": ms, "bit_products_per_s": total / ms * 1e3,
+                       "share_of_int8_peak": 2 * total / ms * 1e3 / PEAK_INT8_OPS_S}
+    faster = max(rates, key=lambda k: rates[k]["bit_products_per_s"])
+    return dict(rates, faster=faster, bit_products_per_s=rates[faster]["bit_products_per_s"])
 
 
 def gram_bound(s: int, r: int, w: int, b1_s: float) -> dict:
@@ -1916,11 +1987,32 @@ def library_gram(m: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def gram_producers(m: torch.Tensor, want: torch.Tensor) -> dict:
+    """pair_gram's two producers (TMA and cp.async) on the same matrix:
+    each exactly equal to ``want``, then timed in the order TMA, cp.async,
+    cp.async, TMA (the output's zeroing in each)."""
+    outs = {}
+    for tma in (True, False):
+        out = torch.zeros(want.shape, dtype=torch.int32, device="cuda")
+        kernels.launch_pair_gram(m, out, tma)
+        if not torch.equal(out.long(), want):
+            raise AssertionError(f"pair_gram tma={tma}: differs from its plain version")
+        outs[tma] = out
+
+    def run(tma):
+        outs[tma].zero_()
+        kernels.launch_pair_gram(m, outs[tma], tma)
+
+    tma_ms, cp_ms = _abba(lambda: run(True), lambda: run(False))
+    return {"tma_ms": tma_ms, "cp_async_ms": cp_ms, "chosen": "tma" if kernels.GRAM_TMA else "cp_async"}
+
+
 def check_gram(diff) -> dict:
     """pair_gram == its plain version on the card, exactly, over the
-    grid above; timed at the executor's shape (S=64, R=256) against the
-    plain version and the library yardstick, and at the strided, tall
-    and bucket shapes, each beside its bound at this run's b1 rate."""
+    grid above (both producers on the strided and main shapes); timed at
+    the executor's shape (S=64, R=256) against the plain version and the
+    library yardstick, and at the strided, tall and bucket shapes, each
+    beside its bound at this run's faster b1 rate."""
     probe = b1_rate()
     b1_s = probe["bit_products_per_s"]
     gen = _gen(GRAM_SEED)
@@ -1940,6 +2032,8 @@ def check_gram(diff) -> dict:
     narrow = pool[:s, :r, :w]
     diff("pair_gram", kernels.pair_gram(narrow), kernels.pair_gram_plain(narrow))
     checked.append({"S": s, "R": r, "W": w, "strided": True})
+    for v in (view, narrow):
+        gram_producers(v, kernels.pair_gram_plain(v))
     torch.cuda.synchronize()
 
     def entry(m, shape, plain_reps=2):
@@ -1958,6 +2052,7 @@ def check_gram(diff) -> dict:
     if not torch.equal(lib.long(), kernels.pair_gram_plain(m)):
         raise AssertionError("pair_gram: the library yardstick disagrees with the plain version")
     main["library_ms"] = cuda_ms(lambda: library_gram(m), reps=3, warm=1)
+    main["producers"] = gram_producers(m, lib.long())
     bits = _int8_bits(m[0])
     main["int_mm_only_ms"] = N_SLICES * cuda_ms(lambda: torch._int_mm(bits, bits.t()), reps=5)
     del m, lib, bits
@@ -2697,68 +2792,113 @@ def _keys(rows, cols):
     return sl, rw, host, torch.from_numpy(host).cuda()
 
 
-def build_times(rows, cols) -> dict:
-    """build_planes at one shape: the entry point's device time (its
-    output allocation included, ``ms``), the launch alone on a preallocated
-    arena (``kernel_ms``: the memset and the kernel), the plain version's,
-    the planes' copy to the host through pinned and pageable memory, and
-    the bound: the arena written once (G x 128 KiB) and the keys read
-    once (8 bytes a pair), at 3.35 TB/s."""
-    sl, _, host, keys = _keys(rows, cols)
-    n, g = len(host), len(sl)
-    out = torch.empty((g, W), dtype=torch.int32, device="cuda")
+def _build_launcher(keys: torch.Tensor, g: int, warp_or: bool):
+    """One build_planes launch into a preallocated arena and its flags
+    (the launch alone, with either way of ORing a warp's bits), and the
+    arena and flags it fills."""
+    sched = kernels.build_schedule(g, kernels.sm_count(keys.device))
+    buf = torch.empty(g * W + sched["n_blocks"], dtype=torch.int32, device="cuda")
     fn = kernels._fn("build_planes")
     stream = kernels._stream(keys)
 
     def launch():
-        kernels._check(fn(keys.data_ptr(), n, out.data_ptr(), out.numel(), stream), "build_planes")
+        kernels._check(fn(keys.data_ptr(), keys.numel(), buf.data_ptr(), g * W,
+                          buf[g * W:].data_ptr(), sched["n_blocks"], int(warp_or), stream),
+                       "build_planes")
 
-    launch()
-    if not torch.equal(out, kernels.build_planes_plain(keys, g)):
-        raise AssertionError(f"build_planes N={n} G={g}: launch alone differs from its plain version")
+    return launch, buf[:g * W].view(g, W), buf[g * W:]
+
+
+def build_times(rows, cols) -> dict:
+    """build_planes at one shape: the entry point's device time (its
+    output allocation included, ``ms``), the launch alone on a preallocated
+    arena (``kernel_ms``, the way of ORing that ``kernels.BUILD_WARP_OR``
+    picks; ``kernel_ms_read_flush`` the same after an L2 flush by reading,
+    whose evicted lines need no write-back during the launch) and with
+    both ways in the order atomicOr, warp OR, warp OR, atomicOr
+    (``or_ways``), the plain version's, the planes' copy to the
+    host through pinned and pageable memory, and the bound: the arena
+    written once (G x 128 KiB) and the keys read once (8 bytes a pair),
+    at 3.35 TB/s."""
+    sl, _, host, keys = _keys(rows, cols)
+    n, g = len(host), len(sl)
+    want = kernels.build_planes_plain(keys, g)
+    launches = {}
+    for warp_or in (False, True):
+        launch, out, flags = _build_launcher(keys, g, warp_or)
+        launch()
+        if not torch.equal(out, want) or flags.any():
+            raise AssertionError(f"build_planes N={n} G={g} warp_or={warp_or}: "
+                                 "launch alone differs from its plain version")
+        launches[warp_or] = launch
+    atomic_ms, warp_ms = _abba(launches[False], launches[True])
     pinned = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
     nb, by = bound(g * W * 4 + n * 8, n)
     return {"shape": f"N={n} pairs, G={g} groups ({g * W * 4} arena bytes)",
-            "ms": cuda_ms(lambda: kernels.build_planes(keys, g)), "kernel_ms": cuda_ms(launch),
+            "ms": cuda_ms(lambda: kernels.build_planes(keys, g)),
+            "kernel_ms": cuda_ms(launches[kernels.BUILD_WARP_OR]),
+            "kernel_ms_read_flush": cuda_ms(launches[kernels.BUILD_WARP_OR], flush=_flush_l2_reading),
+            "or_ways": {"atomic_or_ms": atomic_ms, "warp_or_ms": warp_ms,
+                        "chosen": "warp_or" if kernels.BUILD_WARP_OR else "atomic_or"},
             "plain_ms": cuda_ms(lambda: kernels.build_planes_plain(keys, g), reps=3),
             "download_pinned_ms": cuda_ms(lambda: pinned.copy_(out)),
             "download_pageable_ms": cuda_ms(lambda: out.cpu()),
             "bound_ms": nb, "bound_by": by}
 
 
+def _built(keys: torch.Tensor, g: int) -> torch.Tensor:
+    """build_planes' planes, its descent flags all clear."""
+    planes, descents = kernels.build_planes(keys, g)
+    if descents.any():
+        raise AssertionError(f"build_planes G={g}: descent flags set on ascending keys")
+    return planes
+
+
 def check_build_planes(diff) -> dict:
     """build_planes == its plain version on the card, exactly, on the edge
     cases, keys outside the arena and the timed shapes; the whole device
     lane (``build_planes_torch``) == the host lane (``build_planes_numpy``);
-    G = 0 launches nothing.  Returns the kernels line's timings."""
+    unsorted keys set a descent flag and raise; G = 0 launches nothing.
+    Returns the kernels line's timings."""
     from pilosa_tpu_torch.bulk import build
 
     cases = build_cases()
     cases.update({f"timed_{n}x{g}": build_timed_pairs(n, g) for n, g in BUILD_TIMED})
     for name, (rows, cols) in cases.items():
         sl, _, _, keys = _keys(rows, cols)
-        diff("build_planes", kernels.build_planes(keys, len(sl)),
-             kernels.build_planes_plain(keys, len(sl)))
+        diff("build_planes", _built(keys, len(sl)), kernels.build_planes_plain(keys, len(sl)))
         for got, want in zip(build.build_planes_torch(rows, cols, "cuda"),
                              build.build_planes_numpy(rows, cols)):
             if got.dtype != want.dtype or not np.array_equal(got, want):
                 raise AssertionError(f"build_planes_torch differs from build_planes_numpy: {name}")
-    # Unsorted keys with repeats and keys outside the arena (dropped).
+    # Keys with repeats and keys outside the arena (dropped), ascending;
+    # then unsorted (a descent in the middle and one among the dropped
+    # keys past the arena): a flag is set and the caller raises.
     rng = np.random.default_rng(BUILD_SEED)
     k = rng.integers(0, 3 * SLICE_WIDTH, size=5000)
-    k = np.concatenate([k, k[:500], [-1, 3 * SLICE_WIDTH, 1 << 40]]).astype(np.int64)
-    keys = torch.from_numpy(k).cuda()
-    diff("build_planes", kernels.build_planes(keys, 3), kernels.build_planes_plain(keys, 3))
+    k = np.concatenate([k, k[:500], [-1, -7, 3 * SLICE_WIDTH, 1 << 40]]).astype(np.int64)
+    keys = torch.from_numpy(np.sort(k)).cuda()
+    diff("build_planes", _built(keys, 3), kernels.build_planes_plain(keys, 3))
+    tail = np.sort(k)
+    tail[-2:] = tail[-2:][::-1].copy()
+    for bad in (k, tail):
+        _, descents = kernels.build_planes(torch.from_numpy(bad).cuda(), 3)
+        try:
+            kernels.raise_on_descent(descents.cpu().numpy())
+        except ValueError:
+            continue
+        raise AssertionError("build_planes: unsorted keys did not raise")
     before = kernels.LAUNCHES["build_planes"]
     empty = build.build_planes_torch(np.zeros(0, np.uint64), np.zeros(0, np.uint64), "cuda")
-    if empty[2].shape != (0, W) or kernels.build_planes(keys[:0], 0).shape != (0, W):
+    if empty[2].shape != (0, W) or kernels.build_planes(keys[:0], 0)[0].shape != (0, W):
         raise AssertionError("build_planes: G = 0 must give [0, W]")
     if kernels.LAUNCHES["build_planes"] != before:
         raise AssertionError("build_planes: G = 0 launched")
     torch.cuda.synchronize()
     first, *rest = (build_times(*build_timed_pairs(n, g)) for n, g in BUILD_TIMED)
     return {"build_planes": dict(
-        first, shapes=rest, checked=sorted(cases) + ["unsorted_out_of_range", "empty"],
+        first, shapes=rest,
+        checked=sorted(cases) + ["out_of_range", "unsorted_raises", "unsorted_tail_raises", "empty"],
         library_ms=None,
         library_note="no PyTorch call computes a scatter-OR (scatter_reduce has no OR)")}
 
@@ -3161,7 +3301,8 @@ def main() -> int:
                       "chunk_words", "stages", "smem_bytes", "kernel_ms", "n_seg",
                       "kernel_ms_by_n_seg", "host_ms", "bytes_bound_ms", "ops_bound_ms",
                       "int8_ops_bound_ms", "int_mm_only_ms", "checked", "schedule", "buckets",
-                      "b1_probe", "library_note", "download_pinned_ms", "download_pageable_ms"):
+                      "b1_probe", "library_note", "download_pinned_ms", "download_pageable_ms",
+                      "producers", "or_ways", "kernel_ms_read_flush"):
             if extra in t:
                 entry[extra] = t[extra]
         if name in ptx:

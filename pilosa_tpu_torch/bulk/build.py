@@ -17,9 +17,9 @@ Three stages:
 :func:`build_planes_numpy` is the host twin (vectorized sort +
 ``bitwise_or.reduceat``); :func:`build_planes_torch` is the device lane:
 the group table on the host, then one hand-written CUDA kernel
-(``kernels.build_planes``) ORs every pair's bit into a zeroed arena on
-the card.  Both return identical planes for identical input, as the
-reference's two lanes do.  :func:`plane_positions` is the fragment's
+(``kernels.build_planes``) writes every word of the arena on the card
+once from the sorted keys.  Both return identical planes for identical
+input, as the reference's two lanes do.  :func:`plane_positions` is the fragment's
 overlay materialization bridge.
 """
 
@@ -143,23 +143,30 @@ def build_planes_torch(rows, cols, device="cuda"):
     """Device build lane: same contract as :func:`build_planes_numpy`.
     The group table is computed on the host (the fragment commit needs
     host ids regardless); each sorted pair's key ``gid * SLICE_WIDTH +
-    local`` is uploaded and ``kernels.build_planes`` ORs its bit into a
-    zeroed ``[G, W]`` arena on ``device`` (its plain version on the
-    CPU), which is copied back.  Exact shapes: no padding, since eager
-    torch keeps no compile cache to keep stable."""
+    local`` (ascending: ``group_pairs``' order) is uploaded and
+    ``kernels.build_planes`` builds the ``[G, W]`` arena on ``device``
+    (its plain version on the CPU), which is copied back.  The kernel's
+    order check costs no launch and no wait: its descent flags come back
+    in the same copy as the planes and raise here.  Exact shapes: no
+    padding, since eager torch keeps no compile cache to keep stable."""
     slice_ids, row_ids, gid, local = group_pairs(rows, cols)
     g = len(slice_ids)
     if g == 0:
         return slice_ids, row_ids, np.zeros((0, WORDS_PER_PLANE), np.uint32)
     keys = torch.from_numpy(gid * SLICE_WIDTH + local).to(device)
-    planes = kernels.build_planes(keys, g)
+    planes, descents = kernels.build_planes(keys, g)
     if planes.is_cuda:
         # The planes come back through pinned memory: 33.5 MB of planes
         # took 0.64 ms so and 14.5 ms by a pageable copy from an H100
         # (chip_smoke.py's build_times).
-        host = torch.empty(planes.shape, dtype=planes.dtype, pin_memory=True)
-        host.copy_(planes)
+        whole = kernels.planes_and_descents(planes, descents)
+        host = torch.empty(whole.shape, dtype=whole.dtype, pin_memory=True)
+        host.copy_(whole)
+        n = planes.numel()
+        kernels.raise_on_descent(host[n:].numpy())
+        host = host[:n].view(planes.shape)
     else:
+        kernels.raise_on_descent(descents.numpy())
         host = planes
     # The words' bits, not their values: int32 read back as uint32.
     return slice_ids, row_ids, host.numpy().view(np.uint32)

@@ -35,12 +35,13 @@ distinct rows through shared-memory tiles copied by cp.async
 (``csrc/stage.cuh``); their wrappers compact the ids on the host first
 (``compact_rows``).  The twelfth, ``pair_gram``, replaces the
 reference's all-pairs Gram (pilosa_tpu/ops/bitwise.py pair_gram, an MXU
-product rather than Pallas): it is bound by operations and runs on the
-tensor cores (mma.sync, 1-bit AND-popc).  The thirteenth,
+product rather than Pallas): it runs on the tensor cores (wgmma, 1-bit
+AND-popc, both operands from shared memory).  The thirteenth,
 ``build_planes``, replaces the device half of the reference's bulk build
 lane (pilosa_tpu/bulk/build.py build_planes_jax, a jitted sort, dedup and
-scatter-add rather than Pallas): one atomicOr a bulk pair into a zeroed
-word arena, bound by the bytes of the arena and the pairs.
+scatter-add rather than Pallas): from keys in ascending order it writes
+each word of the arena once, bound by the bytes of the arena and the
+pairs.
 """
 
 from __future__ import annotations
@@ -98,8 +99,8 @@ _ARGTYPES = {
         "pk_gather_count_multi_rowmajor", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "topn_counts": ("pk_topn_counts", [_P, _P, _P, _I, _I, _I, _P]),
     "resident_count_multi": ("pk_resident_count_multi", [_P] * 6 + [_I] * 10 + [_P]),
-    "pair_gram": ("pk_pair_gram", [_P, _P, _I, _I, _I, _L, _L, _I, _P]),
-    "build_planes": ("pk_build_planes", [_P, _L, _P, _L, _P]),
+    "pair_gram": ("pk_pair_gram", [_P, _P, _I, _I, _I, _L, _L, _I, _I, _P]),
+    "build_planes": ("pk_build_planes", [_P, _L, _P, _L, _P, _I, _I, _P]),
 }
 
 _build_mu = threading.Lock()
@@ -926,12 +927,18 @@ def topn_counts(row_matrix: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
 
 # Per-pair counts must stay inside int32: at most S x 2^20 bits a pair.
 GRAM_SLICES_MAX = 2047
-# Output rows a block tile covers, words a k-tile covers and blocks of 8
-# warps an SM (each a 2-stage ring of 72 KiB): pair_gram.cu's kTile,
-# kChunk and kBlocksPerSm.
+# Output rows a block tile covers, words a k-tile covers, the depth of
+# the staging ring (a stage: two 16 KiB operand tiles) and blocks of two
+# consumer warpgroups and a producer warp an SM: pair_gram.cu's kTile,
+# kChunk, kStages and kBlocksPerSm.
 GRAM_TILE = 128
 GRAM_CHUNK_WORDS = 32
-GRAM_BLOCKS_PER_SM = 2
+GRAM_STAGES = 4
+GRAM_BLOCKS_PER_SM = 1
+# The producer that fills the ring: the Tensor Memory Accelerator (True) or
+# cp.async from the producer warp's lanes (False), the faster at S=64
+# R=256 on the H100 (PERF.md).
+GRAM_TMA = True
 
 
 def gram_tile_pairs(n_t: int) -> list[tuple[int, int]]:
@@ -940,34 +947,46 @@ def gram_tile_pairs(n_t: int) -> list[tuple[int, int]]:
     return [(i, j) for i in range(n_t) for j in range(i, n_t)]
 
 
+def gram_jobs(n_t: int) -> list[tuple[int, int]]:
+    """The kernel's jobs, as tile pairs: the upper tile pairs, or with two
+    tiles (128 < R <= 256) the one job (0, 1) that covers the whole
+    256-row square."""
+    return [(0, 1)] if n_t == 2 else gram_tile_pairs(n_t)
+
+
 def gram_schedule(r: int, s: int, w: int, sms: int) -> dict:
     """pair_gram's launch: the R x R output in ``n_t`` x ``n_t`` tiles of
-    GRAM_TILE, of which the ``n_pairs`` upper ones are computed; each
-    tile's contraction in ``n_k`` = S x ``n_chunks`` k-tiles (slice s,
-    word chunk c of GRAM_CHUNK_WORDS; k-tile t = s * n_chunks + c); the
-    ``n_units`` (tile pair, k-tile) units, tile-major (unit u = p * n_k +
-    t), walked by ``n_blocks`` persistent blocks (GRAM_BLOCKS_PER_SM an SM
-    of ``sms``), block g taking ``gram_block_units``."""
+    GRAM_TILE, computed as ``n_jobs`` jobs (``gram_jobs``); each job's
+    contraction in ``n_k`` = S x ``n_chunks`` k-tiles (slice s, word chunk
+    c of GRAM_CHUNK_WORDS; k-tile t = s * n_chunks + c); the ``n_units``
+    (job, k-tile) units, job-major (unit u = p * n_k + t), walked by
+    ``n_blocks`` persistent blocks (GRAM_BLOCKS_PER_SM an SM of ``sms``),
+    block g taking ``gram_block_units``, each unit staged in ring stage
+    ``i % GRAM_STAGES`` (i its place in the block's run)."""
     n_t = -(-r // GRAM_TILE)
-    n_pairs = n_t * (n_t + 1) // 2
+    n_jobs = len(gram_jobs(n_t))
     n_chunks = -(-w // GRAM_CHUNK_WORDS)
     n_k = s * n_chunks
-    n_units = n_pairs * n_k
-    return {"n_t": n_t, "n_pairs": n_pairs, "n_chunks": n_chunks, "n_k": n_k,
+    n_units = n_jobs * n_k
+    return {"n_t": n_t, "n_jobs": n_jobs, "n_chunks": n_chunks, "n_k": n_k,
             "n_units": n_units, "n_blocks": min(n_units, GRAM_BLOCKS_PER_SM * sms)}
 
 
-def gram_block_units(sched: dict, g: int) -> tuple[int, int]:
-    """Units [u0, u1) of block g: a contiguous, balanced run."""
+def gram_block_units(sched: dict, g: int) -> range:
+    """The units of block g in the order it walks them: with one job,
+    g, g + B, g + 2B, ... of B blocks; otherwise the contiguous, balanced
+    run [g*U/B, (g+1)*U/B)."""
     u, n = sched["n_units"], sched["n_blocks"]
-    return g * u // n, (g + 1) * u // n
+    if sched["n_jobs"] == 1:
+        return range(g, u, n)
+    return range(g * u // n, (g + 1) * u // n)
 
 
 def gram_unit(sched: dict, u: int) -> tuple[int, int, int, int]:
     """(ti, tj, slice, chunk) of unit u."""
     p, t = divmod(u, sched["n_k"])
     s, c = divmod(t, sched["n_chunks"])
-    ti, tj = gram_tile_pairs(sched["n_t"])[p]
+    ti, tj = gram_jobs(sched["n_t"])[p]
     return ti, tj, s, c
 
 
@@ -981,7 +1000,7 @@ def pair_gram(row_matrix: torch.Tensor) -> torch.Tensor:
     On the card the matrix may be a view with any slice and row strides
     (multiples of 4 words; words contiguous): the executor's
     ``m[:, :bucket, :]`` of a pool is not copied.  The kernel counts in
-    int32; the result is widened on the card."""
+    int32; the result is widened on the card; its producer is GRAM_TMA's."""
     if row_matrix.dtype != torch.int32:
         raise TypeError(f"pair_gram: expected int32 words, got {row_matrix.dtype}")
     if row_matrix.dim() != 3:
@@ -998,14 +1017,22 @@ def pair_gram(row_matrix: torch.Tensor) -> torch.Tensor:
     out = torch.zeros((r, r), dtype=torch.int32, device=row_matrix.device)
     if s == 0 or r == 0 or w == 0:
         return out.to(torch.int64)
+    launch_pair_gram(row_matrix, out, GRAM_TMA)
+    LAUNCHES["pair_gram"] += 1
+    return out.to(torch.int64)
+
+
+def launch_pair_gram(row_matrix: torch.Tensor, out: torch.Tensor, tma: bool) -> None:
+    """One pair_gram launch into the zeroed int32[R, R] ``out`` with the
+    given producer (``pair_gram`` checks the matrix first)."""
+    s, r, w = row_matrix.shape
+    ss, rs, _ = row_matrix.stride()
     sched = gram_schedule(r, s, w, sm_count(row_matrix.device))
     err = _fn("pair_gram")(
-        row_matrix.data_ptr(), out.data_ptr(), s, r, w, ss, rs, sched["n_blocks"],
+        row_matrix.data_ptr(), out.data_ptr(), s, r, w, ss, rs, sched["n_blocks"], int(tma),
         _stream(row_matrix),
     )
     _check(err, "pair_gram")
-    LAUNCHES["pair_gram"] += 1
-    return out.to(torch.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -1014,6 +1041,32 @@ def pair_gram(row_matrix: torch.Tensor) -> torch.Tensor:
 
 # Words a (slice, row) plane holds: the packed device row layout.
 PLANE_WORDS = SLICE_WIDTH // 32
+# Arena words a block tile covers (16 KiB of shared memory), threads a
+# block (and keys a window), search probes a thread and persistent blocks
+# an SM: build_planes.cu's kTileWords, kThreads, kProbes and kBlocksPerSm.
+BUILD_TILE_WORDS = 4096
+BUILD_THREADS = 256
+BUILD_PROBES = 1
+BUILD_BLOCKS_PER_SM = 4
+# OR a warp's bits of one word together (__match_any_sync /
+# __reduce_or_sync) before the shared-memory atomicOr (True), or one
+# atomicOr a key (False): the faster at the bulk path's chunk (PERF.md).
+BUILD_WARP_OR = False
+
+
+def build_schedule(n_groups: int, sms: int) -> dict:
+    """build_planes' launch: the [G, PLANE_WORDS] arena in ``n_tiles``
+    tiles of BUILD_TILE_WORDS words, walked by ``n_blocks`` persistent
+    blocks (BUILD_BLOCKS_PER_SM an SM of ``sms``, at most one a tile),
+    block b taking the tiles ``build_block_tiles``."""
+    n_tiles = n_groups * PLANE_WORDS // BUILD_TILE_WORDS
+    return {"n_tiles": n_tiles, "n_blocks": min(n_tiles, BUILD_BLOCKS_PER_SM * sms)}
+
+
+def build_block_tiles(sched: dict, b: int) -> tuple[int, int]:
+    """Tiles [t0, t1) of block b: a contiguous, balanced run."""
+    t, n = sched["n_tiles"], sched["n_blocks"]
+    return b * t // n, (b + 1) * t // n
 
 
 def build_planes_plain(keys, n_groups: int):
@@ -1032,25 +1085,53 @@ def build_planes_plain(keys, n_groups: int):
     return out.view(torch.int32)[0::2].reshape(n_groups, PLANE_WORDS)
 
 
-def build_planes(keys: torch.Tensor, n_groups: int) -> torch.Tensor:
-    """Word planes of a bulk chunk -> int32[G, PLANE_WORDS]: bit ``key %
-    2^20`` of plane ``key // 2^20`` set for every key (int64[N], key =
-    group * SLICE_WIDTH + local column, in any order, repeats allowed);
-    keys outside [0, G * SLICE_WIDTH) are dropped.  The arena is zeroed
-    with cudaMemsetAsync on the launch's stream; G = 0 launches nothing."""
+def build_planes(keys: torch.Tensor, n_groups: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Word planes of a bulk chunk -> ``(planes, descents)``: planes
+    int32[G, PLANE_WORDS], bit ``key % 2^20`` of plane ``key // 2^20`` set
+    for every key (int64[N], key = group * SLICE_WIDTH + local column, in
+    ascending order, repeats allowed); keys outside [0, G * SLICE_WIDTH)
+    are dropped.  ``descents`` (int32) is nonzero where a key lies below
+    the one before it: the planes are then wrong, and the caller, once it
+    has the flags on the host, raises (``raise_on_descent``).  On the card
+    the kernel writes every word of the planes once and the flags in the
+    same allocation right after them (``planes_and_descents``), so one
+    copy brings both back; G = 0 launches nothing."""
     if keys.dtype != torch.int64 or keys.dim() != 1:
         raise TypeError(f"build_planes: expected int64[N] keys, got {keys.dtype}{tuple(keys.shape)}")
     if n_groups < 0:
         raise ValueError(f"build_planes: {n_groups} groups")
     if _on_cpu(keys):
-        return build_planes_plain(keys, n_groups)
+        descents = (keys[1:] < keys[:-1]).sum(dtype=torch.int32).reshape(1)
+        return build_planes_plain(keys, n_groups), descents
     if not keys.is_contiguous():
         raise ValueError("build_planes keys: must be contiguous")
-    out = torch.empty((n_groups, PLANE_WORDS), dtype=torch.int32, device=keys.device)
     if n_groups == 0:
-        return out
-    err = _fn("build_planes")(keys.data_ptr(), keys.numel(), out.data_ptr(), out.numel(),
-                              _stream(keys))
+        return (torch.empty((0, PLANE_WORDS), dtype=torch.int32, device=keys.device),
+                torch.zeros(0, dtype=torch.int32, device=keys.device))
+    n_words = n_groups * PLANE_WORDS
+    n_blocks = build_schedule(n_groups, sm_count(keys.device))["n_blocks"]
+    buf = torch.empty(n_words + n_blocks, dtype=torch.int32, device=keys.device)
+    ptr = buf.data_ptr()
+    err = _fn("build_planes")(keys.data_ptr(), keys.numel(), ptr, n_words, ptr + 4 * n_words,
+                              n_blocks, int(BUILD_WARP_OR), _stream(keys))
     _check(err, "build_planes")
     LAUNCHES["build_planes"] += 1
-    return out
+    planes, descents = buf.split((n_words, n_blocks))
+    return planes.view(n_groups, PLANE_WORDS), descents
+
+
+def planes_and_descents(planes: torch.Tensor, descents: torch.Tensor) -> torch.Tensor:
+    """The one 1-D int32 run behind ``build_planes``' two results on the
+    card (the planes, then the flags): one copy brings both back."""
+    n = planes.numel()
+    whole = torch.as_strided(planes, (n + descents.numel(),), (1,), planes.storage_offset())
+    if descents.numel() and whole[n:].data_ptr() != descents.data_ptr():
+        raise ValueError("build_planes: the descent flags do not follow the planes")
+    return whole
+
+
+def raise_on_descent(descents) -> None:
+    """Raise if any of ``build_planes``' descent flags (read on the host)
+    is set: its keys were not in ascending order."""
+    if np.asarray(descents).any():
+        raise ValueError("build_planes: keys not in ascending order")

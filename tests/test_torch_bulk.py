@@ -4,7 +4,12 @@ The device build lane: ``kernels.build_planes_plain`` (through
 ``bulk.build.build_planes_torch`` and ``TorchEngine("cpu").build_planes``)
 against the reference's ``build_planes_jax``, ``JaxEngine().build_planes``
 and ``build_planes_numpy`` on the chip phase's edge cases; ids and planes
-must be equal bit for bit.  The commit lane: ``bulk.ingress.apply_bulk``
+must be equal bit for bit.  A numpy model of the card's kernel — its
+persistent blocks' runs of arena tiles, the block-wide search for each
+run's first key, the walk of key windows and tiles, each word written
+once, the descent flags — is held against the plain version and the
+reference on the same cases, and unsorted keys raise where the check
+lives (``build_planes_torch``, after the planes come back).  The commit lane: ``bulk.ingress.apply_bulk``
 through ``TorchEngine("cpu")`` (which takes ``build_planes``) against the
 JAX ``apply_bulk`` (on ``JaxEngine``; on its host lane where a chunk
 builds more than 1,024 groups, past which the reference's jitted lane
@@ -154,19 +159,176 @@ def _np_model(keys, n_groups):
     return out.reshape(n_groups, W)
 
 
+def _path_keys(n_groups, seed):
+    """Keys with repeats, both 32-bit halves of a word, a dense first tile
+    (more than a window of keys) and keys outside the arena (dropped, as
+    the reference drops its pads), unsorted."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, max(n_groups, 1) * SLICE_WIDTH, size=2000).astype(np.int64)
+    dense = rng.integers(0, kernels.BUILD_TILE_WORDS * 32, size=2500).astype(np.int64)
+    return np.concatenate([keys, keys[:300], dense, [31, 0, 30, -1, -9, n_groups * SLICE_WIDTH,
+                                                     1 << 40]]).astype(np.int64)
+
+
 @pytest.mark.parametrize("n_groups", [0, 1, 3])
 def test_build_planes_plain_matches_model(n_groups):
-    """Unsorted keys with repeats, both 32-bit halves of a word, and keys
-    outside the arena (dropped, as the reference drops its pads)."""
-    rng = np.random.default_rng(25 + n_groups)
-    keys = rng.integers(0, max(n_groups, 1) * SLICE_WIDTH, size=2000).astype(np.int64)
-    keys = np.concatenate([keys, keys[:300], [31, 0, 30, -1, n_groups * SLICE_WIDTH, 1 << 40]])
-    keys = keys.astype(np.int64)
-    got = kernels.build_planes(torch.from_numpy(keys), n_groups)
-    assert got.dtype == torch.int32 and tuple(got.shape) == (n_groups, W)
-    np.testing.assert_array_equal(got.numpy().view(np.uint32), _np_model(keys, n_groups))
+    """The plain version on unsorted keys, and the wrapper on the same keys
+    in ascending order (its contract; no descent flagged), against a
+    one-key-at-a-time model."""
+    keys = _path_keys(n_groups, 25 + n_groups)
+    want = _np_model(keys, n_groups)
     np.testing.assert_array_equal(
-        kernels.build_planes_plain(torch.from_numpy(keys), n_groups).numpy(), got.numpy())
+        kernels.build_planes_plain(torch.from_numpy(keys), n_groups).numpy().view(np.uint32), want)
+    got, descents = kernels.build_planes(torch.from_numpy(np.sort(keys)), n_groups)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (n_groups, W)
+    assert not descents.any()
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+# -- a numpy model of the card's kernel (csrc/build_planes.cu) --
+
+_P = kernels.BUILD_THREADS  # a window's keys
+_Q = kernels.BUILD_THREADS * kernels.BUILD_PROBES  # a search step's probes
+_T = kernels.BUILD_TILE_WORDS
+
+
+def _search(keys, x):
+    """The kernel's block-wide search: the first index whose key is >= x
+    on ascending keys, 256 probes a step, counted below x."""
+    lo, hi = 0, len(keys)
+    while hi > lo:
+        m = hi - lo
+        if m <= _Q:
+            lo += int((keys[lo:hi] < x).sum())
+            hi = lo
+            continue
+        pos = lo + np.arange(1, _Q + 1, dtype=np.int64) * m // (_Q + 1)
+        c = int((keys[pos] < x).sum())
+        lo, hi = (lo if c == 0 else lo + c * m // (_Q + 1) + 1,
+                  hi if c == _Q else lo + (c + 1) * m // (_Q + 1))
+    return lo
+
+
+def _descends(keys, i):
+    """Per index i: i > 0 and keys[i] < keys[i - 1]."""
+    i = np.asarray(i, dtype=np.int64)
+    prev = keys[np.maximum(i - 1, 0)]
+    return bool(((i > 0) & (keys[i] < prev)).any())
+
+
+def _model_build(keys, n_groups, sms):
+    """build_planes.cu in numpy: (planes uint32[G, W], writes of each word,
+    each block's descent flag)."""
+    keys = np.asarray(keys, dtype=np.int64)
+    n = len(keys)
+    sched = kernels.build_schedule(n_groups, sms)
+    nb = sched["n_blocks"]
+    words = np.zeros(n_groups * W, dtype=np.uint32)
+    writes = np.zeros(n_groups * W, dtype=np.int64)
+    flags = np.zeros(nb, dtype=bool)
+    for b in range(nb):
+        t0, t1 = kernels.build_block_tiles(sched, b)
+        start, nxt = _search(keys, t0 * _T * 32), _search(keys, t1 * _T * 32)
+        c_lo, c_hi = (0 if b == 0 else start), (n if b == nb - 1 else nxt)
+        desc, cursor = False, start
+        for t in range(t0, t1):
+            tile = np.zeros(_T, dtype=np.uint32)
+            bit0 = t * _T * 32
+            while True:
+                i = cursor + np.arange(_P, dtype=np.int64)
+                i = i[i < c_hi]
+                k = keys[i]
+                desc |= _descends(keys, i)
+                take = (k >= bit0) & (k < bit0 + _T * 32)
+                kt = k[take] - bit0
+                np.bitwise_or.at(tile, kt >> 5, (np.uint32(1) << (kt & 31).astype(np.uint32)))
+                c = int(take.sum())
+                cursor += c
+                if c < _P:
+                    break
+            words[t * _T:(t + 1) * _T] = tile
+            writes[t * _T:(t + 1) * _T] += 1
+        desc |= _descends(keys, np.arange(c_lo, start))
+        desc |= _descends(keys, np.arange(cursor, c_hi))
+        flags[b] = desc
+    return words.reshape(n_groups, W), writes, flags
+
+
+@pytest.mark.parametrize("sms", [1, 3])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_numpy_model_of_the_build_kernel_matches_plain_and_jax(case, sms):
+    """On every edge case (duplicates, one word's 32 bits, the last bit of
+    a slice, one group, empty tiles, no pairs), from group_pairs' keys:
+    every word written once, no descent, the planes equal to the plain
+    version's and the reference's jitted lane's (at most 1,024 groups)."""
+    rows, cols = CASES[case]()
+    sl, _, gid, local = build.group_pairs(rows, cols)
+    g = len(sl)
+    keys = gid * SLICE_WIDTH + local
+    planes, writes, flags = _model_build(keys, g, sms)
+    assert (writes == 1).all() and not flags.any()
+    plain = kernels.build_planes_plain(torch.from_numpy(keys), g).numpy().view(np.uint32)
+    np.testing.assert_array_equal(planes, plain)
+    np.testing.assert_array_equal(planes, jbuild.build_planes_jax(rows, cols)[2])
+
+
+@pytest.mark.parametrize("n_groups,sms", [(1, 1), (3, 2), (5, 7)])
+def test_numpy_model_of_the_build_kernel_drops_keys_outside_the_arena(n_groups, sms):
+    """Ascending keys with repeats, a dense first tile (windows that fill)
+    and keys below 0
+    and past the arena: the model equals the one-key model and the plain
+    version, every word written once, no descent."""
+    keys = np.sort(_path_keys(n_groups, 40 + n_groups))
+    planes, writes, flags = _model_build(keys, n_groups, sms)
+    assert (writes == 1).all() and not flags.any()
+    np.testing.assert_array_equal(planes, _np_model(keys, n_groups))
+    np.testing.assert_array_equal(
+        planes, kernels.build_planes_plain(torch.from_numpy(keys), n_groups).numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("where", ["first", "middle", "block_edge", "below_zero", "past_arena",
+                                   "shuffled"])
+def test_numpy_model_of_the_build_kernel_flags_unsorted_keys(where):
+    """One descent anywhere — inside a block's walk, across two blocks'
+    runs, among the dropped keys on either side — or a shuffle sets a
+    descent flag."""
+    keys = np.sort(_path_keys(3, 50))
+    sched = kernels.build_schedule(3, 2)
+    edge = _search(keys, kernels.build_block_tiles(sched, 1)[0] * _T * 32)
+    i = {"first": 1, "middle": len(keys) // 2, "block_edge": edge, "below_zero": 1,
+         "past_arena": len(keys) - 1}.get(where)
+    if i is None:
+        keys = np.random.default_rng(51).permutation(keys)
+    else:
+        keys[i - 1], keys[i] = keys[i], keys[i - 1] - (where == "middle")
+    assert (np.diff(keys) < 0).any()
+    assert _model_build(keys, 3, 2)[2].any()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_group_pairs_keys_ascend(case):
+    """The keys build_planes_torch uploads are in the order the kernel
+    takes: ascending."""
+    _, _, gid, local = build.group_pairs(*CASES[case]())
+    assert (np.diff(gid * SLICE_WIDTH + local) >= 0).all()
+
+
+def test_unsorted_keys_raise_in_build_planes_torch(monkeypatch):
+    """The order check lives in build_planes_torch, after the planes (and,
+    on the card, the kernel's flags) come back: keys out of order raise."""
+    rows, cols = _ragged()
+    real = build.group_pairs
+
+    def reversed_pairs(r, c):
+        sl, rw, gid, local = real(r, c)
+        return sl, rw, gid[::-1].copy(), local[::-1].copy()
+
+    monkeypatch.setattr(build, "group_pairs", reversed_pairs)
+    with pytest.raises(ValueError, match="ascending"):
+        build.build_planes_torch(rows, cols, "cpu")
+    _, descents = kernels.build_planes(torch.tensor([5, 3], dtype=torch.int64), 1)
+    with pytest.raises(ValueError, match="ascending"):
+        kernels.raise_on_descent(descents.numpy())
 
 
 def test_build_planes_wrapper_checks_its_input():

@@ -9,8 +9,12 @@ counts, tolerance 0), including the strided ``m[:, :bucket, :]`` view of
 a pool the executor hands the engine.  They cover the kernel's launch
 schedule (``gram_schedule``: upper tiles x (slice, word chunk) units
 walked by persistent blocks) unit by unit, and hold a numpy model of
-that schedule — per-block partial Grams added at each tile and its
-mirror — against the JAX Gram.  The same for gather_count2's row
+the kernel — each unit staged in its ring stage under the 128-byte
+swizzle and read back as the wgmma descriptors address it, two
+warpgroups' row halves against the tile's columns (m64n128, or m64n64 on
+a diagonal tile's lower half and a ragged edge), per-block partial Grams
+added at each tile and, across 64-row bands, at its mirror — against
+the JAX Gram.  The same for gather_count2's row
 segments (``gather2_segments``), whose numpy model is held against the
 Pallas kernel in interpret mode.  The constants the wrappers share with
 the CUDA sources are pinned to those sources.
@@ -128,20 +132,30 @@ def test_gram_schedule_covers_each_upper_tile_and_k_tile_once(r, s, w, sms):
     n_chunks = -(-w // kernels.GRAM_CHUNK_WORDS)
     assert (sched["n_t"], sched["n_chunks"]) == (n_t, n_chunks)
     pairs = kernels.gram_tile_pairs(n_t)
-    assert len(pairs) == sched["n_pairs"] == n_t * (n_t + 1) // 2
+    assert len(pairs) == n_t * (n_t + 1) // 2
     assert all(i <= j for i, j in pairs) and len(set(pairs)) == len(pairs)
-    assert sched["n_units"] == len(pairs) * s * n_chunks
+    jobs = kernels.gram_jobs(n_t)
+    # Two tiles make one 256-row job; otherwise a job is a tile pair.
+    assert jobs == ([(0, 1)] if n_t == 2 else pairs) and sched["n_jobs"] == len(jobs)
+    n_k = s * n_chunks
+    assert sched["n_units"] == len(jobs) * n_k
     assert sched["n_blocks"] == min(kernels.GRAM_BLOCKS_PER_SM * sms, sched["n_units"])
     runs = [kernels.gram_block_units(sched, g) for g in range(sched["n_blocks"])]
-    # Contiguous, covering, balanced runs.
-    assert runs[0][0] == 0 and runs[-1][1] == sched["n_units"]
-    assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
-    sizes = [u1 - u0 for u0, u1 in runs]
-    assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+    assert all(len(run) >= 1 for run in runs)
+    if len(jobs) == 1:
+        # One job: the blocks interleave.
+        assert [run.start for run in runs] == list(range(sched["n_blocks"]))
+        assert {run.step for run in runs} == {sched["n_blocks"]}
+    else:
+        # Contiguous, covering, balanced runs.
+        assert runs[0].start == 0 and runs[-1].stop == sched["n_units"]
+        assert all(a.stop == b.start for a, b in zip(runs, runs[1:]))
+        sizes = [len(run) for run in runs]
+        assert max(sizes) - min(sizes) <= 1
     if sched["n_units"] > 40000:  # the tall shapes: the runs alone
         return
-    seen = Counter(kernels.gram_unit(sched, u) for u0, u1 in runs for u in range(u0, u1))
-    want = {(i, j, sl, c) for i, j in pairs for sl in range(s) for c in range(n_chunks)}
+    seen = Counter(kernels.gram_unit(sched, u) for run in runs for u in run)
+    want = {(i, j, sl, c) for i, j in jobs for sl in range(s) for c in range(n_chunks)}
     assert set(seen) == want and set(seen.values()) == {1}
 
 
@@ -155,31 +169,95 @@ def _tile(rm, s, t, c):
     return out
 
 
+# Each staged row's 16-byte chunk v lies at chunk v ^ (row % 8): the
+# 128-byte swizzle a TMA load writes and the wgmma descriptors read.
+def _swz(n_rows):
+    return (np.arange(8)[None, :] ^ (np.arange(n_rows)[:, None] % 8))[:, :, None]
+
+
+def _swizzle(tile):
+    out = np.empty_like(tile).reshape(tile.shape[0], 8, 4)
+    np.put_along_axis(out, _swz(tile.shape[0]), tile.reshape(tile.shape[0], 8, 4), axis=1)
+    return out.reshape(tile.shape)
+
+
+def _unswizzle(staged):
+    return np.take_along_axis(staged.reshape(staged.shape[0], 8, 4), _swz(staged.shape[0]),
+                              axis=1).reshape(staged.shape)
+
+
+def _bands(n_t, ti, tj, wg, r):
+    """The products a consumer warpgroup runs on job (ti, tj): (A's first
+    stage row, B's first stage row, columns) each, stage rows 0..127 the
+    A tile and 128..255 the B tile.  The 256-row job: warpgroup 0 rows
+    0..63 x 0..255 and 192..255 x 192..255, warpgroup 1 64..127 x 64..255
+    and 128..191 x 128..255.  A tile pair: warpgroup g rows 64g.. against
+    B from column col0 (64 for warpgroup 1 on a diagonal tile), 128 columns
+    where more than 64 are live rows, else 64; none where its rows all lie
+    past R."""
+    size = kernels.GRAM_TILE
+    if n_t == 2:
+        bands = [(0, 0, 256), (192, 192, 64)] if wg == 0 else [(64, 64, 192), (128, 128, 128)]
+        return [b for b in bands if b[0] < r]
+    col0 = 64 if ti == tj and wg == 1 else 0
+    if ti * size + wg * 64 >= r:
+        return []
+    cols = 128 if min(size, r - tj * size) - col0 > 64 else 64
+    return [(wg * 64, (0 if ti == tj else size) + col0, cols)]
+
+
 def _model_gram(rm, sms):
-    """The kernel's arithmetic in numpy: each block walks its units,
-    accumulates one partial tile at a time and, where its run leaves a
-    tile, adds it at (i, j) and — off the diagonal — at the mirror."""
+    """The kernel's arithmetic in numpy: each block walks its units, the
+    producer stages unit i's operand tiles (one on a diagonal tile) in
+    ring stage i % GRAM_STAGES under the swizzle, and each consumer
+    warpgroup runs its bands (``_bands``) on the stage as the wgmma
+    descriptors read it.  Where a block's run leaves a job, each band's
+    partial sums add at (i, j) and, where i and j lie in different 64-row
+    bands, at (j, i)."""
     s, r, w = rm.shape
     sched = kernels.gram_schedule(r, s, w, sms)
     size = kernels.GRAM_TILE
-    n = sched["n_t"] * size
+    n_t = sched["n_t"]
+    n = n_t * size
     g = np.zeros((n, n), dtype=np.int64)
+
+    def glob(stage_row, ti, tj):
+        # A stage row's row of the matrix: A tile rows, then B tile rows
+        # (the diagonal stages A alone).
+        if stage_row < size:
+            return ti * size + stage_row
+        return (tj if ti != tj else ti) * size + stage_row - size
+
     for blk in range(sched["n_blocks"]):
-        u0, u1 = kernels.gram_block_units(sched, blk)
-        acc = np.zeros((size, size), dtype=np.int64)
-        for u in range(u0, u1):
+        run = kernels.gram_block_units(sched, blk)
+        ring = [None] * kernels.GRAM_STAGES
+        acc = {}
+        for i, u in enumerate(run):
             ti, tj, sl, c = kernels.gram_unit(sched, u)
-            a, b = _tile(rm, sl, ti, c), _tile(rm, sl, tj, c)
-            acc += np.bitwise_count(a[:, None, :] & b[None, :, :]).sum(axis=2, dtype=np.int64)
-            if u + 1 == u1 or kernels.gram_unit(sched, u + 1)[:2] != (ti, tj):
-                g[ti * size:(ti + 1) * size, tj * size:(tj + 1) * size] += acc
-                if ti != tj:
-                    g[tj * size:(tj + 1) * size, ti * size:(ti + 1) * size] += acc.T
-                acc[:] = 0
+            a = _swizzle(_tile(rm, sl, ti, c))
+            ring[i % kernels.GRAM_STAGES] = np.concatenate(
+                [a, a if ti == tj else _swizzle(_tile(rm, sl, tj, c))])
+            stage = _unswizzle(ring[i % kernels.GRAM_STAGES])
+            for wg in range(2):
+                for a0, b0, cols in _bands(n_t, ti, tj, wg, r):
+                    rows, bc = stage[a0:a0 + 64], stage[b0:b0 + cols]
+                    acc[wg, a0, b0, cols] = acc.get((wg, a0, b0, cols), 0) + np.bitwise_count(
+                        rows[:, None, :] & bc[None, :, :]).sum(axis=2, dtype=np.int64)
+            if i + 1 == len(run) or kernels.gram_unit(sched, run[i + 1])[:2] != (ti, tj):
+                for (wg, a0, b0, cols), v in acc.items():
+                    ri = glob(a0, ti, tj) + np.arange(64)[:, None]
+                    cj = glob(b0, ti, tj) + np.arange(cols)[None, :]
+                    ri, cj = np.broadcast_arrays(ri, cj)
+                    g[ri, cj] += v
+                    mirror = ri // 64 != cj // 64
+                    g[cj[mirror], ri[mirror]] += v[mirror]
+                acc = {}
     return g[:r, :r]
 
 
-@pytest.mark.parametrize("r,s,w,sms", [(5, 2, 8, 3), (130, 2, 72, 5), (200, 3, 132, 11)])
+@pytest.mark.parametrize("r,s,w,sms", [(5, 2, 8, 3), (64, 2, 36, 2), (130, 2, 72, 5),
+                                      (200, 3, 132, 11), (256, 1, 64, 3), (150, 2, 64, 8),
+                                      (300, 2, 64, 2), (400, 1, 40, 3)])
 def test_numpy_model_of_the_gram_schedule_matches_jax(r, s, w, sms):
     rng = np.random.default_rng([r, s, w])
     rm = _words(rng, (s, r, w))
@@ -262,6 +340,11 @@ def test_wrapper_constants_match_the_cuda_sources():
     assert kernels.GRAM_TILE == _constexpr("pair_gram.cu", "kTile")
     assert kernels.GRAM_CHUNK_WORDS == _constexpr("pair_gram.cu", "kChunk")
     assert kernels.GRAM_BLOCKS_PER_SM == _constexpr("pair_gram.cu", "kBlocksPerSm")
+    assert kernels.GRAM_STAGES == _constexpr("pair_gram.cu", "kStages")
+    assert kernels.BUILD_TILE_WORDS == _constexpr("build_planes.cu", "kTileWords")
+    assert kernels.BUILD_THREADS == _constexpr("build_planes.cu", "kThreads")
+    assert kernels.BUILD_PROBES == _constexpr("build_planes.cu", "kProbes")
+    assert kernels.BUILD_BLOCKS_PER_SM == _constexpr("build_planes.cu", "kBlocksPerSm")
     assert kernels.GATHER2_PARAM_PAIRS == _constexpr("gather_count2.cu", "kParamPairs")
     assert kernels.GATHER2_STEP_VECS == (_constexpr("gather_count2.cu", "kThreads")
                                          * _constexpr("gather_count2.cu", "kVecs"))
