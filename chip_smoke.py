@@ -46,9 +46,8 @@
    words, and the first slice at the full W), and timed at the
    executor's S = 64, R = 256 beside its plain version and the library
    yardstick (bits unpacked to int8 and ``torch._int_mm`` per slice; the
-   port never calls it), and at the buckets at the pool's 2 GiB; both
-   of its producers (TMA and cp.async) are held exactly and timed ABBA
-   at S = 64, R = 256 (``producers``).  Its bound takes the bit products
+   port never calls it), and at the buckets at the pool's 2 GiB.  Its
+   bound takes the bit products
    at the faster of the two b1 tensor-core rates (mma.sync and wgmma)
    that ``csrc/mma_probe.cu`` measures in the same run (the data sheet
    gives none; the reading is the kernels line's ``b1_probe``).  The
@@ -58,8 +57,7 @@
    some outside the arena, and its three timed shapes (N pairs x G
    groups: the bulk path's chunk 131,072 x 66, bench.py's 2^20 x 256,
    and 2^23 x 4,096, a 512 MiB arena), through its entry point and as a
-   launch alone (both ways of ORing a warp's bits, ABBA: ``or_ways``),
-   beside its bound (the arena written once, the keys read once); the
+   launch alone, beside its bound (the arena written once, the keys read once); the
    whole device lane equals the host lane, unsorted keys set a descent
    flag and raise, and G = 0 launches nothing.
 4. The diffcheck path: the differential sweep ``ops/diffcheck.py`` over
@@ -296,22 +294,15 @@ def _flush_l2() -> None:
     _flush_buf.zero_()
 
 
-def _flush_l2_reading() -> None:
-    """Read more than the 50 MB L2: the next launch reads cold, and the
-    lines it evicts are clean (no flush writes are written back in it)."""
-    _flush_l2()
-    _flush_buf.max()
-
-
-def cuda_ms(fn, reps: int = 10, warm: int = 2, flush=_flush_l2) -> float:
+def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     """Mean device time of fn() in ms: CUDA events around each launch,
-    the L2 flushed before each (by writing, unless ``flush`` says else)."""
+    the L2 flushed before each."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(reps):
-        flush()
+        _flush_l2()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -1987,32 +1978,11 @@ def library_gram(m: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def gram_producers(m: torch.Tensor, want: torch.Tensor) -> dict:
-    """pair_gram's two producers (TMA and cp.async) on the same matrix:
-    each exactly equal to ``want``, then timed in the order TMA, cp.async,
-    cp.async, TMA (the output's zeroing in each)."""
-    outs = {}
-    for tma in (True, False):
-        out = torch.zeros(want.shape, dtype=torch.int32, device="cuda")
-        kernels.launch_pair_gram(m, out, tma)
-        if not torch.equal(out.long(), want):
-            raise AssertionError(f"pair_gram tma={tma}: differs from its plain version")
-        outs[tma] = out
-
-    def run(tma):
-        outs[tma].zero_()
-        kernels.launch_pair_gram(m, outs[tma], tma)
-
-    tma_ms, cp_ms = _abba(lambda: run(True), lambda: run(False))
-    return {"tma_ms": tma_ms, "cp_async_ms": cp_ms, "chosen": "tma" if kernels.GRAM_TMA else "cp_async"}
-
-
 def check_gram(diff) -> dict:
     """pair_gram == its plain version on the card, exactly, over the
-    grid above (both producers on the strided and main shapes); timed at
-    the executor's shape (S=64, R=256) against the plain version and the
-    library yardstick, and at the strided, tall and bucket shapes, each
-    beside its bound at this run's faster b1 rate."""
+    grid above; timed at the executor's shape (S=64, R=256) against the
+    plain version and the library yardstick, and at the strided, tall and
+    bucket shapes, each beside its bound at this run's faster b1 rate."""
     probe = b1_rate()
     b1_s = probe["bit_products_per_s"]
     gen = _gen(GRAM_SEED)
@@ -2032,8 +2002,6 @@ def check_gram(diff) -> dict:
     narrow = pool[:s, :r, :w]
     diff("pair_gram", kernels.pair_gram(narrow), kernels.pair_gram_plain(narrow))
     checked.append({"S": s, "R": r, "W": w, "strided": True})
-    for v in (view, narrow):
-        gram_producers(v, kernels.pair_gram_plain(v))
     torch.cuda.synchronize()
 
     def entry(m, shape, plain_reps=2):
@@ -2052,7 +2020,6 @@ def check_gram(diff) -> dict:
     if not torch.equal(lib.long(), kernels.pair_gram_plain(m)):
         raise AssertionError("pair_gram: the library yardstick disagrees with the plain version")
     main["library_ms"] = cuda_ms(lambda: library_gram(m), reps=3, warm=1)
-    main["producers"] = gram_producers(m, lib.long())
     bits = _int8_bits(m[0])
     main["int_mm_only_ms"] = N_SLICES * cuda_ms(lambda: torch._int_mm(bits, bits.t()), reps=5)
     del m, lib, bits
@@ -2792,10 +2759,9 @@ def _keys(rows, cols):
     return sl, rw, host, torch.from_numpy(host).cuda()
 
 
-def _build_launcher(keys: torch.Tensor, g: int, warp_or: bool):
+def _build_launcher(keys: torch.Tensor, g: int):
     """One build_planes launch into a preallocated arena and its flags
-    (the launch alone, with either way of ORing a warp's bits), and the
-    arena and flags it fills."""
+    (the launch alone), and the arena and flags it fills."""
     sched = kernels.build_schedule(g, kernels.sm_count(keys.device))
     buf = torch.empty(g * W + sched["n_blocks"], dtype=torch.int32, device="cuda")
     fn = kernels._fn("build_planes")
@@ -2803,7 +2769,7 @@ def _build_launcher(keys: torch.Tensor, g: int, warp_or: bool):
 
     def launch():
         kernels._check(fn(keys.data_ptr(), keys.numel(), buf.data_ptr(), g * W,
-                          buf[g * W:].data_ptr(), sched["n_blocks"], int(warp_or), stream),
+                          buf[g * W:].data_ptr(), sched["n_blocks"], stream),
                        "build_planes")
 
     return launch, buf[:g * W].view(g, W), buf[g * W:]
@@ -2812,34 +2778,21 @@ def _build_launcher(keys: torch.Tensor, g: int, warp_or: bool):
 def build_times(rows, cols) -> dict:
     """build_planes at one shape: the entry point's device time (its
     output allocation included, ``ms``), the launch alone on a preallocated
-    arena (``kernel_ms``, the way of ORing that ``kernels.BUILD_WARP_OR``
-    picks; ``kernel_ms_read_flush`` the same after an L2 flush by reading,
-    whose evicted lines need no write-back during the launch) and with
-    both ways in the order atomicOr, warp OR, warp OR, atomicOr
-    (``or_ways``), the plain version's, the planes' copy to the
+    arena (``kernel_ms``), the plain version's, the planes' copy to the
     host through pinned and pageable memory, and the bound: the arena
     written once (G x 128 KiB) and the keys read once (8 bytes a pair),
     at 3.35 TB/s."""
     sl, _, host, keys = _keys(rows, cols)
     n, g = len(host), len(sl)
-    want = kernels.build_planes_plain(keys, g)
-    launches = {}
-    for warp_or in (False, True):
-        launch, out, flags = _build_launcher(keys, g, warp_or)
-        launch()
-        if not torch.equal(out, want) or flags.any():
-            raise AssertionError(f"build_planes N={n} G={g} warp_or={warp_or}: "
-                                 "launch alone differs from its plain version")
-        launches[warp_or] = launch
-    atomic_ms, warp_ms = _abba(launches[False], launches[True])
+    launch, out, flags = _build_launcher(keys, g)
+    launch()
+    if not torch.equal(out, kernels.build_planes_plain(keys, g)) or flags.any():
+        raise AssertionError(f"build_planes N={n} G={g}: launch alone differs from its plain version")
     pinned = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
     nb, by = bound(g * W * 4 + n * 8, n)
     return {"shape": f"N={n} pairs, G={g} groups ({g * W * 4} arena bytes)",
             "ms": cuda_ms(lambda: kernels.build_planes(keys, g)),
-            "kernel_ms": cuda_ms(launches[kernels.BUILD_WARP_OR]),
-            "kernel_ms_read_flush": cuda_ms(launches[kernels.BUILD_WARP_OR], flush=_flush_l2_reading),
-            "or_ways": {"atomic_or_ms": atomic_ms, "warp_or_ms": warp_ms,
-                        "chosen": "warp_or" if kernels.BUILD_WARP_OR else "atomic_or"},
+            "kernel_ms": cuda_ms(launch),
             "plain_ms": cuda_ms(lambda: kernels.build_planes_plain(keys, g), reps=3),
             "download_pinned_ms": cuda_ms(lambda: pinned.copy_(out)),
             "download_pageable_ms": cuda_ms(lambda: out.cpu()),
@@ -3301,8 +3254,7 @@ def main() -> int:
                       "chunk_words", "stages", "smem_bytes", "kernel_ms", "n_seg",
                       "kernel_ms_by_n_seg", "host_ms", "bytes_bound_ms", "ops_bound_ms",
                       "int8_ops_bound_ms", "int_mm_only_ms", "checked", "schedule", "buckets",
-                      "b1_probe", "library_note", "download_pinned_ms", "download_pageable_ms",
-                      "producers", "or_ways", "kernel_ms_read_flush"):
+                      "b1_probe", "library_note", "download_pinned_ms", "download_pageable_ms"):
             if extra in t:
                 entry[extra] = t[extra]
         if name in ptx:

@@ -24,9 +24,10 @@
 // finds the first key of its run with one block-wide search (each step 256
 // probes and one barrier, so 2^17 to 2^23 keys take 3 dependent steps),
 // then walks tiles and keys together: a window of 256 keys at the cursor
-// is ORed into the tile in shared memory (shared-memory atomicOr, or with
-// kWarpOr a warp's lanes of one word combined by __match_any_sync and
-// __reduce_or_sync first), the count of keys below the tile's end advances
+// is ORed into the tile in shared memory (shared-memory atomicOr: combining
+// a warp's lanes of one word first, by __match_any_sync and
+// __reduce_or_sync, took longer at every timed shape on the H100:
+// PERF_GATES.md), the count of keys below the tile's end advances
 // the cursor, and the tile is written out with 16-byte stores and zeroed for
 // the next one.  The next window is loaded before the tile is written out,
 // so its latency overlaps the stores.  A tile that no key falls in is
@@ -50,9 +51,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;              // and keys a window: one a thread
-constexpr int kProbes = 1;                 // search probes a thread
-constexpr int kStep = kThreads * kProbes;  // probes a search step: 256
+constexpr int kThreads = 256;              // keys a window and probes a search step
 constexpr int kTileWords = 4096;           // 16 KiB of shared memory a block
 constexpr int kBlocksPerSm = 4;
 constexpr int kTileVecs = kTileWords / 4;
@@ -74,10 +73,9 @@ __device__ __forceinline__ int block_sum(int v, int (*part)[kThreads / 32], int&
 
 // The first index in [0, n) whose key is >= x on ascending keys (n if
 // none), for two targets at once; every thread returns the same results.
-// A step probes kStep positions spread over the candidate range (probe
-// l = t + kThreads * q of thread t) and narrows it to the gap between the
-// last probe below the target and the next one: 2^17 to 2^23 keys take 3
-// steps.
+// A step probes kThreads positions spread over the candidate range, one a
+// thread, and narrows it to the gap between the last probe below the
+// target and the next one: 2^17 to 2^23 keys take 3 steps.
 __device__ void search2(const long long* __restrict__ keys, long long n, long long x0,
                         long long x1, long long* r0, long long* r1, int (*part)[kThreads / 32],
                         int& turn) {
@@ -88,13 +86,10 @@ __device__ void search2(const long long* __restrict__ keys, long long n, long lo
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       const long long m = hi[s] - lo[s];
-#pragma unroll
-      for (int q = 0; q < kProbes; ++q) {
-        const long long l = threadIdx.x + kThreads * q;
-        // Final step: every candidate probed.
-        const long long pos = m <= kStep ? lo[s] + l : lo[s] + (l + 1) * m / (kStep + 1);
-        if (m > 0 && (m > kStep || l < m) && keys[pos] < x[s]) below += 1 << (16 * s);
-      }
+      const long long l = threadIdx.x;
+      // Final step: every candidate probed.
+      const long long pos = m <= kThreads ? lo[s] + l : lo[s] + (l + 1) * m / (kThreads + 1);
+      if (m > 0 && (m > kThreads || l < m) && keys[pos] < x[s]) below += 1 << (16 * s);
     }
     const int sum = block_sum(below, part, turn);
 #pragma unroll
@@ -102,12 +97,12 @@ __device__ void search2(const long long* __restrict__ keys, long long n, long lo
       const long long m = hi[s] - lo[s];
       const long long c = (sum >> (16 * s)) & 0xffff;
       if (m == 0) continue;
-      if (m <= kStep) {
+      if (m <= kThreads) {
         lo[s] += c;
         hi[s] = lo[s];
       } else {
-        const long long a = c == 0 ? lo[s] : lo[s] + c * m / (kStep + 1) + 1;
-        const long long b = c == kStep ? hi[s] : lo[s] + (c + 1) * m / (kStep + 1);
+        const long long a = c == 0 ? lo[s] : lo[s] + c * m / (kThreads + 1) + 1;
+        const long long b = c == kThreads ? hi[s] : lo[s] + (c + 1) * m / (kThreads + 1);
         lo[s] = a;
         hi[s] = b;
       }
@@ -136,7 +131,6 @@ __device__ __forceinline__ Window load_window(const long long* __restrict__ keys
   return w;
 }
 
-template <bool kWarpOr>
 __global__ void __launch_bounds__(kThreads) build_planes_kernel(
     const long long* __restrict__ keys, long long n, unsigned* __restrict__ words,
     long long n_tiles, int* __restrict__ flags) {
@@ -164,15 +158,7 @@ __global__ void __launch_bounds__(kThreads) build_planes_kernel(
     for (;;) {
       desc |= w.desc;
       const bool take = w.in && w.key >= bit0 && w.key < bit0 + kTileBits;
-      const unsigned widx = take ? (unsigned)((w.key - bit0) >> 5) : 0xffffffffu;
-      const unsigned bit = take ? 1u << (unsigned)(w.key & 31) : 0u;
-      if (kWarpOr) {
-        const unsigned grp = __match_any_sync(0xffffffffu, widx);
-        const unsigned v = __reduce_or_sync(grp, bit);
-        if (take && (t & 31) == __ffs(grp) - 1) atomicOr(tile + widx, v);
-      } else if (take) {
-        atomicOr(tile + widx, bit);
-      }
+      if (take) atomicOr(tile + ((w.key - bit0) >> 5), 1u << (unsigned)(w.key & 31));
       // The barrier inside orders the ORs before the tile is read out.
       const int c = block_sum(take, part, turn);
       cursor += c;
@@ -202,10 +188,9 @@ __global__ void __launch_bounds__(kThreads) build_planes_kernel(
 // (n_words = G * 32768, a multiple of kTileWords), every word written;
 // flags: int32[n_blocks], flags[b] != 0 where block b met a descent (the
 // planes are then wrong); n_blocks: the persistent grid
-// (ops/kernels.py build_schedule); warp_or: combine a warp's bits of one
-// word before the shared-memory atomicOr.
+// (ops/kernels.py build_schedule).
 extern "C" int pk_build_planes(const void* keys, long long n, void* words, long long n_words,
-                               void* flags, int n_blocks, int warp_or, void* stream) {
+                               void* flags, int n_blocks, void* stream) {
   if (n < 0 || n_words < 0 || n_words % kTileWords || n_blocks <= 0)
     return (int)cudaErrorInvalidValue;
   if (n_words == 0) return (int)cudaSuccess;
@@ -215,9 +200,6 @@ extern "C" int pk_build_planes(const void* keys, long long n, void* words, long 
   const long long* k = static_cast<const long long*>(keys);
   unsigned* wd = static_cast<unsigned*>(words);
   int* fl = static_cast<int*>(flags);
-  if (warp_or)
-    build_planes_kernel<true><<<n_blocks, kThreads, 0, st>>>(k, n, wd, n_tiles, fl);
-  else
-    build_planes_kernel<false><<<n_blocks, kThreads, 0, st>>>(k, n, wd, n_tiles, fl);
+  build_planes_kernel<<<n_blocks, kThreads, 0, st>>>(k, n, wd, n_tiles, fl);
   return (int)cudaGetLastError();
 }

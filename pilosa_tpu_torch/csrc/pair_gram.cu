@@ -46,16 +46,15 @@
 // consumers and back.  The producer's warpgroup gives up its registers
 // (setmaxnreg) so that the consumers' 160 accumulators fit without
 // spilling.  A diagonal tile stages one operand and hands both
-// descriptors the same stage.  Two producers, chosen by the entry point's
-// `tma` argument: the Tensor Memory Accelerator (one thread, a 3-D tensor
-// map over the strided [S, R, W] view, rows past R and words past W filled
-// with zeros; the map is encoded on the host through the driver entry
-// point, so the build links nothing new), or cp.async 16-byte copies from
-// the warp's 32 lanes into the hand-swizzled layout (zero source size past
-// R and W), tracked by the full barrier (cp.async.mbarrier.arrive.noinc).
-// Any R and any W % 4 == 0 work, and slice and row strides are arguments:
-// the executor hands a [:, :bucket, :] view of a pool with spare rows, and
-// it is not copied.
+// descriptors the same stage.  The producer is the Tensor Memory
+// Accelerator: one thread, a 3-D tensor map over the strided [S, R, W]
+// view, rows past R and words past W filled with zeros; the map is
+// encoded on the host through the driver entry point, so the build links
+// nothing new.  (cp.async 16-byte copies from the warp's 32 lanes into the
+// hand-swizzled layout took twice as long at S = 64, R = 256 on the H100:
+// PERF_GATES.md.)  Any R and any W % 4 == 0 work, and slice and row
+// strides are arguments: the executor hands a [:, :bucket, :] view of a
+// pool with spare rows, and it is not copied.
 
 #include <cuda.h>
 #include <stdint.h>
@@ -133,31 +132,6 @@ struct Run {
   }
 };
 
-// cp.async producer: the warp's lanes copy unit u's operand tiles into the
-// stage at `stage` (shared address) in the swizzled layout.  Lane l copies
-// chunk l % 8 of rows l / 8 + 4j.
-__device__ __forceinline__ void copy_unit(const Gram& g, int s, int c, int ti, int tj,
-                                          uint32_t stage, int lane) {
-  const int v = lane & 7;
-  const bool w_ok = c * kChunk + v * 4 < g.w;
-  const int* base = g.rm + (long long)s * g.slice_stride + (long long)c * kChunk + v * 4;
-  const int n_op = ti == tj ? 1 : 2;
-  for (int op = 0; op < n_op; ++op) {
-    const int row0 = (op ? tj : ti) * kTile;
-    const uint32_t dst0 = stage + op * kTileBytes;
-#pragma unroll 8
-    for (int j = 0; j < kTile / 4; ++j) {
-      const int k = (lane >> 3) + 4 * j;
-      const bool ok = w_ok && row0 + k < g.r;
-      const int* src = ok ? base + (long long)(row0 + k) * g.row_stride : g.rm;
-      const uint32_t dst = dst0 + k * 128 + ((v ^ (k & 7)) << 4);
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-                   "r"(ok ? 16 : 0)
-                   : "memory");
-    }
-  }
-}
-
 // A warpgroup's four k-steps of m64nNk256 over a staged k-tile: A's 64
 // rows from shared address a, B's N rows from b.
 template <int N>
@@ -201,7 +175,6 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
 }
 
 // The consumer warpgroups' side of the kernel.
-template <bool kTma>
 __device__ __forceinline__ void consume(const Gram& g, const Run& run, uint32_t ring, uint32_t full,
                                         uint32_t empty, int* __restrict__ out) {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
@@ -228,7 +201,6 @@ __device__ __forceinline__ void consume(const Gram& g, const Run& run, uint32_t 
       wide = min(kTile, g.r - tj * kTile) - col0 > 64;
     }
     mbar_wait(full + 8 * st, (uint32_t)(i / kStages) & 1);
-    if (!kTma) fence_proxy_async();
     const uint32_t stage = ring + st * kStageBytes;
     fence_operands<160>(acc);
     wgmma_fence();
@@ -275,7 +247,6 @@ __device__ __forceinline__ void consume(const Gram& g, const Run& run, uint32_t 
   }
 }
 
-template <bool kTma>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     pair_gram_kernel(Gram g, const __grid_constant__ CUtensorMap map, int* __restrict__ out) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -286,7 +257,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   const int warp = threadIdx.x >> 5;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(full + 8 * s, kTma ? 1 : 32);
+      mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, kConsumers / 32);
     }
     mbar_init_fence();
@@ -309,20 +280,14 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
       int ti, tj;
       tile_pair(p, g.n_t, &ti, &tj);
       const uint32_t stage = ring + st * kStageBytes;
-      if (kTma) {
-        if (lane == 0) {
-          mbar_expect_tx(full + 8 * st, (ti == tj ? 1 : 2) * kTileBytes);
-          tma_load(stage, &map, c * kChunk, ti * kTile, s, full + 8 * st);
-          if (ti != tj) tma_load(stage + kTileBytes, &map, c * kChunk, tj * kTile, s, full + 8 * st);
-        }
-      } else {
-        copy_unit(g, s, c, ti, tj, stage, lane);
-        asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(full + 8 * st)
-                     : "memory");
+      if (lane == 0) {
+        mbar_expect_tx(full + 8 * st, (ti == tj ? 1 : 2) * kTileBytes);
+        tma_load(stage, &map, c * kChunk, ti * kTile, s, full + 8 * st);
+        if (ti != tj) tma_load(stage + kTileBytes, &map, c * kChunk, tj * kTile, s, full + 8 * st);
       }
     }
   } else {
-    consume<kTma>(g, run, ring, full, empty, out);
+    consume(g, run, ring, full, empty, out);
   }
 }
 
@@ -359,9 +324,9 @@ EncodeTiled encode_tiled() {
 // rm: int32 words, row i of slice s at rm + s * slice_stride + i *
 // row_stride (strides in words, multiples of 4; rows 16-byte aligned);
 // out: int32[r, r], zeroed; n_blocks: the persistent grid (ops/kernels.py
-// gram_schedule); tma: the producer (1: TMA, 0: cp.async).
+// gram_schedule).
 extern "C" int pk_pair_gram(const void* rm, void* out, int s, int r, int w,
-                            long long slice_stride, long long row_stride, int n_blocks, int tma,
+                            long long slice_stride, long long row_stride, int n_blocks,
                             void* stream) {
   if (s <= 0 || r <= 0 || w <= 0) return (int)cudaSuccess;
   if (n_blocks <= 0 || (w & 3) || (slice_stride & 3) || (row_stride & 3))
@@ -377,31 +342,21 @@ extern "C" int pk_pair_gram(const void* rm, void* out, int s, int r, int w,
   g.n_k = (long long)s * g.n_chunks;
   if (n_blocks > (g.n_t <= 2 ? 1 : (long long)g.n_t * (g.n_t + 1) / 2) * g.n_k)
     return (int)cudaErrorInvalidValue;
-  CUtensorMap map = {};
-  if (tma) {
-    EncodeTiled enc = encode_tiled();
-    if (enc == nullptr) return (int)cudaErrorNotSupported;
-    const cuuint64_t dims[3] = {(cuuint64_t)w, (cuuint64_t)r, (cuuint64_t)s};
-    const cuuint64_t strides[2] = {(cuuint64_t)row_stride * 4, (cuuint64_t)slice_stride * 4};
-    const cuuint32_t box[3] = {kChunk, kTile, 1};
-    const cuuint32_t unit[3] = {1, 1, 1};
-    if (enc(&map, CU_TENSOR_MAP_DATA_TYPE_INT32, 3, const_cast<void*>(rm), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return (int)cudaErrorInvalidValue;
-  }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (tma) {
-    e = cudaFuncSetAttribute(pair_gram_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kSmemBytes);
-    if (e != cudaSuccess) return (int)e;
-    pair_gram_kernel<true><<<n_blocks, kThreads, kSmemBytes, st>>>(g, map, static_cast<int*>(out));
-  } else {
-    e = cudaFuncSetAttribute(pair_gram_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kSmemBytes);
-    if (e != cudaSuccess) return (int)e;
-    pair_gram_kernel<false><<<n_blocks, kThreads, kSmemBytes, st>>>(g, map, static_cast<int*>(out));
-  }
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap map;
+  const cuuint64_t dims[3] = {(cuuint64_t)w, (cuuint64_t)r, (cuuint64_t)s};
+  const cuuint64_t strides[2] = {(cuuint64_t)row_stride * 4, (cuuint64_t)slice_stride * 4};
+  const cuuint32_t box[3] = {kChunk, kTile, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  if (enc(&map, CU_TENSOR_MAP_DATA_TYPE_INT32, 3, const_cast<void*>(rm), dims, strides, box, unit,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      pair_gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  pair_gram_kernel<<<n_blocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      g, map, static_cast<int*>(out));
   return (int)cudaGetLastError();
 }

@@ -99,8 +99,8 @@ _ARGTYPES = {
         "pk_gather_count_multi_rowmajor", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "topn_counts": ("pk_topn_counts", [_P, _P, _P, _I, _I, _I, _P]),
     "resident_count_multi": ("pk_resident_count_multi", [_P] * 6 + [_I] * 10 + [_P]),
-    "pair_gram": ("pk_pair_gram", [_P, _P, _I, _I, _I, _L, _L, _I, _I, _P]),
-    "build_planes": ("pk_build_planes", [_P, _L, _P, _L, _P, _I, _I, _P]),
+    "pair_gram": ("pk_pair_gram", [_P, _P, _I, _I, _I, _L, _L, _I, _P]),
+    "build_planes": ("pk_build_planes", [_P, _L, _P, _L, _P, _I, _P]),
 }
 
 _build_mu = threading.Lock()
@@ -929,16 +929,12 @@ def topn_counts(row_matrix: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
 GRAM_SLICES_MAX = 2047
 # Output rows a block tile covers, words a k-tile covers, the depth of
 # the staging ring (a stage: two 16 KiB operand tiles) and blocks of two
-# consumer warpgroups and a producer warp an SM: pair_gram.cu's kTile,
-# kChunk, kStages and kBlocksPerSm.
+# consumer warpgroups and a producer warpgroup an SM: pair_gram.cu's
+# kTile, kChunk, kStages and kBlocksPerSm.
 GRAM_TILE = 128
 GRAM_CHUNK_WORDS = 32
 GRAM_STAGES = 4
 GRAM_BLOCKS_PER_SM = 1
-# The producer that fills the ring: the Tensor Memory Accelerator (True) or
-# cp.async from the producer warp's lanes (False), the faster at S=64
-# R=256 on the H100 (PERF.md).
-GRAM_TMA = True
 
 
 def gram_tile_pairs(n_t: int) -> list[tuple[int, int]]:
@@ -1000,7 +996,7 @@ def pair_gram(row_matrix: torch.Tensor) -> torch.Tensor:
     On the card the matrix may be a view with any slice and row strides
     (multiples of 4 words; words contiguous): the executor's
     ``m[:, :bucket, :]`` of a pool is not copied.  The kernel counts in
-    int32; the result is widened on the card; its producer is GRAM_TMA's."""
+    int32; the result is widened on the card."""
     if row_matrix.dtype != torch.int32:
         raise TypeError(f"pair_gram: expected int32 words, got {row_matrix.dtype}")
     if row_matrix.dim() != 3:
@@ -1017,22 +1013,14 @@ def pair_gram(row_matrix: torch.Tensor) -> torch.Tensor:
     out = torch.zeros((r, r), dtype=torch.int32, device=row_matrix.device)
     if s == 0 or r == 0 or w == 0:
         return out.to(torch.int64)
-    launch_pair_gram(row_matrix, out, GRAM_TMA)
-    LAUNCHES["pair_gram"] += 1
-    return out.to(torch.int64)
-
-
-def launch_pair_gram(row_matrix: torch.Tensor, out: torch.Tensor, tma: bool) -> None:
-    """One pair_gram launch into the zeroed int32[R, R] ``out`` with the
-    given producer (``pair_gram`` checks the matrix first)."""
-    s, r, w = row_matrix.shape
-    ss, rs, _ = row_matrix.stride()
     sched = gram_schedule(r, s, w, sm_count(row_matrix.device))
     err = _fn("pair_gram")(
-        row_matrix.data_ptr(), out.data_ptr(), s, r, w, ss, rs, sched["n_blocks"], int(tma),
+        row_matrix.data_ptr(), out.data_ptr(), s, r, w, ss, rs, sched["n_blocks"],
         _stream(row_matrix),
     )
     _check(err, "pair_gram")
+    LAUNCHES["pair_gram"] += 1
+    return out.to(torch.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -1042,16 +1030,11 @@ def launch_pair_gram(row_matrix: torch.Tensor, out: torch.Tensor, tma: bool) -> 
 # Words a (slice, row) plane holds: the packed device row layout.
 PLANE_WORDS = SLICE_WIDTH // 32
 # Arena words a block tile covers (16 KiB of shared memory), threads a
-# block (and keys a window), search probes a thread and persistent blocks
-# an SM: build_planes.cu's kTileWords, kThreads, kProbes and kBlocksPerSm.
+# block (keys a window, probes a search step) and persistent blocks an
+# SM: build_planes.cu's kTileWords, kThreads and kBlocksPerSm.
 BUILD_TILE_WORDS = 4096
 BUILD_THREADS = 256
-BUILD_PROBES = 1
 BUILD_BLOCKS_PER_SM = 4
-# OR a warp's bits of one word together (__match_any_sync /
-# __reduce_or_sync) before the shared-memory atomicOr (True), or one
-# atomicOr a key (False): the faster at the bulk path's chunk (PERF.md).
-BUILD_WARP_OR = False
 
 
 def build_schedule(n_groups: int, sms: int) -> dict:
@@ -1113,7 +1096,7 @@ def build_planes(keys: torch.Tensor, n_groups: int) -> tuple[torch.Tensor, torch
     buf = torch.empty(n_words + n_blocks, dtype=torch.int32, device=keys.device)
     ptr = buf.data_ptr()
     err = _fn("build_planes")(keys.data_ptr(), keys.numel(), ptr, n_words, ptr + 4 * n_words,
-                              n_blocks, int(BUILD_WARP_OR), _stream(keys))
+                              n_blocks, _stream(keys))
     _check(err, "build_planes")
     LAUNCHES["build_planes"] += 1
     planes, descents = buf.split((n_words, n_blocks))

@@ -187,8 +187,7 @@ def test_build_planes_plain_matches_model(n_groups):
 
 # -- a numpy model of the card's kernel (csrc/build_planes.cu) --
 
-_P = kernels.BUILD_THREADS  # a window's keys
-_Q = kernels.BUILD_THREADS * kernels.BUILD_PROBES  # a search step's probes
+_P = kernels.BUILD_THREADS  # a window's keys, a search step's probes
 _T = kernels.BUILD_TILE_WORDS
 
 
@@ -198,14 +197,14 @@ def _search(keys, x):
     lo, hi = 0, len(keys)
     while hi > lo:
         m = hi - lo
-        if m <= _Q:
+        if m <= _P:
             lo += int((keys[lo:hi] < x).sum())
             hi = lo
             continue
-        pos = lo + np.arange(1, _Q + 1, dtype=np.int64) * m // (_Q + 1)
+        pos = lo + np.arange(1, _P + 1, dtype=np.int64) * m // (_P + 1)
         c = int((keys[pos] < x).sum())
-        lo, hi = (lo if c == 0 else lo + c * m // (_Q + 1) + 1,
-                  hi if c == _Q else lo + (c + 1) * m // (_Q + 1))
+        lo, hi = (lo if c == 0 else lo + c * m // (_P + 1) + 1,
+                  hi if c == _P else lo + (c + 1) * m // (_P + 1))
     return lo
 
 

@@ -343,7 +343,6 @@ def test_wrapper_constants_match_the_cuda_sources():
     assert kernels.GRAM_STAGES == _constexpr("pair_gram.cu", "kStages")
     assert kernels.BUILD_TILE_WORDS == _constexpr("build_planes.cu", "kTileWords")
     assert kernels.BUILD_THREADS == _constexpr("build_planes.cu", "kThreads")
-    assert kernels.BUILD_PROBES == _constexpr("build_planes.cu", "kProbes")
     assert kernels.BUILD_BLOCKS_PER_SM == _constexpr("build_planes.cu", "kBlocksPerSm")
     assert kernels.GATHER2_PARAM_PAIRS == _constexpr("gather_count2.cu", "kParamPairs")
     assert kernels.GATHER2_STEP_VECS == (_constexpr("gather_count2.cu", "kThreads")
