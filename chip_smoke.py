@@ -109,19 +109,45 @@
    ``Client.bulk_stream`` in 250 chunks of 131,072 pairs, one
    ``build_planes`` launch each; before any roaring materialization a
    16-pair Count batch, a Count and a TopN with a src on ``fb`` equal the
-   same on ``f`` and the numpy engine's; the 64 fragment checksums of
+   same on ``f`` and the numpy engine's (the TopN: the executor path's
+   numpy answer on ``f``, whose bits ``fb`` holds); the 64 fragment checksums of
    ``fb`` equal ``f``'s; a small inverse-enabled frame equals its twin
    through ``/ingest`` in both views; and, with pyarrow, the Arrow export
    of ``fb``'s slice 0 re-ingested through ``/bulk`` exports the same
    bytes.  A chunk's time is split into its steps, each timed inside
    the server on every chunk it applies (a "bulk" line).
-8. Fails unless every kernel's launch counter moved during its path: the
+8. The mesh phase (``pilosa_tpu_torch.parallel``), after the bulk path, on
+   the same data directory plus an empty frame ``fm``: first one NCCL
+   rank of world size 1 in this process, ``Executor(holder,
+   engine=MeshEngine(...))`` beside the single-GPU executor on the same
+   holder — a no-Gram gather batch, a cold and a warm pair batch
+   (resident kernel, then the Gram), an N-ary batch (gather fold), the
+   range-wide batch (staged fold), nested trees (gather and staged), a TopN
+   with a src, the collective self-check (every sharded composition,
+   ``topn_counts`` among them) and a bulk load of 8 chunks of 131,072
+   pairs through the MeshEngine; every answer equals the single-GPU
+   executor's and the numpy engine's (a seeded subset; the TopN equals
+   the executor path's numpy-checked answer), and each kernel of the
+   mesh path launches.  Then two ranks on the one card over gloo,
+   started as ``python -m pilosa_tpu_torch.cli lockstep`` starts them,
+   each over its own copy of the data directory (``int32[32, 256,
+   32768]`` a rank): the same requests through rank 0's HTTP door
+   (answers equal to the single-GPU path's), ``POST /debug/mesh-check``,
+   a SetBit and a Count, and the bulk load through ``/bulk``; SIGINT
+   shuts the job down, each rank's exit line gives its launches, its
+   per-batch wall, kernel-step and collective ms (``PILOSA_TPU_MESH_TIMING``)
+   and its holder's digest; every kernel of the path must have launched
+   on every rank, and the digests must be equal.  Last, every batch the MeshEngine
+   handed a kernel is held exactly against the kernel's plain version at
+   the two-rank shard's shape, [32, R, W].  Two ranks on one card
+   measure no multi-GPU speed.
+9. Fails unless every kernel's launch counter moved during its path: the
    counters are set to 0 just before each path and read just after it.
 
 Prints a ptxas line, a tree-checks and two staged-checks lines,
 ``{"card": ..., "layout" / "tree_gate" / "multi_paths" / "multi_tilings" /
 "multi_gate" / "gather2_paths" / "tree_paths": [...]}`` lines, a ``{"card": ..., "bulk": {...}}``
-line, a ``{"card": ..., "requests": [...]}`` line
+line, ``{"card": ..., "mesh_nccl": {...}}`` and ``{"card": ..., "mesh": {...}}`` lines, a ``{"card": ..., "requests": [...]}`` line
 per path, a ``{"kernels": [...]}`` line, and last ``{"ok": true,
 "device": {...}}``.  Any failure raises.
 
@@ -2376,8 +2402,7 @@ def main_path(ex, ex_nogram, ex_ref, n_rows: int, sync=lambda: None) -> list[dic
     # TopN with a source bitmap: phase 1 scores each slice's candidates
     # (count kernel, shared src); the merged-id refetch asked by a second
     # slice upgrades to one all-slice launch (gather_src_counts).
-    run("topn", ex, ['TopN(Bitmap(rowID=0, frame="f"), frame="f", n=10)'],
-        expect=("count_rows", "gather_src_counts"))
+    TOPN_ANSWER[:] = run("topn", ex, [TOPN_PQL], expect=("count_rows", "gather_src_counts"))
     return records
 
 
@@ -3002,7 +3027,8 @@ def bulk_path(d: str) -> tuple[dict, dict]:
     materialization (and after main_path's writes to ``f`` are replayed
     into ``fb`` through the same door), a 16-pair Count batch, a Count and a TopN with a src
     on ``fb``, each equal to the same on ``f`` and to the numpy engine's
-    answer on ``fb``; every fragment checksum of ``fb`` equal to ``f``'s;
+    answer on ``fb`` (the TopN's: the executor path's numpy answer for
+    the same TopN on ``f``, TOPN_ANSWER); every fragment checksum of ``fb`` equal to ``f``'s;
     a small inverse-enabled frame equal in both views to its twin built
     through the streamed ``/ingest`` door; and, where pyarrow is present,
     the Arrow export of ``fb``'s slice 0 re-ingested through ``/bulk``
@@ -3057,11 +3083,13 @@ def bulk_path(d: str) -> tuple[dict, dict]:
         f_view = srv.holder.index("i").frame("f").view("standard")
         rng = np.random.default_rng(BULK_SEED)
         pairs = rng.integers(0, N_ROWS, size=(GATHER_BATCH, 2))
-        r0, r1 = (int(x) for x in rng.integers(0, N_ROWS, size=2))
+        r0, _r1 = (int(x) for x in rng.integers(0, N_ROWS, size=2))
         requests = {
             "pairs": lambda fr: [f"Count(Intersect({_bm(a, fr)}, {_bm(b, fr)}))" for a, b in pairs],
             "count": lambda fr: [f"Count({_bm(r0, fr)})"],
-            "topn": lambda fr: [f'TopN({_bm(r1, fr)}, frame="{fr}", n=10)'],
+            # The executor path's TopN (src row 0): its numpy answer on f
+            # (TOPN_ANSWER) is fb's, whose bits are f's (checksums below).
+            "topn": lambda fr: [f'TopN({_bm(0, fr)}, frame="{fr}", n=10)'],
         }
         reads = []
         t_reads = time.perf_counter()
@@ -3077,8 +3105,11 @@ def bulk_path(d: str) -> tuple[dict, dict]:
             on_f = _http_query(srv.host, " ".join(calls("f")))
             f_ms = (time.perf_counter() - t0) * 1e3
             t0 = time.perf_counter()
-            want = _norm(ex_ref.execute("i", " ".join(calls(BULK_FRAME))))
-            numpy_ms = (time.perf_counter() - t0) * 1e3
+            if name == "topn" and TOPN_ANSWER and calls("f") == [TOPN_PQL]:
+                want, numpy_ms = TOPN_ANSWER, None
+            else:
+                want = _norm(ex_ref.execute("i", " ".join(calls(BULK_FRAME))))
+                numpy_ms = (time.perf_counter() - t0) * 1e3
             if got != on_f or got != want:
                 raise AssertionError(f"bulk {name}: fb {got[:4]} vs f {on_f[:4]} vs numpy {want[:4]}")
             if not launched:
@@ -3178,8 +3209,619 @@ def bulk_path(d: str) -> tuple[dict, dict]:
     return line, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the mesh (parallel/, MeshEngine, the lockstep service)
+# ---------------------------------------------------------------------------
+
+# Two lockstep ranks share the one card (gloo: NCCL refuses two ranks on
+# one device), each holding its half of the slice axis.
+MESH_RANKS = 2
+MESH_SEED = SEED + 18
+# The lockstep job's bulk load (8 chunks of BULK_CHUNK pairs over 64 rows)
+# goes to frame fm; the NCCL rank's, through the MeshEngine in process,
+# to fw.  The single-GPU path loads the same pairs into the smoke's own
+# holder's fm (the lockstep job's reference).
+MESH_BULK_FRAME, MESH_WS1_BULK_FRAME = "fm", "fw"
+# The frames the lockstep ranks' copies of the data directory hold.
+MESH_FRAMES = ("f", "t", MESH_BULK_FRAME)
+MESH_BULK_CHUNKS, MESH_BULK_ROWS = 8, 64
+# The gather batch names 16 distinct rows: its fresh pool holds 16, two
+# per pair, so dispatch takes the gather kernel.
+MESH_GATHER_PAIRS = 8
+# Rows the collective self-check (POST /debug/mesh-check) names.
+MESH_CHECK_ROWS = 16
+# Queries of each mesh request held against the numpy engine (the whole
+# answer is held against the single-GPU executor's).
+MESH_SUBSET = 4
+# The kernels the mesh path runs ("yes" in PERF.md's table): each must
+# launch on every rank.
+MESH_KERNELS = ("count_rows", "resident_count2", "gather_count2", "gather_src_counts",
+                "gather_count_multi", "resident_count_multi", "gather_count_tree",
+                "resident_count_tree", "topn_counts", "pair_gram", "build_planes")
+# main_path's TopN (checked there against the numpy engine): f is not
+# written between it and the mesh phase, so the mesh requests' TopN is
+# held to the same answer without a second numpy TopN.
+TOPN_PQL = 'TopN(Bitmap(rowID=0, frame="f"), frame="f", n=10)'
+TOPN_ANSWER: list = []
+# Batches the MeshEngine hands the dispatch entries and kernels during the
+# NCCL rank's requests (while _MESH_REC[0]), rebuilt at the two-rank
+# shard shape for the plain-version checks.
+MESH_BATCHES: list = []
+_MESH_REC = [False]
+
+
+def record_mesh_batches() -> None:
+    """Wrap the entries the MeshEngine calls so that, while _MESH_REC[0]
+    is set, each call appends its kind, matrix rows and ids to
+    MESH_BATCHES."""
+    from pilosa_tpu_torch.ops import dispatch
+
+    def wrap(mod, name, rec):
+        fn = getattr(mod, name)
+
+        def call(*a, **k):
+            if _MESH_REC[0]:
+                MESH_BATCHES.append(rec(*a))
+            return fn(*a, **k)
+        setattr(mod, name, call)
+
+    wrap(dispatch, "gather_count", lambda op, m, p: ("pair", op, m.shape[1], np.array(p, np.int32)))
+    wrap(dispatch, "gather_count_multi",
+         lambda op, m, ix: ("multi", op, m.shape[1], np.array(ix, np.int32)))
+    wrap(dispatch, "gather_count_tree",
+         lambda m, lv, oc: ("tree", None, m.shape[1], (np.array(lv, np.int32), np.array(oc, np.int32))))
+    wrap(dispatch, "topn_scorer_counts", lambda m, pos, s: ("scorer", None, m.shape[1],
+                                                            np.array(pos, np.int32)))
+    wrap(dispatch, "count", lambda x: ("count", None, tuple(x.shape), None))
+    wrap(dispatch, "batch_intersection_count", lambda r, s: ("count_src", None, tuple(r.shape), None))
+    wrap(kernels, "pair_gram", lambda m: ("gram", None, m.shape[1], None))
+    wrap(kernels, "topn_counts", lambda m, s: ("topn", None, m.shape[1], None))
+
+
+def mesh_requests(n_rows: int, time_rows: int) -> list:
+    """(name, calls, executor flavour, kernels it must launch) in order:
+    a gather batch (no Gram), a cold and a warm pair batch (resident,
+    then the Gram), an N-ary batch (the gather fold), the HTTP path's
+    range-wide batch (the staged fold; its range-1, whose cold Range
+    matrix takes 7-13 s a run, is left out), nested trees (gather and
+    staged), and a TopN with a src."""
+    rng = np.random.default_rng(MESH_SEED)
+    gather = rng.permutation(n_rows)[: 2 * MESH_GATHER_PAIRS].reshape(-1, 2)
+    pairs = rng.integers(0, n_rows, size=(PAIR_BATCH, 2))
+    pairs[:, 0] = np.resize(rng.permutation(n_rows), PAIR_BATCH)
+    op, idx = nary_requests(n_rows)["nary-or"]
+    _one, _two, wide = range_requests(time_rows)
+    return [
+        ("gather", _pair_calls(("xor", "and"), gather), "nogram", ("gather_count2",)),
+        ("pairs cold", _pair_calls(("and",), pairs), "gram", ("resident_count2",)),
+        ("pairs warm", _pair_calls(("or",), pairs), "gram", ("pair_gram",)),
+        ("nary", [f"Count({PQL_OPS[op]}({', '.join(_bm(r) for r in ids)}))" for ids in idx],
+         "gram", ("gather_count_multi",)),
+        ("range-wide", [_range_call(r, sp) for r, sp in wide], "gram", ("resident_count_multi",)),
+        ("tree", [_tree_call(rng, n_rows, i) for i in range(FOLD_BATCH)], "gram",
+         ("gather_count_tree",)),
+        ("tree-hot", [_tree_call(rng, TREE_HOT_ROWS, i) for i in range(TREE_WIDE_BATCH)], "gram",
+         ("resident_count_tree",)),
+        ("topn", [TOPN_PQL], "gram", ("gather_src_counts",)),
+    ]
+
+
+def mesh_bulk_pairs() -> tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(MESH_SEED + 1)
+    n = MESH_BULK_CHUNKS * BULK_CHUNK
+    return (rng.integers(0, MESH_BULK_ROWS, size=n).astype(np.uint64),
+            rng.integers(0, N_SLICES * SLICE_WIDTH, size=n).astype(np.uint64))
+
+
+def mesh_check_want(h, rows, src) -> dict:
+    """The collective self-check's answers on the host (numpy) over every
+    slice of ``h``'s frame f."""
+    from pilosa_tpu_torch.ops.bitwise import np_popcount
+
+    n = h.index("i").max_slice() + 1
+    block = np.zeros((n, len(rows), W), dtype=np.uint32)
+    srcb = np.zeros((n, W), dtype=np.uint32)
+    for s in range(n):
+        frag = h.fragment("i", "f", "standard", s)
+        for k, r in enumerate(rows):
+            block[s, k] = frag.row_dense(r)
+        srcb[s] = frag.row_dense(src)
+    pc = lambda x: np_popcount(x).astype(np.int64)  # noqa: E731
+    scorer = pc(block & srcb[:, None]).sum(axis=2)
+    k = len(rows)
+    first = block[:, 0]
+    return {
+        "slices": n, "rows": list(rows), "src": src,
+        "topn": scorer.sum(axis=0).tolist(), "scorer": scorer.tolist(),
+        "pairs": [int(pc(block[:, i] & block[:, (i + 1) % k]).sum()) for i in range(k)],
+        "fold_or": [int(pc(np.bitwise_or.reduce(block, axis=1)).sum())],
+        "count": {"and": int(pc(first & srcb).sum()), "or": int(pc(first | srcb).sum()),
+                  "xor": int(pc(first ^ srcb).sum()), "andnot": int(pc(first & ~srcb).sum())},
+    }
+
+
+def _check_mesh_answer(name, got, single, calls, ex_ref, rng) -> int:
+    """got (the mesh) == single (the single-GPU executor) in full, and a
+    seeded subset of MESH_SUBSET queries == the numpy engine; returns the
+    answers checked against numpy."""
+    if got != single:
+        raise AssertionError(f"mesh {name}: differs from the single-GPU path: {got[:4]} vs {single[:4]}")
+    if calls == [TOPN_PQL]:
+        if not TOPN_ANSWER or got != TOPN_ANSWER:
+            raise AssertionError(f"mesh {name}: {got} vs the numpy engine's {TOPN_ANSWER}")
+        return 1
+    if calls[0].startswith("SetBit"):
+        # The write already landed on the reference holder (the single-GPU
+        # executor shares it): hold the reads that follow it.
+        want = _norm(ex_ref.execute("i", " ".join(calls[1:])))
+        if got[1:] != want:
+            raise AssertionError(f"mesh {name}: {got} vs the numpy engine's {want}")
+        return len(want)
+    sub = sorted(rng.choice(len(calls), size=min(MESH_SUBSET, len(calls)), replace=False).tolist())
+    want = _norm(ex_ref.execute("i", " ".join(calls[i] for i in sub)))
+    if [got[i] for i in sub] != want:
+        raise AssertionError(f"mesh {name}: differs from the numpy engine")
+    return len(sub)
+
+
+def _timed(ex, pql: str):
+    t0 = time.perf_counter()
+    got = _norm(ex.execute("i", pql))
+    torch.cuda.synchronize()
+    return got, (time.perf_counter() - t0) * 1e3
+
+
+def _bulk_in_process(ex, frame: str, rows, cols) -> float:
+    """Load (rows, cols) into ``frame`` through the bulk door's commit
+    (ingress.apply_bulk, BULK_CHUNK pairs a call, then the completion)
+    with ``ex``'s engine; returns the ms."""
+    from pilosa_tpu_torch.bulk import ingress
+
+    fr = ex.holder.index("i").frame(frame)
+    t0 = time.perf_counter()
+    for i in range(0, len(rows), BULK_CHUNK):
+        ingress.apply_bulk(fr, rows[i:i + BULK_CHUNK], cols[i:i + BULK_CHUNK],
+                           engine=ex.engine, executor=ex, index="i")
+    ingress.complete_bulk(fr, 0)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def mesh_nccl_path(h) -> tuple[dict, dict, dict]:
+    """One NCCL rank (world size 1) in this process: Executor(h,
+    engine=MeshEngine) drives mesh_requests beside the single-GPU
+    executor on the same holder, the collective self-check runs through
+    the lockstep service's own method, and a bulk load goes through the
+    MeshEngine.  Every answer equals the single-GPU path's and the numpy
+    engine's.  Returns the record (per request: mesh wall ms, its kernel
+    step's and collectives' ms between synchronizations, the single-GPU
+    ms, the launches), the mesh-only launches, and each request's
+    single-GPU answer and ms by name."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from pilosa_tpu_torch.core.frame import FrameOptions
+    from pilosa_tpu_torch.engine import MeshEngine
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.parallel.service import LockstepService
+    from pilosa_tpu_torch.parallel.sharded import SliceMesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1,
+                            rank=0, timeout=timedelta(seconds=300))
+    try:
+        mesh = SliceMesh(device="cuda", timing=True)
+        if mesh.backend != "nccl" or mesh.n_devices != 1:
+            raise AssertionError(f"mesh: backend {mesh.backend}, {mesh.n_devices} ranks")
+        engines = {"gram": MeshEngine(mesh), "nogram": MeshEngine(mesh)}
+        ex = {"gram": Executor(h, engine=engines["gram"]),
+              "nogram": Executor(h, engine=engines["nogram"], no_gram=True)}
+        single = {"gram": Executor(h), "nogram": Executor(h, no_gram=True)}
+        ex_ref = Executor(h, engine="numpy")
+        rng = np.random.default_rng(MESH_SEED + 2)
+        launches = dict.fromkeys(kernels.KERNELS, 0)
+        records, answers = [], {}
+
+        def on_mesh(fn, eng):
+            before = dict(kernels.LAUNCHES)
+            l0, c0, n0 = eng.stat_local_s, eng.mesh.stat_collective_s, eng.mesh.stat_collectives
+            _MESH_REC[0] = True
+            try:
+                out = fn()
+            finally:
+                _MESH_REC[0] = False
+            got = {k: kernels.LAUNCHES[k] - before[k] for k in before if kernels.LAUNCHES[k] > before[k]}
+            for k, n in got.items():
+                launches[k] += n
+            return out, {"local_ms": (eng.stat_local_s - l0) * 1e3,
+                         "collective_ms": (eng.mesh.stat_collective_s - c0) * 1e3,
+                         "collectives": eng.mesh.stat_collectives - n0, "launches": got}
+
+        for name, calls, flavour, expect in mesh_requests(N_ROWS, TIME_ROWS):
+            pql = " ".join(calls)
+            (got, ms), rec = on_mesh(lambda: _timed(ex[flavour], pql), engines[flavour])
+            single_got, single_ms = _timed(single[flavour], pql)
+            t = time.perf_counter()
+            checked = _check_mesh_answer(name, got, single_got, calls, ex_ref, rng)
+            numpy_ms = (time.perf_counter() - t) * 1e3
+            answers[name] = (single_got, single_ms)
+            for k in expect:
+                if not rec["launches"].get(k):
+                    raise AssertionError(f"mesh {name}: expected {k} to launch, launches {rec['launches']}")
+            if not rec["collectives"]:
+                raise AssertionError(f"mesh {name}: no collective ran")
+            records.append(dict(request=name, ms=ms, single_ms=single_ms, checked=checked,
+                                numpy_ms=numpy_ms, **rec))
+
+        # The collective self-check, through the service's own method on
+        # this rank (the lockstep job runs it on every rank).
+        svc = LockstepService(h, control_addr=("127.0.0.1", 0), device="cuda")
+        spec = {"frame": "f", "rows": list(range(MESH_CHECK_ROWS)), "src": 0}
+        t0 = time.perf_counter()
+        got, rec = on_mesh(lambda: svc._do_mesh_check("i", json.dumps(spec)), svc.engine)
+        ms = (time.perf_counter() - t0) * 1e3
+        t = time.perf_counter()
+        want = answers["mesh-check"] = mesh_check_want(h, spec["rows"], spec["src"])
+        if any(got[k] != want[k] for k in want):
+            raise AssertionError(f"mesh-check: {got} vs numpy {want}")
+        records.append(dict(request="mesh-check", ms=ms, single_ms=None, checked=1,
+                            numpy_ms=(time.perf_counter() - t) * 1e3, **rec))
+
+        # A bulk load through the MeshEngine (fw), against the same pairs
+        # through the single-GPU engine (the smoke's fm, the lockstep
+        # job's reference).
+        idx = h.index("i")
+        idx.create_frame(MESH_WS1_BULK_FRAME, FrameOptions())
+        rows, cols = mesh_bulk_pairs()
+        ms, rec = on_mesh(lambda: _bulk_in_process(ex["gram"], MESH_WS1_BULK_FRAME, rows, cols),
+                          engines["gram"])
+        single_ms = _bulk_in_process(single["gram"], MESH_BULK_FRAME, rows, cols)
+        # Row for row on the dense reads, which merge the overlays without
+        # materializing them.
+        t = time.perf_counter()
+        fw = idx.frame(MESH_WS1_BULK_FRAME).view("standard")
+        fm = idx.frame(MESH_BULK_FRAME).view("standard")
+        if sorted(fw.fragments) != sorted(fm.fragments) or any(
+                not np.array_equal(fw.fragment(s).row_dense(r), fm.fragment(s).row_dense(r))
+                for s in fm.fragments for r in range(MESH_BULK_ROWS)):
+            raise AssertionError("mesh bulk: fw's rows differ from the single-GPU load's")
+        records.append(dict(request=f"bulk {len(rows)} pairs", ms=ms, single_ms=single_ms,
+                            checked=len(fm.fragments), numpy_ms=(time.perf_counter() - t) * 1e3,
+                            **rec))
+        missing = [k for k in MESH_KERNELS if not launches[k]]
+        if missing:
+            raise AssertionError(f"mesh (NCCL, 1 rank): kernels never launched: {missing}")
+        out = {"backend": mesh.backend, "ranks": 1, "requests": records,
+               "collectives": mesh.stat_collectives}
+    finally:
+        dist.destroy_process_group()
+    del ex, single, engines
+    torch.cuda.empty_cache()
+    return out, launches, answers
+
+
+def _free_port() -> int:
+    """A TCP port on localhost that was free a moment ago."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _lockstep_ranks(dirs: list, http: int) -> list:
+    """Start the job as ``pilosa_tpu_torch.cli lockstep`` starts it on each
+    rank (one process a rank, its own copy of the data directory; the
+    card's default engine), with the per-batch timing on; stdout and
+    stderr to files."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    control, coord = _free_port(), _free_port()
+    env = dict(os.environ, PILOSA_TPU_MESH_TIMING="1")
+    env.pop("PILOSA_ENGINE", None)
+    procs = []
+    for r, d in enumerate(dirs):
+        out, err = open(d + ".out", "w+"), open(d + ".err", "w+")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "pilosa_tpu_torch.cli", "lockstep", "--data-dir", d,
+             "--host", f"127.0.0.1:{http}", "--control", f"127.0.0.1:{control}",
+             "--coordinator", f"127.0.0.1:{coord}", "--num-processes", str(len(dirs)),
+             "--process-id", str(r)],
+            cwd=root, env=env, stdout=out, stderr=err, text=True), out, err))
+    return procs
+
+
+def _rank_tail(procs) -> str:
+    tails = []
+    for r, (_, out, err) in enumerate(procs):
+        for f in (out, err):
+            f.flush()
+            f.seek(0)
+            tails.append(f"rank {r}: {f.read()[-3000:]}")
+    return "\n".join(tails)
+
+
+def mesh_lockstep_path(procs: list, http: int, t_start: float, dirs: list, h,
+                       answers: dict) -> tuple[dict, list]:
+    """Two lockstep ranks on the one card over the copies ``dirs`` of the
+    data directory: the requests of mesh_requests, the collective
+    self-check, a SetBit and a Count, and a bulk load of 8 chunks through
+    rank 0's HTTP door.  Each of mesh_requests' answers equals in full the
+    single-GPU executor's answer in the NCCL phase (``answers``: name ->
+    (answer, ms), itself held to the numpy engine there); the later ones
+    equal the single-GPU executor's on ``h`` (which replays the same
+    writes) and the numpy engine's.  At the end the ranks' holders digest
+    alike.  Returns the record and each rank's launches."""
+    import signal
+
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.server.client import Client
+
+    single = {"gram": Executor(h), "nogram": Executor(h, no_gram=True)}
+    ex_ref = Executor(h, engine="numpy")
+    rng = np.random.default_rng(MESH_SEED + 3)
+    host = f"127.0.0.1:{http}"
+    records, lines = [], []
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            try:
+                with urllib.request.urlopen(f"http://{host}/status", timeout=5) as r:
+                    status = json.loads(r.read())["status"]
+                break
+            except OSError:
+                if time.monotonic() > deadline or any(p.poll() is not None for p, _, _ in procs):
+                    raise AssertionError(f"lockstep job never served:\n{_rank_tail(procs)}")
+                time.sleep(0.5)
+        start_s = time.perf_counter() - t_start
+        if status["ranks"] != len(dirs):
+            raise AssertionError(f"lockstep status: {status}")
+
+        def run(name, calls, flavour="gram"):
+            pql = " ".join(calls)
+            t = time.perf_counter()
+            got = _http_query(host, pql)
+            ms = (time.perf_counter() - t) * 1e3
+            if name in answers:
+                single_got, single_ms = answers[name]
+                if got != single_got:
+                    raise AssertionError(f"lockstep {name}: differs from the single-GPU path")
+                checked = len(calls)
+            else:
+                single_got, single_ms = _timed(single[flavour], pql)
+                checked = _check_mesh_answer(name, got, single_got, calls, ex_ref, rng)
+            records.append({"request": name, "q": pql[:60], "ms": ms, "single_ms": single_ms,
+                            "checked": checked})
+
+        for name, calls, flavour, _expect in mesh_requests(N_ROWS, TIME_ROWS):
+            # The lockstep executor keeps its Gram: its gather batch comes
+            # first, on a fresh pool, where dispatch gathers.
+            run(name, calls, flavour)
+        spec = {"rows": list(range(MESH_CHECK_ROWS)), "src": 0}
+        t = time.perf_counter()
+        req = urllib.request.Request(
+            f"http://{host}/debug/mesh-check?index=i&frame=f&src=0&rows="
+            + ",".join(map(str, spec["rows"])), data=b"", method="POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            got = json.loads(r.read())
+        ms = (time.perf_counter() - t) * 1e3
+        want = answers["mesh-check"]  # f is as the NCCL rank read it
+        if got["ranks"] != len(dirs) or any(got[k] != want[k] for k in want):
+            raise AssertionError(f"lockstep mesh-check: {got} vs numpy {want}")
+        records.append({"request": "mesh-check", "q": "\x00mesh-check\x00"[:60], "ms": ms,
+                        "single_ms": None, "checked": 1})
+        # A write and a read of it: replayed on every rank and on h.
+        a, b = (int(x) for x in rng.integers(0, N_ROWS, size=2))
+        col = int(rng.integers(0, N_SLICES * SLICE_WIDTH))
+        run("setbit+count", [f'SetBit(rowID={a}, frame="f", columnID={col})',
+                             f"Count(Intersect({_bm(a)}, {_bm(b)}))"])
+        # The bulk load through rank 0's door; the single-GPU reference
+        # loaded the same pairs into h's fm in the NCCL phase.
+        rows, cols = mesh_bulk_pairs()
+        t = time.perf_counter()
+        out = Client(host).bulk_stream("i", MESH_BULK_FRAME, rows, cols, chunk_pairs=BULK_CHUNK)
+        ms = (time.perf_counter() - t) * 1e3
+        if not out.get("done"):
+            raise AssertionError(f"lockstep bulk: {out}")
+        records.append({"request": f"bulk {len(rows)} pairs", "q": "\x00bulk-apply\x00", "ms": ms,
+                        "single_ms": None, "checked": 0})
+        run("bulk counts", [f'Count(Bitmap(rowID={r}, frame="{MESH_BULK_FRAME}"))'
+                            for r in range(MESH_BULK_ROWS)])
+        # Shut the job down as an operator would: SIGINT to rank 0.
+        procs[0][0].send_signal(signal.SIGINT)
+        for p, out_f, _ in procs:
+            p.wait(timeout=300)
+            if p.returncode:
+                raise AssertionError(f"lockstep rank exited {p.returncode}:\n{_rank_tail(procs)}")
+            out_f.flush()
+            out_f.seek(0)
+            lines.append(json.loads(out_f.read().strip().splitlines()[-1]))
+    finally:
+        for p, out_f, err_f in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+            out_f.close()
+            err_f.close()
+    # Each rank digests its holder as it exits (its exit line).
+    digests = [ln["digest"] for ln in lines]
+    if len(set(digests)) != 1:
+        raise AssertionError(f"lockstep ranks' holders differ: {digests}")
+    # Each rank's batch log, matched to the requests in order (a bulk load
+    # is its chunks' entries and the completion's).
+    for ln in lines:
+        log = list(ln["batch_log"])
+        for rec in records:
+            mine = []
+            while log and (log[0]["q"].startswith(rec["q"][:40]) or (
+                    rec["q"].startswith("\x00bulk") and log[0]["q"].startswith("\x00bulk"))):
+                mine.append(log.pop(0))
+                if not rec["q"].startswith("\x00bulk"):
+                    break
+            if not mine:
+                raise AssertionError(f"rank {ln['lockstep_rank']}: no batch for {rec['request']}")
+            rec.setdefault("ranks", []).append({
+                "batches": len(mine), "ms": sum(m["ms"] for m in mine),
+                "local_ms": sum(m["local_ms"] for m in mine),
+                "collective_ms": sum(m["collective_ms"] for m in mine),
+                "collectives": sum(m["collectives"] for m in mine),
+                "launches": {k: sum(m["launches"].get(k, 0) for m in mine)
+                             for k in {k for m in mine for k in m["launches"]}},
+            })
+        if log:
+            raise AssertionError(f"rank {ln['lockstep_rank']}: unmatched batches {log[:2]}")
+    for rec in records:
+        rec.pop("q")
+    by_rank = [ln["launches"] for ln in lines]
+    for r, got in enumerate(by_rank):
+        missing = [k for k in MESH_KERNELS if not got.get(k)]
+        if missing:
+            raise AssertionError(f"lockstep rank {r}: kernels never launched: {missing} ({got})")
+    return ({"backend": "gloo", "ranks": len(dirs), "served_after_s": start_s,
+             "digests_equal": True, "requests": records,
+             "collectives": [ln["collectives"] for ln in lines],
+             "note": "two ranks share one card: no multi-GPU speed"}, by_rank)
+
+
+def check_shard_kernels() -> dict:
+    """Every kernel the mesh path launched, held exactly against its plain
+    version at the two-rank shard's shape ([N_SLICES / MESH_RANKS, R, W]
+    random words) with each batch the NCCL rank's requests handed it."""
+    from pilosa_tpu_torch.ops import dispatch
+
+    s = N_SLICES // MESH_RANKS
+    gen = _gen(MESH_SEED)
+    mats: dict = {}
+
+    def mat(r):
+        if r not in mats:
+            mats[r] = _rand_words(gen, (s, r, W))
+        return mats[r]
+
+    src = _rand_words(gen, (s, W))
+    checked: dict = {}
+    seen = set()
+    for kind, op, r, ids in MESH_BATCHES:
+        raw = b"" if ids is None else b"".join(np.ascontiguousarray(x).tobytes()
+                                              for x in (ids if kind == "tree" else (ids,)))
+        key = (kind, op, r, raw)
+        if key in seen:
+            continue
+        seen.add(key)
+        # Each entry against the plain version of the kernel it picks (the
+        # staged and gather variants share one plain version).
+        if kind == "pair":
+            got = dispatch.gather_count(op, mat(r), ids)
+            want = kernels.gather_count2_plain(op, mat(r), ids)
+        elif kind == "multi":
+            got = dispatch.gather_count_multi(op, mat(r), ids)
+            want = _chunked(lambda ix: kernels.gather_count_multi_plain(op, mat(r), ix), ids)
+        elif kind == "tree":
+            lv, oc = ids
+            got = dispatch.gather_count_tree(mat(r), lv, oc)
+            want = _chunked(lambda a, b: kernels.gather_count_tree_plain(mat(r), a, b), lv, oc)
+        elif kind == "scorer":
+            got = dispatch.topn_scorer_counts(mat(r), ids, src)
+            want = kernels.gather_src_counts_plain(mat(r), ids, src)
+        elif kind == "gram":
+            got, want = kernels.pair_gram(mat(r)), kernels.pair_gram_plain(mat(r))
+        elif kind == "topn":
+            got, want = kernels.topn_counts(mat(r), src), kernels.topn_counts_plain(mat(r), src)
+        elif kind == "count":
+            a = _rand_words(gen, (s,) + tuple(r[1:]) if r[0] == N_SLICES else r)
+            got, want = dispatch.count(a), kernels.count_rows_plain(a.reshape(-1, a.shape[-1]))
+        elif kind == "count_src":
+            a = _rand_words(gen, r)
+            got = dispatch.batch_intersection_count(a, src[0])
+            want = kernels.count_rows_plain(a.reshape(-1, a.shape[-1]), src[0], "and")
+        else:
+            raise AssertionError(kind)
+        if not torch.equal(got.long().cpu(), want.long().cpu()):
+            raise AssertionError(f"shard check {kind} {op} R={r}: kernel differs from its plain version")
+        checked[kind] = checked.get(kind, 0) + 1
+    del mats
+    torch.cuda.empty_cache()
+    return {"shard": [s, "R", W], "batches": checked}
+
+
+def mesh_path(d: str, card: str) -> tuple[dict, dict]:
+    """The mesh phase over the paths' data directory ``d``: the NCCL rank
+    in process, then the two-rank lockstep job over copies of ``d``, then
+    the kernels held at the shard's shapes.  The ranks start (imports, the
+    card, the group, the holder) while the NCCL rank runs.  Returns the
+    "mesh" line and the launches by run."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch.core.frame import FrameOptions
+    from pilosa_tpu_torch.core.holder import Holder
+
+    t_phase = time.perf_counter()
+    h = Holder(d)
+    h.open()
+    h.index("i").create_frame(MESH_BULK_FRAME, FrameOptions())
+    h.close()
+    base = tempfile.mkdtemp(prefix="mesh-", dir=os.path.dirname(d))
+    dirs = [os.path.join(base, f"rank{r}") for r in range(MESH_RANKS)]
+    # The ranks serve the frames the mesh requests read (f, t and the
+    # empty fm), not the bulk path's frames.
+    idx_dir = os.path.join(d, "i")
+
+    def skip(path, names):
+        if os.path.abspath(path) != os.path.abspath(idx_dir):
+            return []
+        return [n for n in names if os.path.isdir(os.path.join(path, n)) and n not in MESH_FRAMES]
+
+    t = time.perf_counter()
+    with ThreadPoolExecutor(len(dirs)) as pool:
+        for f in [pool.submit(shutil.copytree, d, dd, ignore=skip) for dd in dirs]:
+            f.result()
+    copy_s = time.perf_counter() - t
+    procs = []
+    try:
+        http = _free_port()
+        t_start = time.perf_counter()
+        procs = _lockstep_ranks(dirs, http)
+        h = Holder(d)
+        h.open()
+        record_mesh_batches()
+        t = time.perf_counter()
+        ws1, ws1_launches, answers = mesh_nccl_path(h)
+        ws1["s"] = time.perf_counter() - t
+        print(json.dumps({"card": card, "mesh_nccl": ws1}), flush=True)
+        t = time.perf_counter()
+        lock, rank_launches = mesh_lockstep_path(procs, http, t_start, dirs, h, answers)
+        lock["s"] = time.perf_counter() - t
+        h.close()
+        t = time.perf_counter()
+        shard = check_shard_kernels()
+        shard["s"] = time.perf_counter() - t
+    finally:
+        for p, out_f, err_f in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+            out_f.close()
+            err_f.close()
+        shutil.rmtree(base, ignore_errors=True)
+    launches = {"mesh": ws1_launches}
+    for r, got in enumerate(rank_launches):
+        launches[f"lockstep_rank{r}"] = dict(dict.fromkeys(kernels.KERNELS, 0), **got)
+    line = {"nccl_world1": ws1, "lockstep": lock, "shard_checks": shard, "copy_s": copy_s,
+            "s": time.perf_counter() - t_phase}
+    return line, launches
+
+
 def main() -> int:
     card = probe()
+    phase_s = {}
+    t_phase = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase[0]
+        t_phase[0] = now
+
     t0 = time.perf_counter()
     per_source = kernels.build()
     print(f"build_s {time.perf_counter() - t0:.3f} per-source {json.dumps(per_source)}", flush=True)
@@ -3189,6 +3831,7 @@ def main() -> int:
         "resident_count_multi", "pair_gram", "gather_count2", "build_planes"))
     print(json.dumps({"ptxas": ptx}), flush=True)
 
+    lap("build")
     timings, layout, gate, multi = check_kernels()
     print("kernels match their plain versions on the card", flush=True)
     print(json.dumps({"card": card, "layout": layout}), flush=True)
@@ -3197,6 +3840,7 @@ def main() -> int:
     print(json.dumps({"card": card, "multi_tilings": multi["tilings"]}), flush=True)
     print(json.dumps({"card": card, "multi_gate": multi["gate"]}), flush=True)
 
+    lap("kernels")
     kernels.reset_launches()
     sweep = diffcheck_path()
     launches = {"diffcheck": dict(kernels.LAUNCHES)}
@@ -3207,15 +3851,24 @@ def main() -> int:
     record_tree_batches()
     record_bulk_builds()
 
+    lap("diffcheck")
     with tempfile.TemporaryDirectory() as d:
         h = paths_data(d)
+        lap("holder")
         records, launches["executor"] = executor_path(h)
         print(json.dumps({"card": card, "gather2_paths": time_gather2_paths()}), flush=True)
+        lap("executor")
         http_records, launches["http"] = server_path(d)
         print(json.dumps({"card": card, "tree_paths": time_tree_paths()}), flush=True)
+        lap("http")
         bulk, bulk_launches = bulk_path(d)
         launches.update(bulk_launches)
         print(json.dumps({"card": card, "bulk": bulk}), flush=True)
+        lap("bulk")
+        mesh, mesh_launches = mesh_path(d, card)
+        launches.update(mesh_launches)
+        print(json.dumps({"card": card, "mesh": mesh}), flush=True)
+        lap("mesh")
 
     # The tall path, in a data directory of its own.
     from pilosa_tpu_torch.executor import Executor
@@ -3234,6 +3887,8 @@ def main() -> int:
         del ex2, ex2_ref
         torch.cuda.empty_cache()
 
+    lap("tall")
+    print(json.dumps({"card": card, "phase_s": phase_s}), flush=True)
     missing = [k for k, path in PATH_OF.items() if launches[path][k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing} ({launches})")

@@ -135,19 +135,117 @@ def cmd_server(args) -> int:
     return 0
 
 
-# -- lockstep (multi-device serving; no reference analog — the reference's
+# -- lockstep (multi-GPU serving; no reference analog — the reference's
 # only multi-node mode is the coordinator-style cluster) ---------------------
 
+def _lockstep_device(engine: str) -> str:
+    """The rank's device from the [server] engine: the card for "auto",
+    "torch" and "mesh", the host for "torch:cpu" and "mesh:cpu"."""
+    if engine in ("auto", "torch", "mesh"):
+        return "cuda"
+    if engine in ("torch:cpu", "mesh:cpu"):
+        return "cpu"
+    raise ValueError(f"lockstep: engine {engine!r} has no device (use auto, torch or torch:cpu)")
+
+
 def cmd_lockstep(args) -> int:
-    """Serve queries SPMD-lockstep over a multi-process job: not ported
-    yet.  The port's multi-GPU layer (``parallel/``: a torch.distributed
-    process group, the sharded kernels and the lockstep service) is
-    ROADMAP Queue 1.6."""
-    raise NotImplementedError(
-        "lockstep is not ported to pilosa_tpu_torch yet (ROADMAP Queue 1.6: "
-        "parallel/multihost.py, parallel/service.py over torch.distributed); "
-        "use `server` on one GPU"
+    """Serve queries SPMD-lockstep over a torch.distributed job.
+
+    Run the SAME command on every process of the job (one per GPU; give
+    the coordinator address, the job size and each process's rank); rank
+    0 serves HTTP and the control plane, other ranks replay.  The engine
+    config picks the device: the card by default, the host over gloo
+    with ``engine = "torch:cpu"`` (``PILOSA_ENGINE``).  At exit every
+    rank prints one JSON line: its rank, the requests it shipped (rank
+    0), its kernel launches and collectives, and its holder's digest.
+    """
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.parallel.multihost import init_multihost
+    from pilosa_tpu_torch.parallel.service import LockstepService
+
+    cfg = _load_config(args)
+    device = init_multihost(
+        coordinator=args.coordinator,
+        num_processes=args.num_processes,
+        process_id=args.process_id,
+        local_device_count=args.local_devices,
+        device=_lockstep_device(cfg.engine),
     )
+    holder = Holder(cfg.data_dir, ranking_debounce_s=cfg.ranking_debounce_s)
+    holder.open()
+    host, _, port = cfg.host.partition(":")
+    ctrl_host, _, ctrl_port = args.control.partition(":")
+    # [replica] group: this job's serving-group identity behind the
+    # replica router ("name" or "name@epoch"; flag > env/TOML).
+    from pilosa_tpu_torch.replica import parse_group
+
+    gname, gepoch = parse_group(getattr(args, "group", None) or cfg.replica_group)
+    svc = LockstepService(
+        holder,
+        control_addr=(ctrl_host or "127.0.0.1", int(ctrl_port)),
+        http_addr=(host or "127.0.0.1", int(port or 10101)),
+        ack_timeout=cfg.lockstep_ack_timeout,
+        connect_timeout=cfg.lockstep_connect_timeout,
+        queue_depth=cfg.lockstep_queue_depth,
+        default_deadline_ms=cfg.default_deadline_ms,
+        # [qcache] wiring: the service forces min-cost-ms to 0 itself
+        # (wall-clock admission is rank-local; lockstep hit/miss must be
+        # a pure function of replicated state).
+        qcache_enabled=cfg.qcache_enabled,
+        qcache_max_bytes=cfg.qcache_max_bytes,
+        # [trace] wiring: rank 0 decides sampling at ship time and
+        # records spans; workers only read the replicated wire flag.
+        trace_sample_rate=cfg.trace_sample_rate,
+        trace_slow_ms=cfg.trace_slow_ms,
+        group=gname,
+        group_epoch=gepoch,
+        # [bulk] wiring: rank 0 decodes chunks, every rank rebuilds
+        # planes from the replicated pairs; the budget shapes each
+        # rank's lazy-materialization drain.
+        bulk_batch_slices=cfg.bulk_batch_slices,
+        bulk_materialize_budget_ms=cfg.bulk_materialize_budget_ms,
+        # [tenancy] wiring: rank 0 resolves each request's tenant once
+        # at ship time (header > this map > index name) and ships it on
+        # the batch entry like the expiry/trace flags.
+        tenancy_map=cfg.tenancy_map,
+        device=device,
+    )
+    if svc.rank == 0:
+        print(
+            f"pilosa-tpu lockstep rank 0: http on {cfg.host}, "
+            f"control on {args.control}, {svc.n_ranks} ranks on {svc.engine.device}",
+            flush=True,
+        )
+    else:
+        print(f"pilosa-tpu lockstep rank {svc.rank}: replaying from {args.control} "
+              f"on {svc.engine.device}", flush=True)
+    import json
+
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.replica.digest import holder_digest
+
+    digest = None
+    try:
+        svc.serve_forever()
+    except KeyboardInterrupt:
+        if svc.rank == 0:
+            svc.shutdown()
+    finally:
+        try:
+            # The rank's content digest as it stops: equal on every rank
+            # of a job that replayed the same total order.
+            digest = holder_digest(holder)["digest"]
+        finally:
+            holder.close()
+    print(json.dumps({
+        "lockstep_rank": svc.rank, "ranks": svc.n_ranks, "device": str(svc.engine.device),
+        "batches": svc.stat_batches, "requests": svc.stat_requests,
+        "launches": {k: n for k, n in kernels.LAUNCHES.items() if n},
+        "collectives": svc.engine.mesh.stat_collectives,
+        "digest": digest,
+        "batch_log": svc.batch_log,
+    }), flush=True)
+    return 0
 
 
 # -- replica-router (replicated serving groups; no reference analog — the
@@ -495,7 +593,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     s = sub.add_parser(
         "lockstep",
-        help="serve queries SPMD-lockstep over a multi-process job (not ported yet: ROADMAP Queue 1.6)",
+        help="serve queries SPMD-lockstep over a torch.distributed job (run on every rank)",
     )
     s.add_argument("--data-dir", help="holder data directory (identical data on every rank)")
     s.add_argument("--host", help="rank-0 HTTP bind host:port")
@@ -503,7 +601,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--coordinator", help="process-group coordinator host:port")
     s.add_argument("--num-processes", type=int, help="job size (with --coordinator)")
     s.add_argument("--process-id", type=int, help="this rank (with --coordinator)")
-    s.add_argument("--local-devices", type=int, help="virtual CPU devices per process (dev rigs)")
+    s.add_argument("--local-devices", type=int,
+                   help="cards the ranks of one host spread over (default: all); rank k takes card k %% N")
     s.add_argument(
         "--group",
         help="replica serving-group identity for this job: name[@epoch] "

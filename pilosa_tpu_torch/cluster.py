@@ -8,9 +8,9 @@ Reference analog: cluster.go.  Placement is kept bit-for-bit compatible
 - partition → nodes: jump consistent hash picks the primary, ReplicaN
   consecutive ring nodes replicate it (cluster.go:220-240, 266-277).
 
-This layer routes *across hosts*; within one host the slice batch is
-one device dispatch (multi-GPU sharding is ROADMAP Queue 1.6) instead of
-hash-routed.
+This layer routes *across hosts*; within one job the slice batch is one
+device dispatch per rank (parallel/: a torch.distributed job shards the
+slice axis over its GPUs) instead of hash-routed.
 """
 
 from __future__ import annotations

@@ -51,6 +51,8 @@ class Config:
     # "auto" or "torch": TorchEngine on the CUDA card (raises without
     # one); "numpy": the host engine; "torch:cpu": TorchEngine on the CPU
     # (the kernels' plain versions — for tests).  Anything else raises.
+    # `lockstep` takes its ranks' device from it: the card, or the host
+    # (gloo) for "torch:cpu".
     engine: str = "auto"
     # "expvar" (default; served at /debug/vars), "statsd[:host[:port]]"
     # (datadog-compatible UDP), "nop" to disable (stats.go:33-54 analog).

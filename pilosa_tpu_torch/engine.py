@@ -10,19 +10,26 @@ where that matrix lives:
   ops/dispatch.py); on ``cpu`` their plain PyTorch versions.  This is the
   production path: one device dispatch per query stage for *all* local
   slices.
+- `MeshEngine` — the TorchEngine of one rank of a multi-GPU job: the
+  slice axis of every stack is split over the ranks of a
+  ``torch.distributed`` process group, each rank runs the kernels on its
+  block, and a collective merges (parallel/).
 - `NumpyEngine` — pure numpy; the reference the tests and the card's
   smoke run hold the torch engine against.
 
-Both satisfy the same small protocol; results surface as numpy (counts
+All satisfy the same small protocol; results surface as numpy (counts
 as int64, words as uint32).
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from pilosa_tpu_torch.ops import bitwise, dispatch, kernels
+from pilosa_tpu_torch.parallel.sharded import SliceMesh, _local
 from pilosa_tpu_torch.roaring import _POPCNT8
 
 # Pair-op table for the numpy engine (numpy operators; kept apart from
@@ -613,14 +620,279 @@ class TorchEngine:
         return out
 
 
+class SliceShard(torch.Tensor):
+    """A tensor whose axis 0 is this rank's contiguous block of a
+    slice-sharded stack (``MeshEngine``): the global stack has
+    ``shape[0] * n`` slices over the mesh's ``n`` ranks, and this rank
+    holds ``[rank * shape[0], (rank + 1) * shape[0])``.  The type rides
+    every torch op (views, clones, concatenations keep it), so a
+    matrix the executor slices (``m[:, :bucket]``) stays known as a
+    shard; the engine strips it before any kernel or collective."""
+
+
+class MeshEngine(TorchEngine):
+    """TorchEngine whose slice stacks are sharded over a job of ranks.
+
+    One process drives one GPU.  Every rank holds the same holder and
+    executes the same requests in the same order (the lockstep service);
+    the leading (slice) axis of every stack and row matrix is split into
+    contiguous blocks, one per rank (``parallel.sharded.SliceMesh``), so
+    each rank uploads and computes only its block with the port's
+    hand-written kernels, and a collective merges: all_reduce for counts
+    and the Gram, all_gather for per-slice results and host fetches —
+    the multi-GPU analog of the reference's goroutine-per-slice fan-out
+    (executor.go:1209-1244).
+
+    A stack whose slice axis does not divide evenly over the ranks (or
+    has fewer than 2 slices) is replicated instead: every rank computes
+    it whole, with no collective.  Every choice between the two reads
+    shapes only, so all ranks make it alike and reach every collective
+    in the same order.  On a CUDA device each kernel runs or raises; on
+    the CPU (gloo ranks, the tests) the plain versions run, as
+    everywhere else in the port.
+    """
+
+    name = "mesh"
+    # Meshes shard the SLICE axis; a row-major layout would shard rows
+    # instead — streaming transients stay slice-major.
+    supports_row_major_gather = False
+    supports_row_scorer = True
+    # TopN scoring always goes through the executor's all-slice scorer;
+    # single-slice launches index one slice of a matrix, which only a
+    # job of one rank holds whole.
+    row_scorer_all_slices = True
+
+    def __init__(self, mesh=None, device=None, timing: bool = False):
+        """``mesh``: the rank's ``SliceMesh`` (default: one over the
+        initialized process group on ``device``, with ``timing``)."""
+        if mesh is None:
+            mesh = SliceMesh(device=device, timing=timing)
+        super().__init__(mesh.device)
+        self.mesh = mesh
+        self.timing = mesh.timing
+        # Telemetry (never read back into a decision): with the mesh's
+        # ``timing``, the local step's wall time between device
+        # synchronizations; the collectives' are the mesh's.
+        self.stat_local_s = 0.0
+
+    @property
+    def supports_single_slice_score(self) -> bool:
+        return self.mesh.n_devices == 1
+
+    def prefer_rowmajor(self, n_rows, n_slices, words, n_pairs, max_k) -> bool:
+        return False
+
+    # -- shards ------------------------------------------------------------
+
+    def _span(self, local_slices: int) -> tuple[int, int]:
+        lo = self.mesh.rank * local_slices
+        return lo, lo + local_slices
+
+    def _shards(self, n_slices: int, ndim: int) -> bool:
+        """Whether a stack of ``n_slices`` slices is sharded (else
+        replicated): the reference's rule, a slice axis of 2 or more that
+        divides evenly over the ranks."""
+        return ndim >= 2 and n_slices >= 2 and n_slices % self.mesh.n_devices == 0
+
+    def _shard_stack(self, x):
+        """Upload (host array) or cut (device tensor) this rank's block of
+        a slice stack, or the whole stack where it does not shard."""
+        if not self._shards(x.shape[0], x.ndim):
+            return self._up(x) if isinstance(x, np.ndarray) else x
+        per = x.shape[0] // self.mesh.n_devices
+        lo, hi = self._span(per)
+        if isinstance(x, np.ndarray):
+            t = self._up(x[lo:hi])
+        else:
+            t = _local(x)[lo:hi].contiguous()
+        return t.as_subclass(SliceShard)
+
+    def _block(self, shard, host):
+        """The rows of a host array that span the whole slice axis which
+        fall in ``shard``'s block."""
+        lo, hi = self._span(shard.shape[0])
+        return host[lo:hi]
+
+    def _local_sel(self, shard, slice_idxs):
+        """(positions into ``slice_idxs``, local slice indices) of the
+        global slice indices that fall in ``shard``'s block."""
+        lo, hi = self._span(shard.shape[0])
+        pos = [i for i, s in enumerate(slice_idxs) if lo <= int(s) < hi]
+        return pos, [int(slice_idxs[i]) - lo for i in pos]
+
+    def _timed(self, fn):
+        """Run the local step; with ``timing``, between synchronizations."""
+        if not self.timing:
+            return fn()
+        sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        self.stat_local_s += time.perf_counter() - t0
+        return out
+
+    # -- host <-> device ---------------------------------------------------
+
+    def to_numpy(self, x) -> np.ndarray:
+        if isinstance(x, SliceShard):
+            x = self.mesh.all_gather_cat(_local(x))
+        return super().to_numpy(x)
+
+    def stack(self, rows: list):
+        return self.stack_slices(rows)
+
+    def stack_slices(self, stacks: list):
+        n = len(stacks)
+        if not stacks or not self._shards(n, 2):
+            return super().stack(stacks)
+        lo, hi = self._span(n // self.mesh.n_devices)
+        return super().stack(stacks[lo:hi]).as_subclass(SliceShard)
+
+    def matrix(self, host_matrix: np.ndarray):
+        """One transfer of this rank's block of an [S, R, W] row matrix."""
+        return self._shard_stack(host_matrix)
+
+    # -- elementwise + counts ----------------------------------------------
+
+    def _align(self, a, b):
+        """Operands of an elementwise op: a replicated whole stack beside
+        a shard is cut to the shard's block."""
+        sa, sb = isinstance(a, SliceShard), isinstance(b, SliceShard)
+        if sa and not sb and b.dim() >= 2:
+            b = self._block(a, b)
+        elif sb and not sa and a.dim() >= 2:
+            a = self._block(b, a)
+        return a, b
+
+    def bit_and(self, a, b):
+        a, b = self._align(a, b)
+        return a & b
+
+    def bit_or(self, a, b):
+        a, b = self._align(a, b)
+        return a | b
+
+    def bit_xor(self, a, b):
+        a, b = self._align(a, b)
+        return a ^ b
+
+    def bit_andnot(self, a, b):
+        a, b = self._align(a, b)
+        return a & ~b
+
+    def count(self, batch) -> np.ndarray:
+        """Per-slice popcounts: ``count_rows`` on the block, all_gather."""
+        if not isinstance(batch, SliceShard):
+            return super().count(batch)
+        local = self._timed(lambda: dispatch.count(_local(batch)))
+        return self._counts(self.mesh.all_gather_cat(local))
+
+    def batch_intersection_count(self, rows, src, tiled: bool = False) -> np.ndarray:
+        # Single-slice scoring: only a job of one rank takes this path.
+        return super().batch_intersection_count(_local(rows), _local(src), tiled)
+
+    # -- fused counts --------------------------------------------------------
+
+    def gather_count_dev(self, op: str, row_matrix, pairs):
+        if not isinstance(row_matrix, SliceShard):
+            return super().gather_count_dev(op, row_matrix, pairs)
+        local = self._timed(lambda: dispatch.gather_count(op, _local(row_matrix).contiguous(), pairs))
+        return self.mesh.all_reduce_sum(local.long())
+
+    def gather_count_multi_dev(self, op: str, row_matrix, idx):
+        if not isinstance(row_matrix, SliceShard):
+            return super().gather_count_multi_dev(op, row_matrix, idx)
+        local = self._timed(
+            lambda: dispatch.gather_count_multi(op, _local(row_matrix).contiguous(), idx))
+        return self.mesh.all_reduce_sum(local.long())
+
+    def gather_count_tree_dev(self, row_matrix, leaves, opc):
+        if not isinstance(row_matrix, SliceShard):
+            return super().gather_count_tree_dev(row_matrix, leaves, opc)
+        local = self._timed(
+            lambda: dispatch.gather_count_tree(_local(row_matrix).contiguous(), leaves, opc))
+        return self.mesh.all_reduce_sum(local.long())
+
+    # -- TopN candidate scoring ---------------------------------------------
+
+    def prepare_topn_src(self, src_stack: np.ndarray):
+        return self._shard_stack(np.ascontiguousarray(src_stack))
+
+    def topn_scorer_counts(self, matrix, pos, src_dev) -> np.ndarray:
+        """int64[S, K] candidate counts: ``gather_src_counts`` on the
+        block, all_gather over the slice axis."""
+        if not isinstance(matrix, SliceShard):
+            return super().topn_scorer_counts(matrix, pos, _local(src_dev))
+        local = self._timed(
+            lambda: dispatch.topn_scorer_counts(_local(matrix), pos, _local(src_dev)))
+        return self._counts(self.mesh.all_gather_cat(local))
+
+    # -- all-pairs Gram -------------------------------------------------------
+
+    def pair_gram(self, matrix):
+        """``kernels.pair_gram`` on the block (its int32 counts widened to
+        int64 on the card), then an all_reduce of the int64 [R, R]: no
+        per-pair sum can overflow at any slice count."""
+        if not isinstance(matrix, SliceShard):
+            return super().pair_gram(matrix)
+        local = self._timed(lambda: kernels.pair_gram(_local(matrix)))
+        return np.ascontiguousarray(self.mesh.all_reduce_sum(local.long()).cpu().numpy())
+
+    def gram_update_rows(self, matrix, gram, slots, old_matrix=None, slice_idxs=None):
+        # No restricted-slice delta on meshes: a subset of the slice axis
+        # does not split evenly over the ranks.  The full recompute is
+        # one sharded pair batch on every rank.
+        return super().gram_update_rows(matrix, gram, slots)
+
+    # -- storage updates (copy-on-write) -------------------------------------
+
+    def update_slices(self, matrix, slice_idxs, planes):
+        if not isinstance(matrix, SliceShard):
+            return super().update_slices(matrix, slice_idxs, planes)
+        pos, local = self._local_sel(matrix, slice_idxs)
+        if not pos:
+            return matrix
+        return super().update_slices(matrix, local, np.asarray(planes)[pos])
+
+    def set_plane_rows(self, matrix, slice_idxs, slots, block):
+        if not isinstance(matrix, SliceShard):
+            return super().set_plane_rows(matrix, slice_idxs, slots, block)
+        pos, local = self._local_sel(matrix, slice_idxs)
+        if not pos:
+            return matrix
+        return super().set_plane_rows(matrix, local, slots, np.asarray(block)[pos])
+
+    def set_rows_at(self, matrix, slots, block):
+        if isinstance(matrix, SliceShard):
+            block = self._block(matrix, block)
+        return super().set_rows_at(matrix, slots, block)
+
+    def set_rows(self, matrix, row_start: int, block):
+        if isinstance(matrix, SliceShard):
+            block = self._block(matrix, block)
+        return super().set_rows(matrix, row_start, block)
+
+    def append_rows(self, matrix, block):
+        if isinstance(matrix, SliceShard):
+            block = self._block(matrix, block)
+        return super().append_rows(matrix, block)
+
+
 def new_engine(name: str = "auto"):
     """Engine factory: "torch" and "auto" are ``TorchEngine("cuda")`` (which
-    raises without CUDA), "numpy" the host engine, and "torch:cpu" the
-    torch engine on the CPU (plain versions; only when asked for)."""
+    raises without CUDA), "mesh" a ``MeshEngine`` on the card over the
+    initialized process group (a job of one without one), "numpy" the
+    host engine, and "torch:cpu" / "mesh:cpu" the torch engines on the
+    CPU (plain versions; only when asked for)."""
     if name in ("auto", "torch"):
         return TorchEngine("cuda")
     if name == "torch:cpu":
         return TorchEngine("cpu")
+    if name == "mesh":
+        return MeshEngine(device="cuda")
+    if name == "mesh:cpu":
+        return MeshEngine(device="cpu")
     if name == "numpy":
         return NumpyEngine()
     raise ValueError(f"unknown engine: {name!r}")

@@ -20,10 +20,10 @@ Pieces:
   serve-state machinery read-your-writes correct with zero new
   invalidation traffic.
 - :mod:`pilosa_tpu_torch.replica.mesh` — device-mesh construction for the
-  group's device plane: 2-D ``(slice, replica)`` via
-  ``mesh_utils.create_hybrid_device_mesh`` when multihost (replica axis
-  on DCN, slice collectives on ICI) with a flat single-process fallback
-  so CPU/test environments run the same code.
+  group's device plane: 2-D ``(slice, replica)`` over the ranks of a
+  ``torch.distributed`` job, one replica group per host when the job
+  spans hosts, with a flat layout for a job on one host, so CPU/test
+  environments run the same code.
 
 GROUP IDENTITY: every serving group carries a ``group`` name and an
 integer ``group epoch`` (bumped on each job restart).  The identity

@@ -4,8 +4,9 @@
 Checked twice: statically (every import statement in the sources, by AST
 scan) and dynamically (a fresh interpreter imports every module of the
 port and ``chip_smoke``; none of the modules that import adds to
-``sys.modules`` may be ``jax`` or ``pilosa_tpu``).  Also: the default
-engine raises without CUDA, and ``chip_smoke.py`` exits non-zero without
+``sys.modules`` may be ``jax`` or ``pilosa_tpu``; ``pilosa_tpu_torch.parallel``
+is also imported alone).  Also: the default and the mesh engines raise
+without CUDA, and ``chip_smoke.py`` exits non-zero without
 a card, printing no result line.
 """
 
@@ -77,9 +78,36 @@ def test_importing_the_port_loads_no_jax_or_reference_module():
     assert "pilosa_tpu_torch.executor" in new and "chip_smoke" in new
     for m in ("server", "server.server", "server.handler", "cli", "cli.main", "planner",
               "costs", "trace", "ingest", "config", "qos", "tenancy", "wire", "replica.catchup",
-              "ops.diffcheck"):
+              "ops.diffcheck", "parallel", "parallel.sharded", "parallel.multihost",
+              "parallel.service", "replica.mesh", "replica.digest"):
         assert f"pilosa_tpu_torch.{m}" in new, m
     assert not [m for m in new if _forbidden(m)]
+
+
+def test_importing_parallel_loads_no_jax():
+    """``import pilosa_tpu_torch.parallel`` alone (the meshes, the
+    compositions, init_multihost) loads no JAX and no reference module,
+    and leaves the lockstep service (the whole server stack) unloaded
+    until ``LockstepService`` is asked for."""
+    code = textwrap.dedent(
+        """
+        import json, sys
+        import pilosa_tpu_torch.parallel as par
+        first = sorted(sys.modules)
+        par.LockstepService
+        print(json.dumps([first, sorted(sys.modules)]))
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    first, after = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "pilosa_tpu_torch.parallel.sharded" in first
+    assert "pilosa_tpu_torch.parallel.service" not in first
+    assert "pilosa_tpu_torch.parallel.service" in after
+    assert not [m for m in after if _forbidden(m)]
 
 
 def test_auto_engine_raises_without_cuda():
@@ -90,7 +118,7 @@ def test_auto_engine_raises_without_cuda():
     if torch.cuda.is_available():
         assert new_engine("auto").device.type == "cuda"
     else:
-        for name in ("auto", "torch"):
+        for name in ("auto", "torch", "mesh"):
             with pytest.raises(RuntimeError, match="is_available"):
                 new_engine(name)
 

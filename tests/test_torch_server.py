@@ -168,9 +168,16 @@ def test_server_needs_cuda_by_default(tmp_path):
 
 
 def test_engine_setting_rejects_other_names(tmp_path):
-    for name in ("jax", "mesh", "cuda"):
+    for name in ("jax", "cuda"):
         with pytest.raises(ValueError, match="unknown engine"):
             Server(Config(data_dir=str(tmp_path / name), engine=name))
+    # "mesh" is an engine since the multi-GPU slice (MeshEngine on the
+    # card): without CUDA it raises like "torch" does.
+    import torch
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            Server(Config(data_dir=str(tmp_path / "mesh"), engine="mesh"))
 
 
 def test_cli_server_subprocess_answers(tmp_path):
@@ -245,8 +252,10 @@ def test_cli_subcommands_match_jax(servers, tmp_path, capsys, cmd):
 def test_cli_lockstep_names_its_queue(capsys):
     from pilosa_tpu_torch.cli.main import main
 
+    # Ported: without the job's coordinator, size and rank it refuses
+    # before touching a device or the data directory.
     assert main(["lockstep", "--data-dir", "x"]) == 1
-    assert "ROADMAP Queue 1.6" in capsys.readouterr().err
+    assert "give coordinator" in capsys.readouterr().err
 
 
 def test_profile_routes_write_a_chrome_trace(tmp_path):
