@@ -117,7 +117,8 @@
    bytes.  A chunk's time is split into its steps, each timed inside
    the server on every chunk it applies (a "bulk" line).
 8. The mesh phase (``pilosa_tpu_torch.parallel``), after the bulk path, on
-   the same data directory plus an empty frame ``fm``: first one NCCL
+   a copy of the first MESH_SLICES (16) slices of the same data
+   directory's f and t plus an empty frame ``fm``: first one NCCL
    rank of world size 1 in this process, ``Executor(holder,
    engine=MeshEngine(...))`` beside the single-GPU executor on the same
    holder — a no-Gram gather batch, a cold and a warm pair batch
@@ -126,12 +127,12 @@
    with a src, the collective self-check (every sharded composition,
    ``topn_counts`` among them) and a bulk load of 8 chunks of 131,072
    pairs through the MeshEngine; every answer equals the single-GPU
-   executor's and the numpy engine's (a seeded subset; the TopN equals
-   the executor path's numpy-checked answer), and each kernel of the
+   executor's and the numpy engine's (a seeded subset; the TopN, whose
+   numpy answer is over 64 slices, the single-GPU one), and each kernel of the
    mesh path launches.  Then two ranks on the one card over gloo,
    started as ``python -m pilosa_tpu_torch.cli lockstep`` starts them,
-   each over its own copy of the data directory (``int32[32, 256,
-   32768]`` a rank): the same requests through rank 0's HTTP door
+   each over its own copy of that directory (``int32[8, 256, 32768]`` a
+   rank): the same requests through rank 0's HTTP door
    (answers equal to the single-GPU path's), ``POST /debug/mesh-check``,
    a SetBit and a Count, and the bulk load through ``/bulk``; SIGINT
    shuts the job down, each rank's exit line gives its launches, its
@@ -141,13 +142,45 @@
    handed a kernel is held exactly against the kernel's plain version at
    the two-rank shard's shape, [32, R, W].  Two ranks on one card
    measure no multi-GPU speed.
-9. Fails unless every kernel's launch counter moved during its path: the
+9. The fleet phase (``pilosa_tpu_torch.replica``), after the mesh phase,
+   on the same data directory cut to f and t's standard and January
+   views (``FLEET_T_VIEWS``): three replica groups
+   g0, g1 and g2, each a port ``Server`` in this process (default
+   config, engine on the card, the query cache off as the reference's
+   group workers run) over its own copy, behind ``python -m
+   pilosa_tpu_torch.cli replica-router`` with a durable WAL in a process
+   of its own.  Reads through the router (a cold and a warm pair batch,
+   the N-ary, nested and range-wide batches and the TopN, each sent
+   twice, spread by the router's round robin) equal one another and the
+   numpy engine's on a seeded subset, and each group serves reads that
+   launch kernels (its ``X-Pilosa-Group``
+   header; the launch counters read around each request); the warm ones
+   also go straight to g0's door.  Writes: a SetBit burst over every
+   slice, a Count from each group (read-your-writes), and a bulk load of
+   8 x 131,072 pairs through the router's ``/bulk`` that every group
+   builds on the card.  Catch-up: g2 closes, a burst commits on two of
+   three, g2 returns on its directory and the router replays the missed
+   suffix.  Resync: g2 returns on an empty directory and the router
+   streams it every fragment of every frame from a donor; a cold pair
+   batch and the TopN straight to its door equal the answers; where
+   pyarrow imports, the router restarts on its WAL with the columnar
+   lane on and a second blank resync builds g2's standard views with
+   ``build_planes``.  After each, the three ``/replica/digest`` bodies
+   are equal.  Last, a second router partitions the slices over g0 and
+   g1 (``--shard-map``): SetBits through it land on their slice's owner
+   only, and pair and N-ary batches over them merge to the numpy
+   engine's answers.  Every kernel of the fleet path must launch.  A
+   "fleet" line gives each read's router and direct ms, the serving
+   groups, launches, the catch-up's records and ms, the resyncs' bytes,
+   ms and MB/s, the WAL's bytes and the digests.
+10. Fails unless every kernel's launch counter moved during its path: the
    counters are set to 0 just before each path and read just after it.
 
 Prints a ptxas line, a tree-checks and two staged-checks lines,
 ``{"card": ..., "layout" / "tree_gate" / "multi_paths" / "multi_tilings" /
 "multi_gate" / "gather2_paths" / "tree_paths": [...]}`` lines, a ``{"card": ..., "bulk": {...}}``
-line, ``{"card": ..., "mesh_nccl": {...}}`` and ``{"card": ..., "mesh": {...}}`` lines, a ``{"card": ..., "requests": [...]}`` line
+line, ``{"card": ..., "mesh_nccl": {...}}``, ``{"card": ..., "mesh": {...}}`` and ``{"card": ..., "fleet": {...}}``
+lines, a ``{"card": ..., "requests": [...]}`` line
 per path, a ``{"kernels": [...]}`` line, and last ``{"ok": true,
 "device": {...}}``.  Any failure raises.
 
@@ -189,6 +222,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 from datetime import datetime
 
@@ -3224,6 +3258,11 @@ MESH_SEED = SEED + 18
 MESH_BULK_FRAME, MESH_WS1_BULK_FRAME = "fm", "fw"
 # The frames the lockstep ranks' copies of the data directory hold.
 MESH_FRAMES = ("f", "t", MESH_BULK_FRAME)
+# The mesh phase's depth: its holder (the NCCL rank's, the single-GPU
+# reference's and the ranks' copies) keeps f's and t's first 16 of the
+# 64 slices, int32[8, 256, 32768] a rank, so that the fleet phase after
+# it fits the script's time; every width is the paths' own.
+MESH_SLICES = 16
 MESH_BULK_CHUNKS, MESH_BULK_ROWS = 8, 64
 # The gather batch names 16 distinct rows: its fresh pool holds 16, two
 # per pair, so dispatch takes the gather kernel.
@@ -3306,11 +3345,11 @@ def mesh_requests(n_rows: int, time_rows: int) -> list:
     ]
 
 
-def mesh_bulk_pairs() -> tuple[np.ndarray, np.ndarray]:
+def mesh_bulk_pairs(n_slices: int = MESH_SLICES) -> tuple[np.ndarray, np.ndarray]:
     rng = np.random.default_rng(MESH_SEED + 1)
     n = MESH_BULK_CHUNKS * BULK_CHUNK
     return (rng.integers(0, MESH_BULK_ROWS, size=n).astype(np.uint64),
-            rng.integers(0, N_SLICES * SLICE_WIDTH, size=n).astype(np.uint64))
+            rng.integers(0, n_slices * SLICE_WIDTH, size=n).astype(np.uint64))
 
 
 def mesh_check_want(h, rows, src) -> dict:
@@ -3340,15 +3379,20 @@ def mesh_check_want(h, rows, src) -> dict:
     }
 
 
-def _check_mesh_answer(name, got, single, calls, ex_ref, rng) -> int:
+def _check_mesh_answer(name, got, single, calls, ex_ref, rng, topn=None) -> int:
     """got (the mesh) == single (the single-GPU executor) in full, and a
     seeded subset of MESH_SUBSET queries == the numpy engine; returns the
-    answers checked against numpy."""
+    answers checked against numpy.  The TopN's numpy answer is ``topn``
+    (the executor path's TOPN_ANSWER over all 64 slices); at the mesh's
+    depth there is none, and the TopN is held to the single-GPU
+    executor's alone."""
     if got != single:
         raise AssertionError(f"mesh {name}: differs from the single-GPU path: {got[:4]} vs {single[:4]}")
     if calls == [TOPN_PQL]:
-        if not TOPN_ANSWER or got != TOPN_ANSWER:
-            raise AssertionError(f"mesh {name}: {got} vs the numpy engine's {TOPN_ANSWER}")
+        if topn is None:
+            return 0
+        if not topn or got != topn:
+            raise AssertionError(f"mesh {name}: {got} vs the numpy engine's {topn}")
         return 1
     if calls[0].startswith("SetBit"):
         # The write already landed on the reference holder (the single-GPU
@@ -3612,7 +3656,7 @@ def mesh_lockstep_path(procs: list, http: int, t_start: float, dirs: list, h,
                         "single_ms": None, "checked": 1})
         # A write and a read of it: replayed on every rank and on h.
         a, b = (int(x) for x in rng.integers(0, N_ROWS, size=2))
-        col = int(rng.integers(0, N_SLICES * SLICE_WIDTH))
+        col = int(rng.integers(0, MESH_SLICES * SLICE_WIDTH))
         run("setbit+count", [f'SetBit(rowID={a}, frame="f", columnID={col})',
                              f"Count(Intersect({_bm(a)}, {_bm(b)}))"])
         # The bulk load through rank 0's door; the single-GPU reference
@@ -3685,11 +3729,11 @@ def mesh_lockstep_path(procs: list, http: int, t_start: float, dirs: list, h,
 
 def check_shard_kernels() -> dict:
     """Every kernel the mesh path launched, held exactly against its plain
-    version at the two-rank shard's shape ([N_SLICES / MESH_RANKS, R, W]
+    version at the two-rank shard's shape ([MESH_SLICES / MESH_RANKS, R, W]
     random words) with each batch the NCCL rank's requests handed it."""
     from pilosa_tpu_torch.ops import dispatch
 
-    s = N_SLICES // MESH_RANKS
+    s = MESH_SLICES // MESH_RANKS
     gen = _gen(MESH_SEED)
     mats: dict = {}
 
@@ -3728,7 +3772,7 @@ def check_shard_kernels() -> dict:
         elif kind == "topn":
             got, want = kernels.topn_counts(mat(r), src), kernels.topn_counts_plain(mat(r), src)
         elif kind == "count":
-            a = _rand_words(gen, (s,) + tuple(r[1:]) if r[0] == N_SLICES else r)
+            a = _rand_words(gen, (s,) + tuple(r[1:]) if r[0] == MESH_SLICES else r)
             got, want = dispatch.count(a), kernels.count_rows_plain(a.reshape(-1, a.shape[-1]))
         elif kind == "count_src":
             a = _rand_words(gen, r)
@@ -3745,11 +3789,12 @@ def check_shard_kernels() -> dict:
 
 
 def mesh_path(d: str, card: str) -> tuple[dict, dict]:
-    """The mesh phase over the paths' data directory ``d``: the NCCL rank
-    in process, then the two-rank lockstep job over copies of ``d``, then
-    the kernels held at the shard's shapes.  The ranks start (imports, the
-    card, the group, the holder) while the NCCL rank runs.  Returns the
-    "mesh" line and the launches by run."""
+    """The mesh phase over the first MESH_SLICES slices of the paths' data
+    directory ``d`` (a copy holding f, t and an empty fm): the NCCL rank
+    in process, then the two-rank lockstep job over copies of it, then
+    the kernels held at the shard's shapes.  The ranks start (imports,
+    the card, the group, the holder) while the NCCL rank runs.  Returns
+    the "mesh" line and the launches by run."""
     import shutil
     from concurrent.futures import ThreadPoolExecutor
 
@@ -3757,24 +3802,28 @@ def mesh_path(d: str, card: str) -> tuple[dict, dict]:
     from pilosa_tpu_torch.core.holder import Holder
 
     t_phase = time.perf_counter()
-    h = Holder(d)
-    h.open()
-    h.index("i").create_frame(MESH_BULK_FRAME, FrameOptions())
-    h.close()
     base = tempfile.mkdtemp(prefix="mesh-", dir=os.path.dirname(d))
+    src = os.path.join(base, "src")
     dirs = [os.path.join(base, f"rank{r}") for r in range(MESH_RANKS)]
-    # The ranks serve the frames the mesh requests read (f, t and the
-    # empty fm), not the bulk path's frames.
+    # The mesh serves the frames its requests read (f, t and the empty
+    # fm), not the bulk path's frames, and their first MESH_SLICES slices.
     idx_dir = os.path.join(d, "i")
 
     def skip(path, names):
-        if os.path.abspath(path) != os.path.abspath(idx_dir):
-            return []
-        return [n for n in names if os.path.isdir(os.path.join(path, n)) and n not in MESH_FRAMES]
+        if os.path.abspath(path) == os.path.abspath(idx_dir):
+            return [n for n in names if os.path.isdir(os.path.join(path, n)) and n not in MESH_FRAMES]
+        if os.path.basename(path) == "fragments":
+            return [n for n in names if int(n.split(".")[0]) >= MESH_SLICES]
+        return []
 
     t = time.perf_counter()
+    shutil.copytree(d, src, ignore=skip)
+    h = Holder(src)
+    h.open()
+    h.index("i").create_frame(MESH_BULK_FRAME, FrameOptions())
+    h.close()
     with ThreadPoolExecutor(len(dirs)) as pool:
-        for f in [pool.submit(shutil.copytree, d, dd, ignore=skip) for dd in dirs]:
+        for f in [pool.submit(shutil.copytree, src, dd) for dd in dirs]:
             f.result()
     copy_s = time.perf_counter() - t
     procs = []
@@ -3782,7 +3831,7 @@ def mesh_path(d: str, card: str) -> tuple[dict, dict]:
         http = _free_port()
         t_start = time.perf_counter()
         procs = _lockstep_ranks(dirs, http)
-        h = Holder(d)
+        h = Holder(src)
         h.open()
         record_mesh_batches()
         t = time.perf_counter()
@@ -3808,7 +3857,583 @@ def mesh_path(d: str, card: str) -> tuple[dict, dict]:
     for r, got in enumerate(rank_launches):
         launches[f"lockstep_rank{r}"] = dict(dict.fromkeys(kernels.KERNELS, 0), **got)
     line = {"nccl_world1": ws1, "lockstep": lock, "shard_checks": shard, "copy_s": copy_s,
-            "s": time.perf_counter() - t_phase}
+            "slices": MESH_SLICES, "s": time.perf_counter() - t_phase}
+    return line, launches
+
+
+# ---------------------------------------------------------------------------
+# the fleet phase: replica groups on the card behind the replica router
+# ---------------------------------------------------------------------------
+
+FLEET_SEED = SEED + 19
+# Three groups: a majority of three is two, so one group down still
+# commits writes and its catch-up is exercised.
+FLEET_GROUPS = 3
+# The frames the groups hold: the HTTP path's f and t (the others of the
+# data directory are dropped first; fb is f's bits through another door,
+# and the fleet's own bulk load drives that door).  Of t's 38 views a
+# slice the groups keep the standard view and January's, which the
+# range-wide batch reads (its spans lie in January): three holders of
+# every view keep 2 x 3 x 2,700 fragment files open, past the card
+# machine's open-file limit, and each blank resync would stream 2,432
+# small fragments of t.
+FLEET_FRAMES = ("f", "t")
+FLEET_T_VIEWS = ("standard", "standard_2017", "standard_201701", "standard_20170101",
+                 "standard_20170115")
+# SetBit bursts go to fl (rows 0..FLEET_WRITE_ROWS-1); the bulk load
+# through the router to fk.
+FLEET_WRITE_FRAME, FLEET_BULK_FRAME = "fl", "fk"
+FLEET_WRITE_ROWS = 8
+FLEET_BURST = 256
+FLEET_BURST_CALLS = 32
+# The partitioned router's frame: SetBits over every slice, in requests
+# of FLEET_SHARD_CALLS.
+FLEET_SHARD_FRAME, FLEET_SHARD_ROWS = "fp", 16
+FLEET_SHARD_BITS, FLEET_SHARD_CALLS = 8192, 512
+# mesh_requests' reads, each sent FLEET_SENDS times through the router;
+# its round robin spreads them over the groups (each group fills its
+# pool once; the second warm pair batch lands on g0, warm: the Gram).
+FLEET_READS = ("pairs cold", "pairs warm", "nary", "tree", "range-wide", "topn")
+FLEET_SENDS = 2
+# Warm reads also sent straight to g0's door: the router's own cost.
+FLEET_DIRECT = ("pairs warm", "nary", "tree", "range-wide")
+# The kernels this phase runs ("yes" in PERF.md's table): each must launch.
+FLEET_KERNELS = ("count_rows", "resident_count2", "gather_src_counts", "gather_count_multi",
+                 "resident_count_multi", "gather_count_tree", "pair_gram", "build_planes")
+# Each wait (a group's readiness, a replay, a resync) and each request.
+FLEET_WAIT_S = 300
+FLEET_REQUEST_S = 300
+# TorchEngine.build_planes calls by engine (id), so a bulk write fanned
+# to every group can be attributed to each.
+FLEET_BUILDS: dict = {}
+
+
+def record_fleet_builds() -> None:
+    from pilosa_tpu_torch.engine import TorchEngine
+
+    fn = TorchEngine.build_planes
+
+    def counted(self, rows, cols):
+        FLEET_BUILDS[id(self)] = FLEET_BUILDS.get(id(self), 0) + 1
+        return fn(self, rows, cols)
+    TorchEngine.build_planes = counted
+
+
+def _fleet_req(base: str, method: str, path: str, body: bytes | None = None,
+               timeout: float = FLEET_REQUEST_S) -> tuple[int, bytes, dict, float]:
+    rq = urllib.request.Request(base + path, data=body, method=method)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(rq, timeout=timeout) as r:
+            out = r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        out = e.code, e.read(), dict(e.headers)
+    return out + ((time.perf_counter() - t0) * 1e3,)
+
+
+def _fleet_query(base: str, pql: str) -> tuple[list, str, float]:
+    """POST one query; (answers as _norm gives them, the serving group, ms)."""
+    st, body, hdrs, ms = _fleet_req(base, "POST", "/index/i/query", pql.encode())
+    if st != 200:
+        raise AssertionError(f"fleet: {base} answered {st}: {body[:300]!r}")
+    got = json.loads(body)["results"]
+    got = [[(p["id"], p["count"]) for p in g] if isinstance(g, list) else g for g in got]
+    return got, hdrs.get("X-Pilosa-Group", ""), ms
+
+
+def _fleet_wait(pred, what: str, timeout: float = FLEET_WAIT_S) -> float:
+    """Poll ``pred`` until true; its seconds.  A stuck step fails the run."""
+    t0 = time.perf_counter()
+    while True:
+        if pred():
+            return time.perf_counter() - t0
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"fleet: {what} not done after {timeout} s")
+        time.sleep(0.1)
+
+
+def _fleet_server(data_dir: str, port: int, group: str):
+    """One group: a port Server with its default config (engine on the
+    card) but the query cache off, as the reference's group workers run
+    (tests/replica_group_worker.py), so repeated reads execute."""
+    from pilosa_tpu_torch.config import Config
+    from pilosa_tpu_torch.server.server import Server
+
+    srv = Server(Config(data_dir=data_dir, host=f"127.0.0.1:{port}", replica_group=group,
+                        qcache_enabled=False))
+    srv.open()
+    eng = srv.executor.engine
+    if eng.name != "torch" or eng.device.type != "cuda":
+        raise AssertionError(f"fleet group {group}: engine {eng.name} on {eng.device}")
+    return srv
+
+
+class _Router:
+    """``python -m pilosa_tpu_torch.cli replica-router`` as a user starts
+    it, in a process of its own; SIGINT stops it."""
+
+    def __init__(self, args: list, log: str, env_extra: dict | None = None):
+        self.port = _free_port()
+        self.base = f"http://127.0.0.1:{self.port}"
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, **(env_extra or {}))
+        env.pop("PILOSA_ENGINE", None)
+        self.log = open(log, "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "pilosa_tpu_torch.cli", "replica-router",
+             "--port", str(self.port), *args],
+            cwd=root, env=env, stdout=self.log, stderr=subprocess.STDOUT, text=True)
+
+    def status(self) -> dict:
+        st, body, _, _ = _fleet_req(self.base, "GET", "/replica/status", timeout=30)
+        if st != 200:
+            raise AssertionError(f"router status {st}")
+        return json.loads(body)
+
+    def stats(self) -> dict:
+        return json.loads(_fleet_req(self.base, "GET", "/debug/vars", timeout=30)[1])
+
+    def group(self, name: str) -> dict:
+        return next(g for g in self.status()["groups"] if g["name"] == name)
+
+    def ready(self, name: str, epoch: str = "") -> bool:
+        g = self.group(name)
+        return (g["healthy"] and g["caughtUp"] and not g["stale"]
+                and (not epoch or g["epoch"] == epoch))
+
+    def wait_up(self, n_groups: int) -> float:
+        def up():
+            if self.proc.poll() is not None:
+                raise AssertionError(f"router exited: {self.tail()}")
+            try:
+                st = self.status()
+            except OSError:
+                return False
+            return len(st["groups"]) == n_groups and all(g["healthy"] for g in st["groups"])
+        return _fleet_wait(up, "the router's start", timeout=120)
+
+    def tail(self) -> str:
+        self.log.flush()
+        self.log.seek(0)
+        return self.log.read()[-3000:]
+
+    def stop(self) -> None:
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=60)
+        self.log.close()
+
+
+def _digests(servers) -> list[dict]:
+    """Each group's ``/replica/digest`` body (its holder's digest), the
+    groups side by side."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(srv):
+        st, body, _, _ = _fleet_req(f"http://{srv.host}", "GET", "/replica/digest")
+        if st != 200:
+            raise AssertionError(f"digest of {srv.host}: {st}")
+        return json.loads(body)
+    with ThreadPoolExecutor(len(servers)) as pool:
+        return list(pool.map(one, servers))
+
+
+def _equal_digests(servers, what: str) -> tuple[str, float]:
+    t0 = time.perf_counter()
+    ds = _digests(servers)
+    if any(d["digest"] != ds[0]["digest"] or d["fragments"] != ds[0]["fragments"] for d in ds):
+        diff = sorted(k for k in ds[0]["fragments"]
+                      if any(d["fragments"].get(k) != ds[0]["fragments"][k] for d in ds))
+        raise AssertionError(f"fleet {what}: digests differ ({len(diff)} fragments: {diff[:5]})")
+    return ds[0]["digest"], time.perf_counter() - t0
+
+
+def _trim_to_fleet_frames(d: str) -> dict:
+    """Drop the frames of ``d`` the groups do not hold, and t's views but
+    FLEET_T_VIEWS, as ``Index.delete_frame`` does (the directory goes;
+    a holder finds its frames and views by listing them); the dropped
+    names."""
+    import shutil
+
+    idx_dir = os.path.join(d, "i")
+    frames = sorted(n for n in os.listdir(idx_dir) if os.path.isdir(os.path.join(idx_dir, n))
+                    and not n.startswith(".") and n not in FLEET_FRAMES)
+    for name in frames:
+        shutil.rmtree(os.path.join(idx_dir, name))
+    views_dir = os.path.join(d, "i", "t", "views")
+    views = sorted(v for v in os.listdir(views_dir) if v not in FLEET_T_VIEWS)
+    for v in views:
+        shutil.rmtree(os.path.join(views_dir, v))
+    return {"frames": frames, "t_views": len(views)}
+
+
+def _burst(rng, n: int) -> tuple[list, dict]:
+    """``n`` SetBits on fl's rows, spread over every slice, in requests of
+    FLEET_BURST_CALLS; the request bodies and the columns by row."""
+    rows = rng.integers(0, FLEET_WRITE_ROWS, size=n)
+    cols = rng.integers(0, N_SLICES * SLICE_WIDTH, size=n)
+    calls = [f'SetBit(rowID={r}, frame="{FLEET_WRITE_FRAME}", columnID={c})' for r, c in zip(rows, cols)]
+    bodies = [" ".join(calls[i:i + FLEET_BURST_CALLS]) for i in range(0, n, FLEET_BURST_CALLS)]
+    by_row: dict = {}
+    for r, c in zip(rows.tolist(), cols.tolist()):
+        by_row.setdefault(r, set()).add(c)
+    return bodies, by_row
+
+
+def fleet_path(d: str, card: str) -> tuple[dict, dict]:
+    """The fleet phase over the paths' data directory ``d`` (see the module
+    docstring, step 9).  Each read's first answer is held against the
+    numpy engine on a seeded subset (the TopN: the executor path's numpy
+    answer), and every other answer to the same request, through the
+    router or straight to a group's door, equals it in full.  Returns
+    the "fleet" line and the launches by part (a: the reads through the
+    router, b: the writes and their reads, c: catch-up, resync, the
+    resynced group's reads and the partitioned router)."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.server.client import Client
+
+    t_phase = time.perf_counter()
+    line: dict = {"card": card}
+    part_s: dict = {}
+    t_lap = [t_phase]
+
+    def lap(name):
+        now = time.perf_counter()
+        part_s[name] = now - t_lap[0]
+        t_lap[0] = now
+    launches = {k: dict.fromkeys(kernels.KERNELS, 0) for k in ("fleet_a", "fleet_b", "fleet_c")}
+    part = ["fleet_a"]
+
+    def launched(fn):
+        before = dict(kernels.LAUNCHES)
+        out = fn()
+        got = {k: kernels.LAUNCHES[k] - before[k] for k in before if kernels.LAUNCHES[k] > before[k]}
+        for k, n in got.items():
+            launches[part[0]][k] += n
+        return out, got
+
+    line["dropped"] = _trim_to_fleet_frames(d)
+    base_dir = tempfile.mkdtemp(prefix="fleet-", dir=os.path.dirname(d))
+    dirs = [d] + [os.path.join(base_dir, f"g{i}") for i in range(1, FLEET_GROUPS)]
+    t = time.perf_counter()
+    with ThreadPoolExecutor(FLEET_GROUPS - 1) as pool:
+        for f in [pool.submit(shutil.copytree, d, dd) for dd in dirs[1:]]:
+            f.result()
+    line["copy_s"] = time.perf_counter() - t
+    lap("copy")
+    ports = [_free_port() for _ in range(FLEET_GROUPS)]
+    wal_dir = os.path.join(base_dir, "wal")
+    servers: list = []
+    routers: list = []
+    try:
+        t = time.perf_counter()
+        for i in range(FLEET_GROUPS):
+            servers.append(_fleet_server(dirs[i], ports[i], f"g{i}@1"))
+        line["open_s"] = time.perf_counter() - t
+        groups = ",".join(f"g{i}=127.0.0.1:{p}" for i, p in enumerate(ports))
+        router = _Router(["--groups", groups, "--wal-dir", wal_dir, "--probe-interval", "0.2"],
+                         os.path.join(base_dir, "router.log"))
+        routers.append(router)
+        line["router_start_s"] = router.wait_up(FLEET_GROUPS)
+        lap("start")
+        ex_ref = Executor(servers[0].holder, engine="numpy")
+        rng = np.random.default_rng(FLEET_SEED)
+
+        # a. Reads through the router, each kind FLEET_SENDS times.
+        kernels.reset_launches()
+        requests = {name: calls for name, calls, _flavour, _expect in mesh_requests(N_ROWS, TIME_ROWS)}
+        expects = {name: expect for name, _c, _f, expect in mesh_requests(N_ROWS, TIME_ROWS)}
+        reads, served, firsts = [], {}, {}
+        for name in FLEET_READS:
+            calls, pql = requests[name], " ".join(requests[name])
+            rec = {"request": name, "router_ms": [], "groups": [], "launches": []}
+            first = None
+            for _ in range(FLEET_SENDS):
+                (got, grp, ms), got_l = launched(lambda: _fleet_query(router.base, pql))
+                rec["router_ms"].append(ms)
+                rec["groups"].append(grp)
+                rec["launches"].append(got_l)
+                if got_l:
+                    served[grp] = served.get(grp, 0) + 1
+                if first is None:
+                    first = firsts[name] = got
+                    rec["checked"] = _check_mesh_answer(f"fleet {name}", got, got, calls, ex_ref,
+                                                        rng, TOPN_ANSWER)
+                elif got != first:
+                    raise AssertionError(f"fleet {name}: {grp}'s answer differs from the first group's")
+            union = {k for g in rec["launches"] for k in g}
+            missing = [k for k in expects[name] if k not in union]
+            if missing:
+                raise AssertionError(f"fleet {name}: {missing} never launched ({rec['launches']})")
+            if name in FLEET_DIRECT:
+                got, _grp, ms = _fleet_query(f"http://{servers[0].host}", pql)
+                if got != first:
+                    raise AssertionError(f"fleet {name}: g0's door differs from the router's answer")
+                rec["direct_g0_ms"] = ms
+            reads.append(rec)
+        if len(served) != FLEET_GROUPS:
+            raise AssertionError(f"fleet: reads that launched kernels by group: {served}")
+        line["reads"], line["served"] = reads, served
+        lap("reads")
+
+        # b. Writes through the router: a SetBit burst, a Count from each
+        # group (read-your-writes), a bulk load every group builds.
+        part[0] = "fleet_b"
+        t = time.perf_counter()
+        st = _fleet_req(router.base, "POST", f"/index/i/frame/{FLEET_WRITE_FRAME}", b"{}")[0]
+        if st != 200:
+            raise AssertionError(f"fleet: create frame {FLEET_WRITE_FRAME}: {st}")
+        bodies, by_row = _burst(rng, FLEET_BURST)
+        burst_ms = []
+        for body in bodies:
+            (got, grp, ms), _l = launched(lambda: _fleet_query(router.base, body))
+            if grp != "all" or not all(isinstance(x, bool) for x in got):
+                raise AssertionError(f"fleet burst: {grp} {got[:4]}")
+            burst_ms.append(ms)
+        count_pql = " ".join(f'Count(Bitmap(rowID={r}, frame="{FLEET_WRITE_FRAME}"))'
+                             for r in range(FLEET_WRITE_ROWS))
+        want = [len(by_row.get(r, ())) for r in range(FLEET_WRITE_ROWS)]
+        ryw = []
+        for _ in range(FLEET_GROUPS):
+            (got, grp, ms), got_l = launched(lambda: _fleet_query(router.base, count_pql))
+            if got != want:
+                raise AssertionError(f"fleet read-your-writes on {grp}: {got} vs {want}")
+            ryw.append({"group": grp, "ms": ms, "launches": got_l})
+        if len({r["group"] for r in ryw}) != FLEET_GROUPS:
+            raise AssertionError(f"fleet read-your-writes: served by {ryw}")
+        st = _fleet_req(router.base, "POST", f"/index/i/frame/{FLEET_BULK_FRAME}", b"{}")[0]
+        if st != 200:
+            raise AssertionError(f"fleet: create frame {FLEET_BULK_FRAME}: {st}")
+        rows, cols = mesh_bulk_pairs(N_SLICES)
+        builds0 = {id(s.executor.engine): FLEET_BUILDS.get(id(s.executor.engine), 0) for s in servers}
+        t0 = time.perf_counter()
+        out, bulk_l = launched(lambda: Client(router.base[len("http://"):]).bulk_stream(
+            "i", FLEET_BULK_FRAME, rows, cols, chunk_pairs=BULK_CHUNK))
+        bulk_ms = (time.perf_counter() - t0) * 1e3
+        if not out.get("done") or out.get("ops") != len(rows):
+            raise AssertionError(f"fleet bulk: {out}")
+        builds = [FLEET_BUILDS.get(id(s.executor.engine), 0) - builds0[id(s.executor.engine)]
+                  for s in servers]
+        n_chunks = -(-len(rows) // BULK_CHUNK)
+        if builds != [n_chunks] * FLEET_GROUPS or bulk_l.get("build_planes", 0) < FLEET_GROUPS * n_chunks:
+            raise AssertionError(f"fleet bulk: builds by group {builds}, launches {bulk_l}")
+        digest, digest_s = _equal_digests(servers, "after the writes")
+        fk = {k: v for k, v in _digests(servers[:1])[0]["fragments"].items()
+              if k.startswith(f"i/{FLEET_BULK_FRAME}/")}
+        line["writes"] = {"burst_requests_ms": burst_ms, "read_your_writes": ryw,
+                          "bulk": {"pairs": len(rows), "chunks": n_chunks, "ms": bulk_ms,
+                                   "builds_by_group": builds, "launches": bulk_l,
+                                   "fragments": len(fk)},
+                          "digest": digest, "digest_s": digest_s,
+                          "s": time.perf_counter() - t}
+
+        lap("writes")
+
+        # c. Catch-up: g2 misses a burst that commits on two of three,
+        # then returns on its directory and gets the suffix replayed.
+        part[0] = "fleet_c"
+        stats0 = router.stats()
+        servers[2].close()
+        bodies, _by_row = _burst(rng, FLEET_BURST)
+        for body in bodies:
+            st, resp, _h, _ms = _fleet_req(router.base, "POST", "/index/i/query", body.encode())
+            if st != 200:
+                raise AssertionError(f"fleet: a write with g2 down answered {st}: {resp[:200]!r}")
+        t0 = time.perf_counter()
+        servers[2] = _fleet_server(dirs[2], ports[2], "g2@2")
+        open_s = time.perf_counter() - t0
+        try:
+            wait_s = _fleet_wait(lambda: router.ready("g2", "g2@2"), "g2's catch-up")
+        except AssertionError as e:
+            raise AssertionError(f"{e}: {router.group('g2')}\n{router.tail()}") from None
+        stats1 = router.stats()
+        replayed = stats1.get("replica.replayed", 0) - stats0.get("replica.replayed", 0)
+        if replayed < len(bodies):
+            raise AssertionError(f"fleet catch-up: {replayed} records replayed for {len(bodies)} writes")
+        digest, digest_s = _equal_digests(servers, "after the catch-up")
+        line["catchup"] = {"writes": len(bodies), "setbits": FLEET_BURST, "replayed": replayed,
+                           "open_s": open_s, "ms": (open_s + wait_s) * 1e3,
+                           "ready_after_open_ms": wait_s * 1e3, "digest": digest,
+                           "digest_s": digest_s}
+
+        lap("catchup")
+
+        # Resync: g2 returns on an empty directory and is streamed every
+        # fragment of every frame from a donor.
+        def blank_resync(epoch: int, rt) -> dict:
+            s0 = rt.stats()
+            servers[2].close()
+            # Writes g2 misses (and must not lose): the router marks it down.
+            for body in _burst(rng, 2 * FLEET_BURST_CALLS)[0]:
+                if _fleet_req(rt.base, "POST", "/index/i/query", body.encode())[0] != 200:
+                    raise AssertionError("fleet: a write with g2 down failed")
+            blank = os.path.join(base_dir, f"g2-blank{epoch}")
+            os.makedirs(blank)
+            t0 = time.perf_counter()
+            servers[2] = _fleet_server(blank, ports[2], f"g2@{epoch}")
+            open_s = time.perf_counter() - t0
+            eng = servers[2].executor.engine
+            try:
+                wait_s = _fleet_wait(lambda: rt.ready("g2", f"g2@{epoch}"), f"g2@{epoch}'s resync")
+            except AssertionError as e:
+                raise AssertionError(f"{e}: {rt.group('g2')} {rt.stats()}\n{rt.tail()}") from None
+            s1 = rt.stats()
+            moved = {k: s1.get(k, 0) - s0.get(k, 0) for k in
+                     ("replica.resync.g2", "replica.resync_bytes", "replica.resync_fragments",
+                      "replica.resync_columnar", "replica.resync_columnar_fallback")}
+            if moved["replica.resync.g2"] < 1 or moved["replica.resync_bytes"] <= 0:
+                raise AssertionError(f"fleet resync g2@{epoch}: {moved}")
+            digest, digest_s = _equal_digests(servers, f"after g2@{epoch}'s resync")
+            ms = (open_s + wait_s) * 1e3
+            return {"epoch": epoch, "bytes": moved["replica.resync_bytes"], "moved": moved,
+                    "ms": ms, "mb_s": moved["replica.resync_bytes"] / 1e6 / (wait_s or 1e-9),
+                    "builds": FLEET_BUILDS.get(id(eng), 0), "digest": digest, "digest_s": digest_s}
+
+        resync, rs_l = launched(lambda: blank_resync(3, router))
+        lap("resync")
+        resync["launches"] = rs_l
+        # The resynced group serves from the card: a cold pair batch and
+        # the TopN straight to its door.
+        direct = []
+        for name in ("pairs cold", "topn"):
+            calls = requests[name]
+            (got, _grp, ms), got_l = launched(lambda: _fleet_query(f"http://{servers[2].host}",
+                                                                   " ".join(calls)))
+            checked = _check_mesh_answer(f"fleet resynced {name}", got, firsts[name], calls,
+                                         ex_ref, rng, TOPN_ANSWER)
+            if not all(got_l.get(k) for k in expects[name]):
+                raise AssertionError(f"fleet resynced g2 {name}: launches {got_l}")
+            direct.append({"request": name, "ms": ms, "checked": checked, "launches": got_l})
+        resync["reads_on_g2"] = direct
+        line["resync"] = resync
+        lap("resynced_reads")
+
+        # A second blank resync over the columnar lane (Arrow from the
+        # donor, the laggard's /bulk door builds the planes on the card),
+        # where pyarrow imports: the router restarts on its WAL with
+        # replica_resync_columnar on.
+        try:
+            import pyarrow  # noqa: F401
+            have_arrow = True
+        except ImportError:
+            have_arrow = False
+        if have_arrow:
+            router.stop()
+            router = _Router(["--groups", groups, "--wal-dir", wal_dir, "--probe-interval", "0.2"],
+                             os.path.join(base_dir, "router-columnar.log"),
+                             env_extra={"PILOSA_TPU_REPLICA_RESYNC_COLUMNAR": "1"})
+            routers.append(router)
+            router.wait_up(FLEET_GROUPS)
+            col, col_l = launched(lambda: blank_resync(4, router))
+            col["launches"] = col_l
+            if col["moved"]["replica.resync_columnar"] < 1 or col["builds"] < 1 or \
+                    not col_l.get("build_planes"):
+                raise AssertionError(f"fleet columnar resync: {col}")
+            line["resync_columnar"] = col
+        else:
+            line["resync_columnar"] = "not run: pyarrow does not import"
+        lap("resync_columnar")
+        wal_bytes = sum(os.path.getsize(os.path.join(wal_dir, f)) for f in os.listdir(wal_dir))
+        line["wal_bytes"] = wal_bytes
+        line["digests"] = [x["digest"] for x in _digests(servers)]
+        router.stop()
+
+        # Partitioned: a second router over g0 and g1 with a shard map.  A
+        # shard's group answers for the slices it holds, so the sharded
+        # reads go to frame fs, written through the sharded router (each
+        # SetBit lands on its slice's owner only); the same writes go
+        # straight to g2, whose numpy engine gives the answers.
+        split = N_SLICES // 2
+        shard_map = (f"a=0-{split}:g0=127.0.0.1:{ports[0]};"
+                     f"b={split}-:g1=127.0.0.1:{ports[1]}")
+        sharded = _Router(["--shard-map", shard_map, "--probe-interval", "0.2"],
+                          os.path.join(base_dir, "router-sharded.log"))
+        routers.append(sharded)
+        sharded.wait_up(2)
+        s0 = sharded.stats()
+        g2_base = f"http://{servers[2].host}"
+        for base in (sharded.base, g2_base):
+            st = _fleet_req(base, "POST", f"/index/i/frame/{FLEET_SHARD_FRAME}", b"{}")[0]
+            if st != 200:
+                raise AssertionError(f"fleet: create frame {FLEET_SHARD_FRAME} on {base}: {st}")
+        srows = rng.integers(0, FLEET_SHARD_ROWS, size=FLEET_SHARD_BITS)
+        scols = rng.integers(0, N_SLICES * SLICE_WIDTH, size=FLEET_SHARD_BITS)
+        calls = [f'SetBit(rowID={r}, frame="{FLEET_SHARD_FRAME}", columnID={c})'
+                 for r, c in zip(srows, scols)]
+        t0 = time.perf_counter()
+        for i in range(0, len(calls), FLEET_SHARD_CALLS):
+            body = " ".join(calls[i:i + FLEET_SHARD_CALLS])
+            for base in (sharded.base, g2_base):
+                got, _grp, _ms = _fleet_query(base, body)
+                if not all(isinstance(x, bool) for x in got):
+                    raise AssertionError(f"fleet sharded writes on {base}: {got[:4]}")
+        write_ms = (time.perf_counter() - t0) * 1e3
+        ex2 = Executor(servers[2].holder, engine="numpy")
+        bm = lambda r: _bm(r, FLEET_SHARD_FRAME)  # noqa: E731
+        spairs = rng.integers(0, FLEET_SHARD_ROWS, size=(64, 2))
+        sets = rng.integers(0, FLEET_SHARD_ROWS, size=(FLEET_SHARD_ROWS, 4))
+        sreads = {
+            "pairs": [f"Count({PQL_OPS[('and', 'or')[i % 2]]}({bm(a)}, {bm(b)}))"
+                      for i, (a, b) in enumerate(spairs)],
+            "nary": [f"Count({PQL_OPS[('or', 'and')[i % 2]]}({', '.join(bm(r) for r in ids)}))"
+                     for i, ids in enumerate(sets)],
+        }
+        merged = []
+        for name, scalls in sreads.items():
+            (got, grp, ms), got_l = launched(lambda: _fleet_query(sharded.base, " ".join(scalls)))
+            want = _norm(ex2.execute("i", " ".join(scalls)))
+            if got != want or grp != "all":
+                raise AssertionError(f"fleet sharded {name} ({grp}): {got[:4]} vs numpy {want[:4]}")
+            merged.append({"request": name, "ms": ms, "checked": len(want), "launches": got_l})
+        row = FLEET_WRITE_ROWS  # a row no burst wrote
+        for sl in (1, split + 1):
+            pql = f'SetBit(rowID={row}, frame="{FLEET_WRITE_FRAME}", columnID={sl * SLICE_WIDTH + 7})'
+            got, _grp, _ms = _fleet_query(sharded.base, pql)
+            if got != [True]:
+                raise AssertionError(f"fleet sharded SetBit in slice {sl}: {got}")
+        s1 = sharded.stats()
+        shard_stats = {k: s1.get(k, 0) - s0.get(k, 0) for k in s1
+                       if k.startswith("replica.shard.") and isinstance(s1[k], int)}
+        owned = [_fleet_query(f"http://{servers[i].host}",
+                              f'Bitmap(rowID={row}, frame="{FLEET_WRITE_FRAME}")')[0][0]["bits"]
+                 for i in (0, 1)]
+        n_req = -(-len(calls) // FLEET_SHARD_CALLS)
+        # Each shard: the frame's creation, its half of every split burst
+        # request, and its one SetBit.
+        want_writes = {"replica.shard.writes.a": n_req + 2, "replica.shard.writes.b": n_req + 2,
+                       "replica.shard.split_writes": n_req}
+        if any(shard_stats.get(k) != n for k, n in want_writes.items()) or \
+                owned != [[1 * SLICE_WIDTH + 7], [(split + 1) * SLICE_WIDTH + 7]]:
+            raise AssertionError(f"fleet sharded writes: {shard_stats}, bits by group {owned}")
+        line["sharded"] = {"map": shard_map, "setbits": len(calls), "write_ms": write_ms,
+                           "reads": merged, "stats": shard_stats, "bits_by_group": owned}
+        lap("sharded")
+    finally:
+        for rt in routers:
+            rt.stop()
+        for srv in servers:
+            try:
+                srv.close()
+            except Exception:  # noqa: BLE001 — closed already
+                pass
+        shutil.rmtree(base_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    total = {k: sum(launches[p][k] for p in launches) for k in kernels.KERNELS}
+    missing = [k for k in FLEET_KERNELS if not total[k]]
+    if missing:
+        raise AssertionError(f"fleet: kernels never launched: {missing} ({total})")
+    line["launches"] = {p: {k: n for k, n in v.items() if n} for p, v in launches.items()}
+    line["s"] = time.perf_counter() - t_phase
+    line["part_s"] = part_s
     return line, launches
 
 
@@ -3850,6 +4475,7 @@ def main() -> int:
     record_pair_batches()
     record_tree_batches()
     record_bulk_builds()
+    record_fleet_builds()
 
     lap("diffcheck")
     with tempfile.TemporaryDirectory() as d:
@@ -3869,6 +4495,10 @@ def main() -> int:
         launches.update(mesh_launches)
         print(json.dumps({"card": card, "mesh": mesh}), flush=True)
         lap("mesh")
+        fleet, fleet_launches = fleet_path(d, card)
+        launches.update(fleet_launches)
+        print(json.dumps({"card": card, "fleet": fleet}), flush=True)
+        lap("fleet")
 
     # The tall path, in a data directory of its own.
     from pilosa_tpu_torch.executor import Executor

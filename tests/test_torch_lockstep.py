@@ -588,6 +588,92 @@ def test_lockstep_tenant_resolved_on_rank0():
     }, outs
 
 
+def test_replica_router_over_two_lockstep_groups():
+    """Replica serving groups at full depth: TWO 2-rank port lockstep jobs
+    (groups g0/g1, identities via PILOSA_TPU_REPLICA_GROUP) behind one
+    port ReplicaRouter.  Writes through the router fan to BOTH groups
+    (each group replays them on every rank); reads spread across groups
+    and see every acked write; killing one group's WORKER rank degrades
+    that group (its control plane fail-stops), the router fails reads
+    over to the survivor and refuses writes 503 until the set is
+    quorate."""
+    from pilosa_tpu_torch.replica import GROUP_HEADER, ReplicaRouter
+    from pilosa_tpu_torch.stats import ExpvarStatsClient
+
+    g0 = _LockstepJob(2, env_extra={"PILOSA_TPU_REPLICA_GROUP": "g0@1"})
+    g1 = _LockstepJob(2, env_extra={"PILOSA_TPU_REPLICA_GROUP": "g1@1"})
+    router = None
+    try:
+        g0.wait_ready()
+        g1.wait_ready()
+        stats = ExpvarStatsClient()
+        router = ReplicaRouter(
+            [f"g0=127.0.0.1:{g0.http}", f"g1=127.0.0.1:{g1.http}"],
+            probe_interval_s=0.2, stats=stats,
+        ).serve()
+
+        def via_router(q, timeout=60):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{router.port}/index/g/query",
+                data=q.encode(), method="POST",
+            )
+            with urllib.request.urlopen(req, timeout=timeout) as resp:
+                return json.loads(resp.read()), resp.headers.get(GROUP_HEADER)
+
+        # Both groups seeded alike: a read through the router agrees with
+        # a direct read on either group.
+        want = g0.query(Q_COUNT)["results"]
+        assert g1.query(Q_COUNT)["results"] == want
+        out, grp = via_router(Q_COUNT)
+        assert out["results"] == want and grp in ("g0@1", "g1@1")
+
+        # A write through the router lands on BOTH groups (and, inside
+        # each group, replays on every rank over the control plane).
+        out, grp = via_router('SetBit(rowID=0, frame="f", columnID=901)')
+        assert out["results"] == [True] and grp == "all"
+        after = want[0] + 1
+        assert g0.query(Q_COUNT)["results"] == [after]
+        assert g1.query(Q_COUNT)["results"] == [after]
+        served = set()
+        for _ in range(4):
+            out, grp = via_router(Q_COUNT)
+            assert out["results"] == [after]
+            served.add(grp)
+        assert served == {"g0@1", "g1@1"}
+
+        # Kill g1's WORKER rank: g1's control plane fail-stops on the
+        # next shipped entry, the router marks it unhealthy and keeps
+        # reads serving from g0.
+        g1.procs[1].kill()
+        ok_reads = 0
+        for _ in range(12):
+            try:
+                out, grp = via_router(Q_COUNT, timeout=30)
+            except (urllib.error.HTTPError, urllib.error.URLError, OSError):
+                continue  # the probe that tripped the degrade
+            assert out["results"] == [after]
+            ok_reads += 1
+        assert ok_reads >= 8, "reads stopped serving after one group died"
+        assert not router.groups[1].healthy
+        # Writes refuse while non-quorate: g0 is not advanced past g1.
+        try:
+            via_router('SetBit(rowID=0, frame="f", columnID=902)', timeout=30)
+            raise AssertionError("write acked against a non-quorate group set")
+        except urllib.error.HTTPError as e:
+            assert e.code == 503
+        assert g0.query(Q_COUNT)["results"] == [after]
+        assert stats.snapshot().get("replica.failover", 0) >= 1
+
+        outs = g0.shutdown_and_collect()
+        # g0's ranks converged on the routed writes.
+        assert {o["probe"] for o in outs} == {after}
+    finally:
+        if router is not None:
+            router.close()
+        g0.cleanup()
+        g1.cleanup()
+
+
 def test_lockstep_worker_death_mid_stream():
     """A worker rank killed mid-stream: the next request errors, every
     later one is refused, and rank 0 stays alive to refuse them."""
