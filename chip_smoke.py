@@ -127,8 +127,8 @@
    with a src, the collective self-check (every sharded composition,
    ``topn_counts`` among them) and a bulk load of 8 chunks of 131,072
    pairs through the MeshEngine; every answer equals the single-GPU
-   executor's and the numpy engine's (a seeded subset; the TopN, whose
-   numpy answer is over 64 slices, the single-GPU one), and each kernel of the
+   executor's and the numpy engine's (a seeded subset; the TopN in full,
+   the numpy engine's TopN over the same 16 slices), and each kernel of the
    mesh path launches.  Then two ranks on the one card over gloo,
    started as ``python -m pilosa_tpu_torch.cli lockstep`` starts them,
    each over its own copy of that directory (``int32[8, 256, 32768]`` a
@@ -140,11 +140,14 @@
    and its holder's digest; every kernel of the path must have launched
    on every rank, and the digests must be equal.  Last, every batch the MeshEngine
    handed a kernel is held exactly against the kernel's plain version at
-   the two-rank shard's shape, [32, R, W].  Two ranks on one card
-   measure no multi-GPU speed.
+   the two-rank shard's shapes, [8, R, W] (this phase's) and [32, R, W]
+   (the whole 64 slices').  Two ranks on one card measure no multi-GPU
+   speed.
 9. The fleet phase (``pilosa_tpu_torch.replica``), after the mesh phase,
-   on the same data directory cut to f and t's standard and January
-   views (``FLEET_T_VIEWS``): three replica groups
+   on the same data directory (f, t, fb and the bulk path's small
+   frames; t keeps its standard and January views, FLEET_T_VIEWS, where
+   the open-file limit is short of three groups of every view): three
+   replica groups
    g0, g1 and g2, each a port ``Server`` in this process (default
    config, engine on the card, the query cache off as the reference's
    group workers run) over its own copy, behind ``python -m
@@ -154,8 +157,10 @@
    twice, spread by the router's round robin) equal one another and the
    numpy engine's on a seeded subset, and each group serves reads that
    launch kernels (its ``X-Pilosa-Group``
-   header; the launch counters read around each request); the warm ones
-   also go straight to g0's door.  Writes: a SetBit burst over every
+   header; the launch counters read around each request).  The router's
+   own cost: once every group has served the warm requests, each is sent
+   FLEET_HOP_SENDS times through the router and, after each, straight to
+   the door of the group that served it.  Writes: a SetBit burst over every
    slice, a Count from each group (read-your-writes), and a bulk load of
    8 x 131,072 pairs through the router's ``/bulk`` that every group
    builds on the card.  Catch-up: g2 closes, a burst commits on two of
@@ -170,7 +175,7 @@
    g1 (``--shard-map``): SetBits through it land on their slice's owner
    only, and pair and N-ary batches over them merge to the numpy
    engine's answers.  Every kernel of the fleet path must launch.  A
-   "fleet" line gives each read's router and direct ms, the serving
+   "fleet" line gives each read's router and door ms, the serving
    groups, launches, the catch-up's records and ms, the resyncs' bytes,
    ms and MB/s, the WAL's bytes and the digests.
 10. Fails unless every kernel's launch counter moved during its path: the
@@ -3261,7 +3266,8 @@ MESH_FRAMES = ("f", "t", MESH_BULK_FRAME)
 # The mesh phase's depth: its holder (the NCCL rank's, the single-GPU
 # reference's and the ranks' copies) keeps f's and t's first 16 of the
 # 64 slices, int32[8, 256, 32768] a rank, so that the fleet phase after
-# it fits the script's time; every width is the paths' own.
+# it fits the script's time (at 32 slices the script took 1,081.5 s on
+# one H100 host, against a 1,200 s budget); every width is the paths' own.
 MESH_SLICES = 16
 MESH_BULK_CHUNKS, MESH_BULK_ROWS = 8, 64
 # The gather batch names 16 distinct rows: its fresh pool holds 16, two
@@ -3278,8 +3284,9 @@ MESH_KERNELS = ("count_rows", "resident_count2", "gather_count2", "gather_src_co
                 "gather_count_multi", "resident_count_multi", "gather_count_tree",
                 "resident_count_tree", "topn_counts", "pair_gram", "build_planes")
 # main_path's TopN (checked there against the numpy engine): f is not
-# written between it and the mesh phase, so the mesh requests' TopN is
-# held to the same answer without a second numpy TopN.
+# written between it and the fleet phase, whose groups hold all 64 slices,
+# so the fleet's TopN is held to the same answer without a second numpy
+# TopN (the mesh, at MESH_SLICES, takes its own).
 TOPN_PQL = 'TopN(Bitmap(rowID=0, frame="f"), frame="f", n=10)'
 TOPN_ANSWER: list = []
 # Batches the MeshEngine hands the dispatch entries and kernels during the
@@ -3379,32 +3386,26 @@ def mesh_check_want(h, rows, src) -> dict:
     }
 
 
-def _check_mesh_answer(name, got, single, calls, ex_ref, rng, topn=None) -> int:
-    """got (the mesh) == single (the single-GPU executor) in full, and a
-    seeded subset of MESH_SUBSET queries == the numpy engine; returns the
-    answers checked against numpy.  The TopN's numpy answer is ``topn``
-    (the executor path's TOPN_ANSWER over all 64 slices); at the mesh's
-    depth there is none, and the TopN is held to the single-GPU
-    executor's alone."""
-    if got != single:
-        raise AssertionError(f"mesh {name}: differs from the single-GPU path: {got[:4]} vs {single[:4]}")
+def _check_numpy(name, got, calls, ex_ref, rng, topn=None) -> int:
+    """A seeded subset of MESH_SUBSET of the answers ``got`` to ``calls``
+    == the numpy engine ``ex_ref``'s; returns the answers checked.  The
+    TopN (TOPN_PQL) is held in full to ``topn``, its numpy answer on the
+    same holder, computed once by the caller."""
     if calls == [TOPN_PQL]:
-        if topn is None:
-            return 0
         if not topn or got != topn:
-            raise AssertionError(f"mesh {name}: {got} vs the numpy engine's {topn}")
+            raise AssertionError(f"{name}: {got} vs the numpy engine's {topn}")
         return 1
     if calls[0].startswith("SetBit"):
         # The write already landed on the reference holder (the single-GPU
         # executor shares it): hold the reads that follow it.
         want = _norm(ex_ref.execute("i", " ".join(calls[1:])))
         if got[1:] != want:
-            raise AssertionError(f"mesh {name}: {got} vs the numpy engine's {want}")
+            raise AssertionError(f"{name}: {got} vs the numpy engine's {want}")
         return len(want)
     sub = sorted(rng.choice(len(calls), size=min(MESH_SUBSET, len(calls)), replace=False).tolist())
     want = _norm(ex_ref.execute("i", " ".join(calls[i] for i in sub)))
     if [got[i] for i in sub] != want:
-        raise AssertionError(f"mesh {name}: differs from the numpy engine")
+        raise AssertionError(f"{name}: differs from the numpy engine")
     return len(sub)
 
 
@@ -3482,12 +3483,20 @@ def mesh_nccl_path(h) -> tuple[dict, dict, dict]:
                          "collective_ms": (eng.mesh.stat_collective_s - c0) * 1e3,
                          "collectives": eng.mesh.stat_collectives - n0, "launches": got}
 
+        topn = []
         for name, calls, flavour, expect in mesh_requests(N_ROWS, TIME_ROWS):
             pql = " ".join(calls)
             (got, ms), rec = on_mesh(lambda: _timed(ex[flavour], pql), engines[flavour])
             single_got, single_ms = _timed(single[flavour], pql)
+            if got != single_got:
+                raise AssertionError(f"mesh {name}: differs from the single-GPU path: "
+                                     f"{got[:4]} vs {single_got[:4]}")
             t = time.perf_counter()
-            checked = _check_mesh_answer(name, got, single_got, calls, ex_ref, rng)
+            if calls == [TOPN_PQL]:
+                # The numpy engine's TopN on this holder (the executor
+                # path's is over all 64 slices).
+                topn = _norm(ex_ref.execute("i", TOPN_PQL))
+            checked = _check_numpy(f"mesh {name}", got, calls, ex_ref, rng, topn)
             numpy_ms = (time.perf_counter() - t) * 1e3
             answers[name] = (single_got, single_ms)
             for k in expect:
@@ -3633,7 +3642,9 @@ def mesh_lockstep_path(procs: list, http: int, t_start: float, dirs: list, h,
                 checked = len(calls)
             else:
                 single_got, single_ms = _timed(single[flavour], pql)
-                checked = _check_mesh_answer(name, got, single_got, calls, ex_ref, rng)
+                if got != single_got:
+                    raise AssertionError(f"lockstep {name}: differs from the single-GPU path")
+                checked = _check_numpy(f"lockstep {name}", got, calls, ex_ref, rng)
             records.append({"request": name, "q": pql[:60], "ms": ms, "single_ms": single_ms,
                             "checked": checked})
 
@@ -3729,11 +3740,20 @@ def mesh_lockstep_path(procs: list, http: int, t_start: float, dirs: list, h,
 
 def check_shard_kernels() -> dict:
     """Every kernel the mesh path launched, held exactly against its plain
-    version at the two-rank shard's shape ([MESH_SLICES / MESH_RANKS, R, W]
+    version at the two-rank shard's shapes ([MESH_SLICES / MESH_RANKS, R,
+    W], this phase's, and [N_SLICES / MESH_RANKS, R, W], the whole data's;
     random words) with each batch the NCCL rank's requests handed it."""
+    checked: dict = {}
+    shards = sorted({MESH_SLICES // MESH_RANKS, N_SLICES // MESH_RANKS})
+    for s in shards:
+        _check_shard(s, checked)
+        torch.cuda.empty_cache()
+    return {"shards": [[s, "R", W] for s in shards], "batches": checked}
+
+
+def _check_shard(s: int, checked: dict) -> None:
     from pilosa_tpu_torch.ops import dispatch
 
-    s = MESH_SLICES // MESH_RANKS
     gen = _gen(MESH_SEED)
     mats: dict = {}
 
@@ -3743,7 +3763,6 @@ def check_shard_kernels() -> dict:
         return mats[r]
 
     src = _rand_words(gen, (s, W))
-    checked: dict = {}
     seen = set()
     for kind, op, r, ids in MESH_BATCHES:
         raw = b"" if ids is None else b"".join(np.ascontiguousarray(x).tobytes()
@@ -3781,11 +3800,9 @@ def check_shard_kernels() -> dict:
         else:
             raise AssertionError(kind)
         if not torch.equal(got.long().cpu(), want.long().cpu()):
-            raise AssertionError(f"shard check {kind} {op} R={r}: kernel differs from its plain version")
+            raise AssertionError(f"shard check S={s} {kind} {op} R={r}: kernel differs from its "
+                                 "plain version")
         checked[kind] = checked.get(kind, 0) + 1
-    del mats
-    torch.cuda.empty_cache()
-    return {"shard": [s, "R", W], "batches": checked}
 
 
 def mesh_path(d: str, card: str) -> tuple[dict, dict]:
@@ -3869,15 +3886,16 @@ FLEET_SEED = SEED + 19
 # Three groups: a majority of three is two, so one group down still
 # commits writes and its catch-up is exercised.
 FLEET_GROUPS = 3
-# The frames the groups hold: the HTTP path's f and t (the others of the
-# data directory are dropped first; fb is f's bits through another door,
-# and the fleet's own bulk load drives that door).  Of t's 38 views a
-# slice the groups keep the standard view and January's, which the
-# range-wide batch reads (its spans lie in January): three holders of
-# every view keep 2 x 3 x 2,700 fragment files open, past the card
-# machine's open-file limit, and each blank resync would stream 2,432
-# small fragments of t.
-FLEET_FRAMES = ("f", "t")
+# The groups hold the data directory: f, t, fb and the bulk path's small
+# frames.  An open fragment holds three descriptors (its lock, its op log
+# and its storage mapping's own), so three holders of t's 38 views a
+# slice (about 2,570 fragments a holder) need over 23,000, past the
+# limit measured on an H100 host (20,000, soft and hard).  Where the limit, raised to its hard
+# limit first, is short of three descriptors a fragment a group and
+# FLEET_FD_SPARE more (the frames the phase creates, sockets), t keeps
+# FLEET_T_VIEWS: its standard view and January's, which the range-wide
+# batch reads (its spans lie in January).
+FLEET_FD_SPARE = 2048
 FLEET_T_VIEWS = ("standard", "standard_2017", "standard_201701", "standard_20170101",
                  "standard_20170115")
 # SetBit bursts go to fl (rows 0..FLEET_WRITE_ROWS-1); the bulk load
@@ -3895,8 +3913,11 @@ FLEET_SHARD_BITS, FLEET_SHARD_CALLS = 8192, 512
 # pool once; the second warm pair batch lands on g0, warm: the Gram).
 FLEET_READS = ("pairs cold", "pairs warm", "nary", "tree", "range-wide", "topn")
 FLEET_SENDS = 2
-# Warm reads also sent straight to g0's door: the router's own cost.
+# The router's own cost: each of these, once warm on every group, goes
+# FLEET_HOP_SENDS times through the router, each time followed by the
+# same request straight to the door of the group that served it.
 FLEET_DIRECT = ("pairs warm", "nary", "tree", "range-wide")
+FLEET_HOP_SENDS = 6
 # The kernels this phase runs ("yes" in PERF.md's table): each must launch.
 FLEET_KERNELS = ("count_rows", "resident_count2", "gather_src_counts", "gather_count_multi",
                  "resident_count_multi", "gather_count_tree", "pair_gram", "build_planes")
@@ -4054,23 +4075,31 @@ def _equal_digests(servers, what: str) -> tuple[str, float]:
     return ds[0]["digest"], time.perf_counter() - t0
 
 
-def _trim_to_fleet_frames(d: str) -> dict:
-    """Drop the frames of ``d`` the groups do not hold, and t's views but
-    FLEET_T_VIEWS, as ``Index.delete_frame`` does (the directory goes;
-    a holder finds its frames and views by listing them); the dropped
-    names."""
+def _fleet_descriptors(d: str) -> dict:
+    """Raise the process's open-file limit to its hard limit and count the
+    fragments of ``d``; if FLEET_GROUPS holders of them would pass the
+    limit, drop t's views but FLEET_T_VIEWS from ``d`` (the directory
+    goes, as ``Index.delete_frame`` removes a frame's).  Returns the
+    limits, the fragments and the views dropped."""
+    import resource
     import shutil
 
-    idx_dir = os.path.join(d, "i")
-    frames = sorted(n for n in os.listdir(idx_dir) if os.path.isdir(os.path.join(idx_dir, n))
-                    and not n.startswith(".") and n not in FLEET_FRAMES)
-    for name in frames:
-        shutil.rmtree(os.path.join(idx_dir, name))
-    views_dir = os.path.join(d, "i", "t", "views")
-    views = sorted(v for v in os.listdir(views_dir) if v not in FLEET_T_VIEWS)
-    for v in views:
-        shutil.rmtree(os.path.join(views_dir, v))
-    return {"frames": frames, "t_views": len(views)}
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft != hard:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    limit = resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+
+    def fragments():
+        return sum(1 for _root, _dirs, files in os.walk(os.path.join(d, "i"))
+                   for n in files if n.isdigit())
+    out = {"nofile_was": [soft, hard], "nofile": limit, "fragments": fragments(), "t_views_dropped": 0}
+    if 3 * FLEET_GROUPS * out["fragments"] + FLEET_FD_SPARE > limit:
+        views_dir = os.path.join(d, "i", "t", "views")
+        views = [v for v in os.listdir(views_dir) if v not in FLEET_T_VIEWS]
+        for v in views:
+            shutil.rmtree(os.path.join(views_dir, v))
+        out["t_views_dropped"], out["fragments_kept"] = len(views), fragments()
+    return out
 
 
 def _burst(rng, n: int) -> tuple[list, dict]:
@@ -4121,7 +4150,7 @@ def fleet_path(d: str, card: str) -> tuple[dict, dict]:
             launches[part[0]][k] += n
         return out, got
 
-    line["dropped"] = _trim_to_fleet_frames(d)
+    line["descriptors"] = _fleet_descriptors(d)
     base_dir = tempfile.mkdtemp(prefix="fleet-", dir=os.path.dirname(d))
     dirs = [d] + [os.path.join(base_dir, f"g{i}") for i in range(1, FLEET_GROUPS)]
     t = time.perf_counter()
@@ -4166,23 +4195,45 @@ def fleet_path(d: str, card: str) -> tuple[dict, dict]:
                     served[grp] = served.get(grp, 0) + 1
                 if first is None:
                     first = firsts[name] = got
-                    rec["checked"] = _check_mesh_answer(f"fleet {name}", got, got, calls, ex_ref,
-                                                        rng, TOPN_ANSWER)
+                    rec["checked"] = _check_numpy(f"fleet {name}", got, calls, ex_ref, rng,
+                                                  TOPN_ANSWER)
                 elif got != first:
                     raise AssertionError(f"fleet {name}: {grp}'s answer differs from the first group's")
             union = {k for g in rec["launches"] for k in g}
             missing = [k for k in expects[name] if k not in union]
             if missing:
                 raise AssertionError(f"fleet {name}: {missing} never launched ({rec['launches']})")
-            if name in FLEET_DIRECT:
-                got, _grp, ms = _fleet_query(f"http://{servers[0].host}", pql)
-                if got != first:
-                    raise AssertionError(f"fleet {name}: g0's door differs from the router's answer")
-                rec["direct_g0_ms"] = ms
             reads.append(rec)
         if len(served) != FLEET_GROUPS:
             raise AssertionError(f"fleet: reads that launched kernels by group: {served}")
-        line["reads"], line["served"] = reads, served
+        # The router's own cost: each FLEET_DIRECT request goes once to
+        # every group's door (warming the groups that have not served it),
+        # then through the router, each time followed by the same request
+        # at the serving group's door; the median of the differences.
+        doors = {f"g{i}": f"http://{srv.host}" for i, srv in enumerate(servers)}
+        hops = {}
+        for rec in reads:
+            name = rec["request"]
+            if name not in FLEET_DIRECT:
+                continue
+            pql = " ".join(requests[name])
+            hop = {"warm_ms": {}, "router_ms": [], "door_ms": [], "groups": []}
+            for g, door in doors.items():
+                got, _grp, hop["warm_ms"][g] = _fleet_query(door, pql)
+                if got != firsts[name]:
+                    raise AssertionError(f"fleet {name}: {g}'s door differs from the router's answer")
+            for _ in range(FLEET_HOP_SENDS):
+                got, grp, ms = _fleet_query(router.base, pql)
+                got_d, _grp, ms_d = _fleet_query(doors[grp.split("@")[0]], pql)
+                if got != firsts[name] or got_d != firsts[name]:
+                    raise AssertionError(f"fleet {name}: {grp}'s answer differs from the first one")
+                hop["router_ms"].append(ms)
+                hop["door_ms"].append(ms_d)
+                hop["groups"].append(grp)
+            hop["median_hop_ms"] = hops[name] = float(np.median(
+                [a - b for a, b in zip(hop["router_ms"], hop["door_ms"])]))
+            rec["hop"] = hop
+        line["reads"], line["served"], line["router_hop_ms"] = reads, served, hops
         lap("reads")
 
         # b. Writes through the router: a SetBit burst, a Count from each
@@ -4308,8 +4359,9 @@ def fleet_path(d: str, card: str) -> tuple[dict, dict]:
             calls = requests[name]
             (got, _grp, ms), got_l = launched(lambda: _fleet_query(f"http://{servers[2].host}",
                                                                    " ".join(calls)))
-            checked = _check_mesh_answer(f"fleet resynced {name}", got, firsts[name], calls,
-                                         ex_ref, rng, TOPN_ANSWER)
+            if got != firsts[name]:
+                raise AssertionError(f"fleet resynced {name}: differs from the first group's answer")
+            checked = _check_numpy(f"fleet resynced {name}", got, calls, ex_ref, rng, TOPN_ANSWER)
             if not all(got_l.get(k) for k in expects[name]):
                 raise AssertionError(f"fleet resynced g2 {name}: launches {got_l}")
             direct.append({"request": name, "ms": ms, "checked": checked, "launches": got_l})

@@ -641,6 +641,11 @@ def test_crash_mid_fanout_seeded_fault_ordering():
         # is the 3rd SetBit — it fails there and only there.
         faults = FaultInjector.from_spec("forward/g1:drop@5")
         rig = _Rig3(tmp, faults=faults)
+        # The probe (every 0.05 s) may replay the missed write before g1
+        # is read: catch-up waits until it has been.
+        read = threading.Event()
+        catch_up = rig.router.catchup.catch_up
+        rig.router.catchup.catch_up = lambda g: read.wait(30) and catch_up(g)
         try:
             rig.seed()
             assert rig.query('SetBit(rowID=1, frame="f", columnID=0)')[0] == 200
@@ -652,12 +657,14 @@ def test_crash_mid_fanout_seeded_fault_ordering():
             assert rig.direct_count(0) == rig.direct_count(2) == 3
             assert rig.direct_count(1) == 2  # g1 missed exactly that write
             assert rig.stats.snapshot().get("replica.write_error", 0) == 1
+            read.set()
             # Catch-up replays the missed record (the fault was one-shot)
             # and g1 converges.
             rig.wait_ready("g1")
             assert rig.direct_count(1) == 3
             assert rig.stats.snapshot().get("replica.replayed", 0) >= 1
         finally:
+            read.set()
             rig.close()
 
 
