@@ -178,14 +178,28 @@
    "fleet" line gives each read's router and door ms, the serving
    groups, launches, the catch-up's records and ms, the resyncs' bytes,
    ms and MB/s, the WAL's bytes and the digests.
-10. Fails unless every kernel's launch counter moved during its path: the
+10. The analysis phase (``pilosa_tpu_torch.analysis``), after the tall
+   path: three processes start together.  The project linter over the
+   package (``python -m pilosa_tpu_torch.analysis``) must exit 0 with "0
+   NEW"; the interleaving explorer's live scenarios and the protocol model
+   check (``--explore all``) must exit 0; and ``python3 chip_smoke.py
+   --lock-check DIR`` runs with ``PILOSA_TPU_LOCK_CHECK=1`` over a copy of
+   the first ANALYSIS_SLICES (8) slices of frame ``f``: a port ``Server``
+   on the card, four client threads started together from cold, each
+   sending the pair, N-ary, tree and TopN batches (rotated, so the
+   kernels' first loads race) and then a SetBit and a Count of its own;
+   every answer equals the numpy engine's, every kernel those requests
+   reach launches, the kernels' build lock is seen by the checker, and
+   the checker records no violation.  An "analysis" line gives the
+   findings, the schedules explored, the lock violations and the seconds.
+11. Fails unless every kernel's launch counter moved during its path: the
    counters are set to 0 just before each path and read just after it.
 
 Prints a ptxas line, a tree-checks and two staged-checks lines,
 ``{"card": ..., "layout" / "tree_gate" / "multi_paths" / "multi_tilings" /
 "multi_gate" / "gather2_paths" / "tree_paths": [...]}`` lines, a ``{"card": ..., "bulk": {...}}``
-line, ``{"card": ..., "mesh_nccl": {...}}``, ``{"card": ..., "mesh": {...}}`` and ``{"card": ..., "fleet": {...}}``
-lines, a ``{"card": ..., "requests": [...]}`` line
+line, ``{"card": ..., "mesh_nccl": {...}}``, ``{"card": ..., "mesh": {...}}``, ``{"card": ..., "fleet": {...}}``
+and ``{"card": ..., "analysis": {...}}`` lines, a ``{"card": ..., "requests": [...]}`` line
 per path, a ``{"kernels": [...]}`` line, and last ``{"ok": true,
 "device": {...}}``.  Any failure raises.
 
@@ -4489,6 +4503,244 @@ def fleet_path(d: str, card: str) -> tuple[dict, dict]:
     return line, launches
 
 
+# ---------------------------------------------------------------------------
+# the analysis phase: the project linter, the interleaving explorer, and the
+# runtime lock checker over cold concurrent requests on the card
+# ---------------------------------------------------------------------------
+
+ANALYSIS_SLICES = 8
+ANALYSIS_THREADS = 4
+ANALYSIS_SEED = SEED + 20
+ANALYSIS_READS = ("pairs", "nary", "tree", "topn")
+# The kernels the reads reach on the card, as the HTTP path's expect at
+# the same batch shapes: pairs, N-ary, tree, and TopN's two.
+ANALYSIS_KERNELS = ("resident_count2", "gather_count_multi", "gather_count_tree", "count_rows",
+                    "gather_src_counts")
+ANALYSIS_TIMEOUT_S = 600
+
+
+def analysis_copy(d: str) -> str:
+    """A copy of frame ``f`` of the paths' data directory ``d``, its first
+    ANALYSIS_SLICES slices, in a new directory beside ``d``."""
+    import shutil
+
+    base = tempfile.mkdtemp(prefix="analysis-", dir=os.path.dirname(d))
+    idx_dir = os.path.join(d, "i")
+
+    def skip(path, names):
+        if os.path.abspath(path) == os.path.abspath(idx_dir):
+            return [n for n in names if os.path.isdir(os.path.join(path, n)) and n != "f"]
+        if os.path.basename(path) == "fragments":
+            return [n for n in names if int(n.split(".")[0]) >= ANALYSIS_SLICES]
+        return []
+
+    shutil.copytree(d, os.path.join(base, "data"), ignore=skip)
+    return base
+
+
+def analysis_bodies() -> tuple[dict, list]:
+    """The lock-check requests: one PQL body for each read, and for each
+    client thread a write body (a SetBit in frame ``w``, which no read
+    names, then a Count that reads it back against a row of ``f``)."""
+    rng = np.random.default_rng(ANALYSIS_SEED)
+    pairs = rng.integers(0, N_ROWS, size=(PAIR_BATCH, 2))
+    pairs[:, 0] = np.resize(rng.permutation(N_ROWS), PAIR_BATCH)
+    op, idx = nary_requests(N_ROWS)["nary-and"]
+    reads = {
+        "pairs": [f"Count(Intersect({_bm(a)}, {_bm(b)}))" for a, b in pairs],
+        "nary": [f"Count({PQL_OPS[op]}({', '.join(_bm(r) for r in ids)}))" for ids in idx],
+        "tree": [_tree_call(rng, N_ROWS, i) for i in range(FOLD_BATCH)],
+        "topn": [TOPN_PQL],
+    }
+    writes = []
+    for k in range(ANALYSIS_THREADS):
+        col = int(rng.integers(0, ANALYSIS_SLICES * SLICE_WIDTH))
+        row = int(rng.integers(0, N_ROWS))
+        writes.append([f'SetBit(rowID={k}, frame="w", columnID={col})',
+                       f'Count(Intersect({_bm(k, "w")}, {_bm(row)}))'])
+    return reads, writes
+
+
+def lock_check_requests(data_dir: str) -> int:
+    """Run in a fresh process with PILOSA_TPU_LOCK_CHECK=1: the port's
+    ``Server`` (default config, engine on the card) over ``data_dir``;
+    ANALYSIS_THREADS client threads start together from cold, thread k
+    sending the reads rotated by k (so the first wave is one of each and
+    the kernels' first loads race) and then its write body.  Every answer
+    must equal the numpy engine's on the same holder, every kernel of
+    ANALYSIS_KERNELS must launch, and the lock checker must record
+    nothing.  Prints one JSON line; exits 1 on a violation."""
+    import threading
+
+    from pilosa_tpu_torch.analysis import lockcheck
+    from pilosa_tpu_torch.config import Config
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.server.server import Server
+
+    if not lockcheck.enabled():
+        raise AssertionError(f"lock check: {lockcheck.ENV_VAR} did not enable the checker")
+    t0 = time.perf_counter()
+    srv = Server(Config(data_dir=data_dir, host="127.0.0.1:0"))
+    srv.open()
+    try:
+        open_s = time.perf_counter() - t0
+        if srv.executor.engine.name != "torch" or srv.executor.engine.device.type != "cuda":
+            raise AssertionError(f"lock check: server engine is {srv.executor.engine.name}")
+        base = f"http://{srv.host}"
+        st, body, _, _ = _fleet_req(base, "POST", "/index/i/frame/w", b"{}")
+        if st != 200:
+            raise AssertionError(f"lock check: frame w answered {st}: {body[:200]!r}")
+        reads, writes = analysis_bodies()
+        kernels.reset_launches()
+        barrier = threading.Barrier(ANALYSIS_THREADS)
+        got: list = []
+        errors: list = []
+
+        def client(k: int) -> None:
+            try:
+                order = list(ANALYSIS_READS[k:] + ANALYSIS_READS[:k])
+                barrier.wait()
+                for name in order + ["write"]:
+                    calls = writes[k] if name == "write" else reads[name]
+                    st, body, _, ms = _fleet_req(base, "POST", "/index/i/query",
+                                                 " ".join(calls).encode())
+                    if st != 200:
+                        raise AssertionError(f"lock check: {name} answered {st}: {body[:200]!r}")
+                    res = json.loads(body)["results"]
+                    res = [[(p["id"], p["count"]) for p in r] if isinstance(r, list) else r
+                           for r in res]
+                    got.append((k, name, res, ms))
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+                barrier.abort()
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(ANALYSIS_THREADS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        requests_s = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        launches = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        ex_ref = Executor(srv.holder, engine="numpy")
+        want = {name: _norm(ex_ref.execute("i", " ".join(calls))) for name, calls in reads.items()}
+        checked = 0
+        for k, name, res, _ms in got:
+            if name == "write":
+                if res[0] is not True:
+                    raise AssertionError(f"lock check: thread {k}'s SetBit answered {res[0]!r}")
+                res, expect = res[1:], _norm(ex_ref.execute("i", writes[k][1]))
+            else:
+                expect = want[name]
+            if res != expect:
+                raise AssertionError(f"lock check: thread {k}'s {name} differs from the numpy "
+                                     f"engine: {res[:4]} vs {expect[:4]}")
+            checked += len(res)
+        numpy_s = time.perf_counter() - t0
+    finally:
+        srv.close()
+    violations = lockcheck.take_violations()
+    missing = [k for k in ANALYSIS_KERNELS if not launches[k]]
+    # The acquisition-order edges the checker saw: the kernels' build lock
+    # filling the loaded-kernel global shows that the card-only build and
+    # load ran checked.
+    chk = lockcheck.checker()
+    with chk._mu:
+        edges = sorted(f"{a} -> {b}" for a, bs in chk._edges.items() for b in bs)
+    if "ops.kernels._build_mu -> ops.kernels.fns" not in edges:
+        raise AssertionError(f"lock check: the kernels' build ran unchecked: {edges}")
+    print(json.dumps({"lock_check": {
+        "violations": len(violations), "threads": ANALYSIS_THREADS, "requests": len(got),
+        "order_edges": edges,
+        "answers_checked": checked, "slices": ANALYSIS_SLICES,
+        "launches": {k: n for k, n in launches.items() if n},
+        "missing_launches": missing, "open_s": open_s, "requests_s": requests_s,
+        "request_ms": {f"{k}:{name}": ms for k, name, _r, ms in got}, "numpy_s": numpy_s,
+    }}), flush=True)
+    for v in violations:
+        print(v.describe(), file=sys.stderr, flush=True)
+    return 1 if violations or missing else 0
+
+
+def _analysis_counts(out: str) -> dict:
+    """The explorer's summary lines as numbers."""
+    res = {"scenarios": 0, "schedules": 0, "truncated": 0, "violations": 0}
+    for m in re.finditer(r"^(\S+): (\d+) schedule\(s\) at preemption bound (\d+), (\d+) truncated, "
+                         r"(\d+) violation\(s\)$", out, re.MULTILINE):
+        res["scenarios"] += 1
+        res["schedules"] += int(m.group(2))
+        res["truncated"] += int(m.group(4))
+        res["violations"] += int(m.group(5))
+    m = re.search(r"^replica-protocol model: (\d+) states explored, (\d+) violation\(s\)$", out,
+                  re.MULTILINE)
+    if not m or not res["scenarios"]:
+        raise AssertionError(f"analysis: no explorer summary in:\n{out[-2000:]}")
+    res["model_states"], res["model_violations"] = int(m.group(1)), int(m.group(2))
+    return res
+
+
+def analysis_path(base: str) -> tuple[dict, dict]:
+    """The analysis phase.  Three processes start together: the project
+    linter over the package (``python -m pilosa_tpu_torch.analysis``,
+    exit 0 and "0 NEW"), the interleaving explorer's live suite and the
+    protocol model check (``--explore all``, exit 0), and the lock-check
+    requests over the copy of frame ``f`` in ``base`` with
+    PILOSA_TPU_LOCK_CHECK=1 (``lock_check_requests``).  Any failure
+    raises.  Returns the "analysis" line and the launches of the lock
+    check."""
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    env = dict(os.environ)
+    env.pop("PILOSA_TPU_LOCK_CHECK", None)
+    lock_env = dict(env, PILOSA_TPU_LOCK_CHECK="1")
+    cmds = {
+        "gate": ([sys.executable, "-m", "pilosa_tpu_torch.analysis"], env),
+        "explore": ([sys.executable, "-m", "pilosa_tpu_torch.analysis", "--explore", "all"], env),
+        "lock_check": ([sys.executable, os.path.join(root, "chip_smoke.py"), "--lock-check",
+                        os.path.join(base, "data")], lock_env),
+    }
+    procs = {}
+    try:
+        for name, (cmd, e) in cmds.items():
+            procs[name] = (subprocess.Popen(cmd, cwd=root, env=e, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True),
+                           time.perf_counter())
+        out = {}
+        for name, (p, t0) in procs.items():
+            so, se = p.communicate(timeout=ANALYSIS_TIMEOUT_S)
+            out[name] = (p.returncode, so, se, time.perf_counter() - t0)
+    finally:
+        for p, _t0 in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        shutil.rmtree(base, ignore_errors=True)
+    for name, (rc, so, se, _s) in out.items():
+        if rc != 0:
+            raise AssertionError(f"analysis: {name} exited {rc}:\n{so[-3000:]}\n{se[-3000:]}")
+    rc, so, _se, gate_s = out["gate"]
+    m = re.search(r"^analysis: (\d+) finding\(s\) over (\d+) rule\(s\) — (\d+) suppressed, "
+                  r"(\d+) baselined, (\d+) NEW$", so, re.MULTILINE)
+    if not m or m.group(5) != "0":
+        raise AssertionError(f"analysis: the gate did not report 0 NEW:\n{so[-2000:]}")
+    gate = {"rc": rc, "findings": int(m.group(1)), "rules": int(m.group(2)),
+            "suppressed": int(m.group(3)), "baselined": int(m.group(4)), "new": 0, "s": gate_s}
+    rc, so, _se, explore_s = out["explore"]
+    explore = dict(_analysis_counts(so), rc=rc, s=explore_s)
+    rc, so, _se, lock_s = out["lock_check"]
+    lock = json.loads(so.strip().splitlines()[-1])["lock_check"]
+    lock.update(rc=rc, s=lock_s)
+    launches = dict(dict.fromkeys(kernels.KERNELS, 0), **lock["launches"])
+    line = {"gate": gate, "explore": explore, "lock_check": lock,
+            "lock_violations": lock["violations"], "s": time.perf_counter() - t_phase}
+    return line, {"analysis": launches}
+
+
 def main() -> int:
     card = probe()
     phase_s = {}
@@ -4551,6 +4803,7 @@ def main() -> int:
         launches.update(fleet_launches)
         print(json.dumps({"card": card, "fleet": fleet}), flush=True)
         lap("fleet")
+        analysis_base = analysis_copy(d)
 
     # The tall path, in a data directory of its own.
     from pilosa_tpu_torch.executor import Executor
@@ -4570,6 +4823,10 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     lap("tall")
+    analysis, analysis_launches = analysis_path(analysis_base)
+    launches.update(analysis_launches)
+    print(json.dumps({"card": card, "analysis": analysis}), flush=True)
+    lap("analysis")
     print(json.dumps({"card": card, "phase_s": phase_s}), flush=True)
     missing = [k for k, path in PATH_OF.items() if launches[path][k] == 0]
     if missing:
@@ -4616,4 +4873,7 @@ if __name__ == "__main__":
         sys.exit(requests_against(sys.argv[2]))
     if sys.argv[1:2] == ["--requests"]:
         sys.exit(requests_of(sys.argv[2]))
+    if sys.argv[1:2] == ["--lock-check"]:
+        probe()
+        sys.exit(lock_check_requests(sys.argv[2]))
     sys.exit(main())

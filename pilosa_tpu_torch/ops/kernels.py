@@ -51,11 +51,11 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.analysis import lockcheck
 from pilosa_tpu_torch.ops import bitwise
 from pilosa_tpu_torch.pilosa import SLICE_WIDTH
 
@@ -103,8 +103,11 @@ _ARGTYPES = {
     "build_planes": ("pk_build_planes", [_P, _L, _P, _L, _P, _I, _P]),
 }
 
-_build_mu = threading.Lock()
-_fns: dict = {}
+# One build at a time: the first launches of several threads wait for the
+# one compile and load.  The loaded entry points live in a registered
+# global, filled under the build lock and read by every launch.
+_build_mu = lockcheck.named_lock("ops.kernels._build_mu")
+_fns = lockcheck.named_global("ops.kernels.fns", max_entries=len(KERNELS))
 
 
 def reset_launches() -> None:
@@ -115,6 +118,7 @@ def reset_launches() -> None:
 def _nvcc() -> str:
     for cand in (
         shutil.which("nvcc"),
+        # analysis-ok: lockstep-determinism: locates the compiler only; a library is named by the hash of its sources and flags, so every rank binds the same kernels
         os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
     ):
         if cand and os.path.exists(cand):
@@ -149,9 +153,11 @@ def build() -> dict:
                 continue
             tmp = f"{path}.{os.getpid()}.tmp"
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, f"{name}.cu")]
-            procs[name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT
-            ), tmp, path)
+            # The build lock exists to hold other threads across the compile.
+            with lockcheck.allowed("subprocess"):
+                procs[name] = (subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT
+                ), tmp, path)
         took = {}
         for name, (p, tmp, path) in procs.items():
             out, _ = p.communicate()
@@ -164,7 +170,7 @@ def build() -> dict:
             fn = getattr(ctypes.CDLL(_lib_path(name)), sym)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _fns[name] = fn
+            _fns.put(name, fn)
         return took
 
 
@@ -172,7 +178,7 @@ def _fn(name: str):
     fn = _fns.get(name)
     if fn is None:
         build()
-        fn = _fns[name]
+        fn = _fns.get(name)
     return fn
 
 
@@ -195,7 +201,7 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-_sms: dict = {}
+_sms = lockcheck.named_global("ops.kernels.sms", max_entries=64)
 
 
 def sm_count(device: torch.device) -> int:
@@ -205,7 +211,9 @@ def sm_count(device: torch.device) -> int:
     idx = torch.cuda.current_device() if idx is None else idx
     n = _sms.get(idx)
     if n is None:
-        n = _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+        # Two threads that both miss read the same count: the last put wins.
+        n = torch.cuda.get_device_properties(idx).multi_processor_count
+        _sms.put(idx, n)
     return n
 
 

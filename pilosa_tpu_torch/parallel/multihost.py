@@ -90,7 +90,7 @@ def init_multihost(
     else:
         n_cards = 0
     local_ranks = int(
-        os.environ.get("LOCAL_WORLD_SIZE", num_processes)  # analysis-ok: env-knob-outside-config: launcher convention (torchrun), identical on every rank of a host
+        os.environ.get("LOCAL_WORLD_SIZE", num_processes)
     )
     backend = choose_backend(dev, local_ranks, n_cards)
     if process_id == 0:

@@ -234,7 +234,7 @@ class LockstepService:
         # cost a little on every request).
         from pilosa_tpu_torch.parallel.sharded import SliceMesh
 
-        timing = os.environ.get("PILOSA_TPU_MESH_TIMING", "").lower() in (  # analysis-ok: env-knob-outside-config: rank-process fallback; ranks inherit the launcher's env
+        timing = os.environ.get("PILOSA_TPU_MESH_TIMING", "").lower() in (
             "1", "true", "yes",
         )
         self.engine = MeshEngine(SliceMesh(device=device, timing=timing))

@@ -163,14 +163,17 @@ class CatchupManager:
         )
 
         self.router.faults.hit("catchup", key=g.name)
-        headers = {WRITE_SEQ_HEADER: str(rec.seq), REPLAY_HEADER: "1"}
-        if rec.ctype:
-            headers["content-type"] = rec.ctype
+        headers = {"content-type": rec.ctype} if rec.ctype else {}
         t_fwd = time.perf_counter()
         try:
+            # The sequence and the replay marker are router-owned: the
+            # forward path strips them from ``headers`` (no client may set
+            # them) and sends them only as ``extra_headers``.
             status, _ctype, _payload, rheaders = self.router._forward(
                 g, rec.method, rec.path, rec.body, headers,
                 timeout_s=timeout_s,
+                extra_headers={WRITE_SEQ_HEADER: str(rec.seq),
+                               REPLAY_HEADER: "1"},
             )
         except OSError:
             return False
@@ -246,6 +249,10 @@ class CatchupManager:
                     self.stats.count("replica.catchup_stall")
                     return False
                 if not self._replay_one(g, rec, start_epoch, timeout_s=left):
+                    if time.monotonic() >= limit:
+                        # The socket was capped at the remaining budget:
+                        # a replay that failed past it is the same expiry.
+                        self.stats.count("replica.catchup_stall")
                     return False
             with self.router._mu:
                 g.caught_up = True

@@ -559,6 +559,12 @@ class _Rig3:
                 pass
 
 
+def _is_replay(forward_kw) -> bool:
+    """A catch-up replay carries the router-owned replay marker in the
+    forward's ``extra_headers``."""
+    return bool((forward_kw.get("extra_headers") or {}).get(REPLAY_HEADER))
+
+
 @pytest.fixture
 def rig3(request):
     with tempfile.TemporaryDirectory() as tmp:
@@ -741,7 +747,7 @@ def test_transport_failure_keeps_record_replayable(rig3, monkeypatch):
     real = rig3.router._forward
 
     def die_on_live_setbit(g, method, path_qs, body, headers, **kw):
-        if b"SetBit" in body and REPLAY_HEADER not in headers:
+        if b"SetBit" in body and not _is_replay(kw):
             raise OSError("connection reset mid-exchange")
         return real(g, method, path_qs, body, headers, **kw)
 
@@ -774,7 +780,7 @@ def test_shed_after_transport_failure_does_not_abort(rig3, monkeypatch):
     )
 
     def apply_then_die_then_shed(g, method, path_qs, body, headers, **kw):
-        if b"SetBit" in body and REPLAY_HEADER not in headers:
+        if b"SetBit" in body and not _is_replay(kw):
             if g is g0:
                 real(g, method, path_qs, body, headers, **kw)  # g0 APPLIED
                 raise OSError("reset after apply")
@@ -1039,15 +1045,18 @@ def test_catchup_locked_drain_is_deadline_bounded(rig3, monkeypatch):
     rig3.servers[2].close()
     for c in range(3):
         assert rig3.query(f'SetBit(rowID=1, frame="f", columnID={c})')[0] == 200
-    rig3.restart(2, epoch=2)
     real = rig3.router._forward
 
     def crawling_replay(g, method, path_qs, body, headers, **kw):
-        if headers.get(REPLAY_HEADER):
+        if _is_replay(kw):
             time.sleep(0.5)  # far slower than the whole locked budget
         return real(g, method, path_qs, body, headers, **kw)
 
+    # Slow the replays BEFORE the group returns: the probe may start a
+    # round the moment the group answers, and a round that ran on the
+    # real forward could finish (no stall) or replay several records.
     monkeypatch.setattr(rig3.router, "_forward", crawling_replay)
+    rig3.restart(2, epoch=2)
     deadline = time.monotonic() + 10
     while time.monotonic() < deadline:
         if rig3.stats.snapshot().get("replica.catchup_stall", 0) >= 1:
@@ -1065,6 +1074,52 @@ def test_catchup_locked_drain_is_deadline_bounded(rig3, monkeypatch):
     monkeypatch.setattr(rig3.router, "_forward", real)
     rig3.wait_ready("g2")
     assert rig3.direct_count(2) == rig3.direct_count(0) == 4
+
+
+def test_catchup_replay_advances_the_groups_applied_mark(rig3):
+    """A replay carries its sequence to the group (in the forward's
+    router-owned headers), so a caught-up group reports the WAL head as
+    its own applied mark, not the mark it restarted with."""
+    rig3.seed()
+    rig3.servers[2].close()
+    for c in range(3):
+        assert rig3.query(f'SetBit(rowID=1, frame="f", columnID={c})')[0] == 200
+    rig3.restart(2, epoch=2)
+    rig3.wait_ready("g2")
+    assert rig3.stats.snapshot().get("replica.replayed", 0) >= 3
+    health = json.loads(urllib.request.urlopen(
+        f"http://127.0.0.1:{rig3.ports[2]}/replica/health", timeout=30).read())
+    assert health["appliedSeq"] == rig3.router.wal.last_seq == 5
+
+
+def test_catchup_socket_timeout_past_the_locked_budget_is_a_stall(rig3, monkeypatch):
+    """A replay whose socket, capped at the locked drain's remainder,
+    fails past the budget ends the round as a stall, like the check
+    before the next record."""
+    rig3.seed()
+    rig3.router.catchup.locked_drain_s = 0.15
+    rig3.servers[2].close()
+    assert rig3.query('SetBit(rowID=1, frame="f", columnID=1)')[0] == 200
+    real = rig3.router._forward
+
+    def timed_out_replay(g, method, path_qs, body, headers, **kw):
+        if _is_replay(kw):
+            time.sleep(kw["timeout_s"])
+            raise OSError("timed out")
+        return real(g, method, path_qs, body, headers, **kw)
+
+    monkeypatch.setattr(rig3.router, "_forward", timed_out_replay)
+    rig3.restart(2, epoch=2)
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline:
+        if rig3.stats.snapshot().get("replica.catchup_stall", 0) >= 1:
+            break
+        time.sleep(0.02)
+    assert rig3.stats.snapshot().get("replica.catchup_stall", 0) >= 1
+    assert not rig3.router.groups[2].caught_up
+    monkeypatch.setattr(rig3.router, "_forward", real)
+    rig3.wait_ready("g2")
+    assert rig3.direct_count(2) == rig3.direct_count(0) == 1
 
 
 # -- probe backoff (satellite) ------------------------------------------------
