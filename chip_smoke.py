@@ -30,13 +30,18 @@
    "tree_gate" line, with each kernel's gathered bytes over its time).
    The staged multi fold (``resident_count_multi``) is held exactly on
    both layouts and its edge cases (K = 1-23, padded lists, duplicate
-   ids, unreferenced rows, ragged and multi-group batches, one stage);
+   ids, unreferenced rows, ragged and multi-block batches, one stage);
    every multi-fold batch the HTTP and tall paths launch, rebuilt at its
    own shape (``multi_path_batches``), is timed through the gather and
-   the staged kernels ("multi_paths" line), the staged kernel's tilings
-   against each other ("multi_tilings") and both kernels over a grid of
-   B x K x references per row in both layouts ("multi_gate", the data
-   behind ``dispatch.MULTI_REUSE_MIN``).  ``gather_count2`` is timed at
+   the staged kernels ("multi_paths" line, with what each plan reads:
+   ``plan_reads``), the staged kernel's tilings against each other and
+   its wrapper's tiling at 1-4 producer warps, at its five timed shapes
+   ("multi_tilings"), range-wide's batch also at
+   the mesh's shard shapes [8, R, W] and [32, R, W] (in the kernels
+   line), and both kernels over a grid of B x K x references per row,
+   Range-like padded folds and Range batches of a few bitmap rows over
+   spans of day views, in both layouts ("multi_gate", the data behind
+   ``dispatch.MULTI_K_MIN`` and ``MULTI_REUSE_MIN``).  ``gather_count2`` is timed at
    B = 16, 64, 256 and 600 (past the pairs a launch carries in its
    parameters), through its entry point and as a launch alone (B
    = 16 also at 1-16 segments a row).  The Gram kernel (``pair_gram``)
@@ -83,8 +88,9 @@
    over urllib — a pair batch, N-ary Intersect / Union / Difference
    batches (multi-fold kernel), nested and multi-operand Xor Counts
    (tree-fold kernel), three ``Count(Range(...))`` batches over the
-   multi-view matrix (range-1 and range-2: the gather multi-fold kernel;
-   "range-wide", whose long covers fold 17.5 operands: the staged one),
+   multi-view matrix (each takes the staged multi-fold kernel: its
+   Counts of one row over overlapping spans share their views; the
+   "range-wide" covers fold 17.5 operands),
    "tree-wide": 256 nested Counts over the 256 rows (the gather tree
    kernel), and "tree-hot": 256 nested Counts over 64 hot rows, whose
    K=8 and K=16 buckets name their rows often enough with their live
@@ -219,8 +225,14 @@ launch and at the kernels line's timed shapes — in the order DIR, this,
 this, DIR, after checking that the two agree exactly; it prints a
 ``{"card": ..., "gram_against": [...]}``, a ``"build_against"``, a
 ``"resident_against"``, a ``"gather2_against"``, a
-``"count_against"``, a ``"tree_against"`` and a ``{"card": ...,
+``"count_against"``, a ``"tree_against"``, a ``"staged_against"`` (the
+staged multi kernels alone, each through its own wrapper, at the kernels
+line's shapes, with each wrapper's host work) and a ``{"card": ...,
 "multi_against": [...]}`` line.
+
+    python3 chip_smoke.py --multi-against DIR
+
+prints the last two of those lines alone (``multi_against``).
 
     python3 chip_smoke.py --requests-against DIR
 
@@ -472,8 +484,8 @@ def _entry_name(mangled: str) -> str:
 
 
 def ptxas_usage(names) -> dict:
-    """Registers, spills and shared memory per kernel of the given sources,
-    as ``nvcc -Xptxas -v`` reports them (one nvcc per source, together)."""
+    """Registers, spills, stack and shared memory per kernel of the given
+    sources, as ``nvcc -Xptxas -v`` reports them (one nvcc per source, together)."""
     procs = {}
     with tempfile.TemporaryDirectory() as d:
         for name in names:
@@ -486,20 +498,23 @@ def ptxas_usage(names) -> dict:
             if p.returncode != 0:
                 raise RuntimeError(f"nvcc -Xptxas -v failed for {name}.cu:\n{text}")
             # Per entry, ptxas prints its spill line before its register line.
-            entries, fn, spill = [], None, None
+            entries, fn, spill, stack = [], None, None, None
             for line in text.splitlines():
                 m = re.search(r"Compiling entry function '(\S+)'", line)
                 if m:
-                    fn, spill = m.group(1), None
+                    fn, spill, stack = m.group(1), None, None
                 m = re.search(r"(\d+) bytes spill stores", line)
                 if m:
                     spill = int(m.group(1))
+                m = re.search(r"(\d+) bytes stack frame", line)
+                if m:
+                    stack = int(m.group(1))
                 m = re.search(r"Used (\d+) registers", line)
                 if m and fn:
                     smem = re.search(r"(\d+) bytes smem", line)
                     entries.append({"entry": _entry_name(fn), "registers": int(m.group(1)),
                                     "smem_bytes": int(smem.group(1)) if smem else 0,
-                                    "spill_store_bytes": spill})
+                                    "spill_store_bytes": spill, "stack_bytes": stack})
             out[name] = entries
     return out
 
@@ -899,7 +914,7 @@ def multi_choice(batch) -> str:
     a, c = batch["matrix"]
     row_major = batch["layout"] == "row"
     s, r = (c, a) if row_major else (a, c)
-    staged = dispatch.staged_multi_batch(batch["idx"], s, r, W) is not None
+    staged = dispatch.staged_multi_batch(batch["op"], batch["idx"], s, r, W) is not None
     return "staged" if staged else "gather"
 
 
@@ -907,6 +922,35 @@ def _multi_entry(dispatch_mod, batch, m):
     fn = (dispatch_mod.gather_count_multi if batch["layout"] == "slice"
           else dispatch_mod.gather_count_multi_rowmajor)
     return lambda: fn(batch["op"], m, batch["idx"])
+
+
+def multi_plan_of(batch) -> tuple:
+    """The staged kernel's plan of a batch as its wrapper builds it
+    (``kernels.multi_plan``), and the wrapper's tiling of it: (plan,
+    (chunk_words, stages)); chunk_words 0 where nothing fits."""
+    a, c = batch["matrix"]
+    r = a if batch["layout"] == "row" else c
+    ids, local = kernels.compact_rows(batch["idx"], r, "multi idx")
+    plan = kernels.multi_plan(batch["op"], ids, local)
+    return plan, kernels.multi_tiling(plan.u, W, plan.block_ints)
+
+
+def plan_reads(plan) -> dict:
+    """What a plan has the kernel read a tile: the rows its classes fold
+    (each group's union: one shared-memory read a row and vector), the
+    classes, and the first rows andnot reads once more."""
+    ints, u = plan.ints, plan.u
+    starts = ints[u:u + plan.groups + 1]
+    rows = classes = 0
+    for g in range(plan.groups):
+        at = int(starts[g]) + 2 * kernels.MULTI_Q
+        while at < starts[g + 1]:
+            n = int(ints[at]) >> 4
+            rows, classes = rows + n, classes + 1
+            at += 4 * ((n + 4) // 4)
+    return {"groups": plan.groups, "group_rows": rows, "classes": classes,
+            "first_rows": plan.groups * kernels.MULTI_Q if plan.op == "andnot" else 0,
+            "plan_ints": int(ints.size), "block_ints": plan.block_ints}
 
 
 # ---------------------------------------------------------------------------
@@ -1413,9 +1457,12 @@ def time_staged_kernels(rm, pairs_r) -> tuple[dict, list]:
 # The multi gate's grid (both kernels on the same batches, both layouts,
 # over one buffer of 32 x 1,024 rows: [32, 1024, W] or [1024, 32, W]):
 # B x K x references per distinct row (each row of the batch named
-# exactly B x K / U times, give or take one); and Range-like folds, K =
+# exactly B x K / U times, give or take one); Range-like folds, K =
 # 23 with a ragged number of distinct operands a query (MULTI_GATE_DS on
-# average) padded by repeating the first, B x operands x references.
+# average) padded by repeating the first, B x operands x references; and
+# Range batches with structure, as range-wide's: MULTI_GATE_BITMAPS
+# bitmap rows, each over spans of about d of MULTI_GATE_VIEWS day views
+# (MULTI_GATE_SPAN_DAYS), B x d x bitmap rows.
 MULTI_GATE_BATCHES = (16, 64, 128, 256, 512)
 MULTI_GATE_KS = (3, 4, 8, 16, 23)
 MULTI_GATE_REUSE = (1, 2, 3, 4, 8)
@@ -1423,11 +1470,16 @@ MULTI_GATE_SLICES, MULTI_GATE_ROWS = 32, 1024
 MULTI_GATE_PADDED_BATCHES = (64, 128)
 MULTI_GATE_DS = (8, 12, 16, 20)
 MULTI_GATE_PADDED_REUSE = (2, 3, 4, 8)
-# Tilings (chunk words, stages) timed beside the wrapper's own choice.
-MULTI_TILINGS = ((64, 2), (64, 1), (128, 2), (128, 1))
-# The most rows one stage of 64-word chunks holds beside 512 folds of 16
-# operands (4 groups): the staged kernel's one-stage edge at W = 32,768.
-ONE_STAGE_ROWS = 850
+MULTI_GATE_SPAN_BATCHES = (32, 64, 128)
+MULTI_GATE_SPAN_DAYS = (4, 8, 12, 16, 20)
+MULTI_GATE_BITMAPS = (4, 8, 16)
+MULTI_GATE_VIEWS = 31
+# Rows that fit only one stage beside the plan of 512 folds of 16
+# operands (4 blocks of groups): the staged kernel's one-stage edge at W =
+# 32,768.
+ONE_STAGE_ROWS = 1200
+# Producer warps timed at the wrapper's tiling ("multi_tilings").
+MULTI_PRODUCERS = (1, 2, 3, 4)
 
 
 def check_staged_multi(rm, diff) -> list:
@@ -1437,8 +1489,8 @@ def check_staged_multi(rm, diff) -> list:
     fold ignores a second time (andnot after the first); duplicate ids
     within a query; unreferenced rows; a ragged batch and one of three
     groups; and 512 folds over ONE_STAGE_ROWS rows, which fit only one
-    stage of 64-word chunks.  Each also equals the gather kernel of its
-    layout.  Returns the case names with their tilings."""
+    stage.  Each also equals the gather kernel of its layout.  Returns the
+    case names with their tilings."""
     rng = np.random.default_rng(STAGED_SEED + 2)
     layouts = {"slice": rm, "row": rm[:16].transpose(0, 1).contiguous()}
     r = N_ROWS
@@ -1470,15 +1522,16 @@ def check_staged_multi(rm, diff) -> list:
                     diff("resident_count_multi", got, kernels.resident_count_multi(op, m, short, row_major))
             if layout == "slice":
                 ix = short if idx is None else idx
-                u = len(np.unique(ix))
-                names.append(f"{name}: tiling {kernels.multi_tiling(u, W, len(ix), ix.shape[1], N_SLICES)}")
+                tiling = multi_plan_of(dict(layout="slice", matrix=(N_SLICES, r), op="or", idx=ix))[1]
+                names.append(f"{name}: tiling {tiling}")
     del layouts
     # One stage: 512 folds of 16 over ONE_STAGE_ROWS rows of a 4-slice matrix.
     big = _rand_words(_gen(STAGED_SEED + 3), (4, ONE_STAGE_ROWS, W))
     ix = np.resize(rng.permutation(ONE_STAGE_ROWS), (512, 16)).astype(np.int32)
-    tiling = kernels.multi_tiling(ONE_STAGE_ROWS, W, 512, 16, 4)
-    if tiling[1] != 1 or tiling[0] != 64:
-        raise AssertionError(f"{ONE_STAGE_ROWS} rows: tiling {tiling}, want one stage of 64 words")
+    for op in kernels.MULTI_OPS:
+        tiling = multi_plan_of(dict(layout="slice", matrix=(4, ONE_STAGE_ROWS), op=op, idx=ix))[1]
+        if tiling[1] != 1:
+            raise AssertionError(f"{ONE_STAGE_ROWS} rows {op}: tiling {tiling}, want one stage")
     for layout, m in (("slice", big), ("row", big.transpose(0, 1).contiguous())):
         for op in kernels.MULTI_OPS:
             diff("resident_count_multi", kernels.resident_count_multi(op, m, ix, layout == "row"),
@@ -1520,28 +1573,44 @@ def _gate_batch_padded(rng, b, d, reuse, n_rows, k=23):
     return idx
 
 
+def _gate_batch_spans(rng, b, d, bitmaps, n_rows, k=23, views=MULTI_GATE_VIEWS):
+    """B Range Counts with range-wide's structure: query q counts bitmap
+    row q mod ``bitmaps`` over a span of d - 3 .. d + 3 consecutive days
+    of ``views`` day views (the rows (day, bitmap row), drawn from
+    ``n_rows``), padded to K by repeating its first; queries shuffled."""
+    rows = rng.choice(n_rows, size=views * bitmaps, replace=False).reshape(views, bitmaps)
+    idx = np.empty((b, k), dtype=np.int32)
+    for q in range(b):
+        n = int(rng.integers(max(1, d - 3), min(k, views, d + 3) + 1))
+        day = int(rng.integers(0, views - n + 1))
+        idx[q, :n] = rows[day:day + n, q % bitmaps]
+        idx[q, n:] = idx[q, 0]
+    return idx[rng.permutation(b)]
+
+
 def time_multi(words, diff) -> tuple[dict, dict]:
     """The staged multi kernel's "kernels" line entry (range-wide's batch,
     the one its path launches, with the timed Range, the pool's K=16,
-    range-1 and range-2 beside it), and the multi lines: every batch the
+    range-1, range-2 and range-wide at the mesh's two shard shapes, [8, R,
+    W] and [32, R, W], beside it), and the multi lines: every batch the
     paths launch timed through both kernels ("paths"), the wrapper's
-    tiling against the others at three shapes ("tilings"), and the gate's
-    grid ("gate").  Every path batch and every entry is held against the
-    plain versions of both kernels, exactly; in the grid every staged
-    count equals the gather kernel's on the same batch."""
+    tiling against the others at the five shapes ("tilings"), and the
+    gate's grid ("gate").  Every path batch and every entry is held
+    against the plain versions of both kernels, exactly; in the grid
+    every staged count equals the gather kernel's on the same batch."""
     def gather(batch, m):
         fn = kernels.gather_count_multi if batch["layout"] == "slice" else kernels.gather_count_multi_rowmajor
         return lambda: fn(batch["op"], m, batch["idx"])
 
-    def staged(batch, m, tiling=None):
+    def staged(batch, m, tiling=None, producers=kernels.MULTI_PRODUCER_WARPS):
         row_major = batch["layout"] == "row"
         if tiling is None:
             return lambda: kernels.resident_count_multi(batch["op"], m, batch["idx"], row_major)
-        ids, local = kernels.compact_rows(batch["idx"], m.shape[0 if row_major else 1], "idx")
+        plan = multi_plan_of(batch)[0]
 
         def run():
-            out = torch.zeros(len(local), dtype=torch.int32, device=m.device)
-            return kernels._launch_resident_multi(batch["op"], m, ids, local, *tiling, row_major, out)
+            out = torch.zeros(batch["idx"].shape[0], dtype=torch.int32, device=m.device)
+            return kernels._launch_resident_multi(plan, m, *tiling, row_major, out, producers)
         return run
 
     def plains(batch, m):
@@ -1553,16 +1622,10 @@ def time_multi(words, diff) -> tuple[dict, dict]:
         return (lambda: _chunked(lambda x: g(op, m, x), idx),
                 lambda: _chunked(lambda x: kernels.resident_count_multi_plain(op, m, x, row_major), idx))
 
-    def tiling_of(batch):
-        idx = batch["idx"]
-        a, c = batch["matrix"]
-        s = a if batch["layout"] == "slice" else c
-        return kernels.multi_tiling(len(np.unique(idx)), W, idx.shape[0], idx.shape[1], s)
-
     def both(batch, reps=10, check=False):
         m = words.matrix(batch)
         rec = _multi_summary(batch)
-        tiling = tiling_of(batch)
+        plan, tiling = multi_plan_of(batch)
         g = gather(batch, m)
         if check:
             g_plain, s_plain = plains(batch, m)
@@ -1578,6 +1641,7 @@ def time_multi(words, diff) -> tuple[dict, dict]:
             elif not torch.equal(st(), g()):
                 raise AssertionError(f"multi {batch['request']}: staged and gather counts differ")
             rec["staged_ms"] = cuda_ms(st, reps=reps)
+            rec.update(plan_reads(plan))
         rec["dispatch"] = multi_choice(batch)
         return rec
 
@@ -1585,25 +1649,34 @@ def time_multi(words, diff) -> tuple[dict, dict]:
     paths = [both(b, check=True) for b in path_batches]
     timed = {b["request"]: b for b in multi_timed_batches()}
     range_paths = {b["request"]: b for b in path_batches if "range" in b["request"]}
+    wide = range_paths["http range-wide"]
+    row12 = [wide, timed["timed Range"], timed["timed pool K=16"], range_paths["http range-1"],
+             range_paths["http range-2"]]
+    shards = [dict(wide, request=f"http range-wide, mesh shard S={s}", matrix=(s, wide["matrix"][1]))
+              for s in sorted({MESH_SLICES // MESH_RANKS, N_SLICES // MESH_RANKS})]
 
     tilings = []
-    for batch in (range_paths["http range-wide"], timed["timed Range"], timed["timed pool K=16"]):
+    for batch in row12:
         m = words.matrix(batch)
-        idx = batch["idx"]
-        u, own = len(np.unique(idx)), kernels.multi_group_ints(*idx.shape)
-        rec = dict(_multi_summary(batch), wrapper=list(tiling_of(batch)), ms={})
-        for tiling in MULTI_TILINGS:
-            if kernels.staged_smem_bytes(u, *tiling, own) <= kernels.SMEM_BYTES:
-                rec["ms"][f"{tiling[0]}w x{tiling[1]}"] = cuda_ms(staged(batch, m, tiling))
+        plan, tiling = multi_plan_of(batch)
+        want = staged(batch, m)()
+        rec = dict(_multi_summary(batch), wrapper=list(tiling), ms={}, producers_ms={})
+        for t in kernels.MULTI_TILINGS:
+            if W % t[0] == 0 and kernels.multi_smem_bytes(plan.u, *t, plan.block_ints) <= kernels.SMEM_BYTES:
+                rec["ms"][f"{t[0]}w x{t[1]}"] = cuda_ms(staged(batch, m, t))
+        for p in MULTI_PRODUCERS:
+            run = staged(batch, m, tiling, p)
+            if not torch.equal(run(), want):
+                raise AssertionError(f"multi {batch['request']}: {p} producer warps differ")
+            rec["producers_ms"][p] = cuda_ms(run)
         tilings.append(rec)
 
     entries = []
-    for batch in (range_paths["http range-wide"], timed["timed Range"], timed["timed pool K=16"],
-                  range_paths["http range-1"], range_paths["http range-2"]):
+    for batch in row12 + shards:
         m = words.matrix(batch)
         idx, op = batch["idx"], batch["op"]
         nb, by = multi_bound(batch)
-        chunk, stages = tiling_of(batch)
+        plan, (chunk, stages) = multi_plan_of(batch)
         s_plain = plains(batch, m)[1]
         diff("resident_count_multi", staged(batch, m)(), s_plain())
         entries.append(dict(
@@ -1611,9 +1684,9 @@ def time_multi(words, diff) -> tuple[dict, dict]:
                    f"K={idx.shape[1]} ({len(np.unique(idx))} distinct rows), {op}"),
             ms=cuda_ms(staged(batch, m)), plain_ms=cuda_ms(s_plain, reps=2, warm=1),
             bound_ms=nb, bound_by=by, chunk_words=chunk, stages=stages,
-            smem_bytes=kernels.staged_smem_bytes(len(np.unique(idx)), chunk, stages,
-                                                 kernels.multi_group_ints(*idx.shape)),
-            gathered_bound_ms=idx.size * m.shape[0] * W * 4 / PEAK_BYTES_S * 1e3))
+            smem_bytes=kernels.multi_smem_bytes(plan.u, chunk, stages, plan.block_ints),
+            host_ms=host_ms(staged(batch, m), n=50),
+            gathered_bound_ms=idx.size * m.shape[0] * W * 4 / PEAK_BYTES_S * 1e3, **plan_reads(plan)))
 
     rng = np.random.default_rng(STAGED_SEED + 4)
     gate = []
@@ -1636,6 +1709,13 @@ def time_multi(words, diff) -> tuple[dict, dict]:
                     if idx is None:
                         continue
                     batch = dict(request="gate padded", layout=layout, matrix=dims, op="or", idx=idx)
+                    gate.append(both(batch, reps=5))
+        for b in MULTI_GATE_SPAN_BATCHES:
+            for d in MULTI_GATE_SPAN_DAYS:
+                for bitmaps in MULTI_GATE_BITMAPS:
+                    idx = _gate_batch_spans(rng, b, d, bitmaps, MULTI_GATE_ROWS)
+                    batch = dict(request=f"gate spans {bitmaps} bitmaps", layout=layout, matrix=dims,
+                                 op="or", idx=idx)
                     gate.append(both(batch, reps=5))
     res = {"resident_count_multi": dict(entries[0], shapes=entries[1:])}
     return res, {"paths": paths, "tilings": tilings, "gate": gate}
@@ -1674,6 +1754,12 @@ def _load_other(other_root: str):
             sys.modules[key] = ops_pkg.kernels = mods[0]
     finally:
         sys.modules[key], ops_pkg.kernels = saved
+    # The loaded entry points live in a registry keyed by name, which both
+    # modules would share: give the other checkout a store of its own.
+    from pilosa_tpu_torch.analysis import lockcheck
+
+    mods[0]._fns = lockcheck.named_global(f"ops.kernels.fns@{os.path.abspath(other_root)}",
+                                          max_entries=len(mods[0].KERNELS) + 1)
     return mods
 
 
@@ -1749,7 +1835,47 @@ def resident_against(other_root: str) -> int:
                       "tree_against": tree_against(rm, dispatch, other_dispatch)}), flush=True)
     del rm
     torch.cuda.empty_cache()
+    multi_against(other, other_dispatch, card, other_root)
+    return 0
+
+
+def multi_against(other, other_dispatch, card: str, other_root: str) -> None:
+    """The multi folds of this checkout against ``other``'s (a
+    ``_load_other`` pair): the staged kernels alone (``resident_count_multi``,
+    each its own wrapper) at the kernels line's shapes — range-wide, the
+    timed Range, the pool's K=16, range-1, range-2 and range-wide at the
+    mesh's two shard shapes — exact, then MULTI_ABBA_ROUNDS rounds of ABBA
+    and each wrapper's host work a call ("staged_against"); then the two
+    entry points with their gates at every batch the paths launch and at
+    the timed shapes, each with this checkout's staged kernel on the same
+    batch where it has a tiling ("multi_against")."""
+    from pilosa_tpu_torch.ops import dispatch
+
     words = _Words()
+    timed = {b["request"]: b for b in multi_timed_batches()}
+    paths = {b["request"]: b for b in multi_path_batches()}
+    wide = paths["http range-wide"]
+    shapes = [wide, timed["timed Range"], timed["timed pool K=16"], paths["http range-1"],
+              paths["http range-2"]]
+    shapes += [dict(wide, request=f"http range-wide, mesh shard S={s}", matrix=(s, wide["matrix"][1]))
+               for s in sorted({MESH_SLICES // MESH_RANKS, N_SLICES // MESH_RANKS})]
+    staged = []
+    for batch in shapes:
+        m = words.matrix(batch)
+        row_major = batch["layout"] == "row"
+
+        def mine():
+            return kernels.resident_count_multi(batch["op"], m, batch["idx"], row_major)
+
+        def theirs():
+            return other.resident_count_multi(batch["op"], m, batch["idx"], row_major)
+        if not torch.equal(mine(), theirs()):
+            raise AssertionError(f"resident_count_multi {batch['request']}: the checkouts disagree")
+        o_ms, ms = _abba_rounds(theirs, mine)
+        staged.append(dict(_multi_summary(batch), other_ms=o_ms, ms=ms,
+                           other_host_ms=host_ms(theirs, n=50), host_ms=host_ms(mine, n=50),
+                           tiling=list(multi_plan_of(batch)[1])))
+    print(json.dumps({"card": card, "other": other_root, "staged_against": staged}), flush=True)
     multi = []
     for batch in multi_path_batches() + multi_timed_batches():
         m = words.matrix(batch)
@@ -1758,18 +1884,26 @@ def resident_against(other_root: str) -> int:
             raise AssertionError(f"multi-fold {batch['request']}: the checkouts disagree")
         o_ms, ms = _abba_rounds(theirs, mine)
         row_major = batch["layout"] == "row"
-        idx = batch["idx"]
-        a, c = batch["matrix"]
         staged_ms = None
-        if kernels.multi_tiling(len(np.unique(idx)), W, *idx.shape, c if row_major else a)[0]:
-            def staged():
-                return kernels.resident_count_multi(batch["op"], m, idx, row_major)
-            if not torch.equal(staged(), mine()):
+        if multi_plan_of(batch)[1][0]:
+            def staged_fn():
+                return kernels.resident_count_multi(batch["op"], m, batch["idx"], row_major)
+            if not torch.equal(staged_fn(), mine()):
                 raise AssertionError(f"multi-fold {batch['request']}: staged and entry point disagree")
-            staged_ms = cuda_ms(staged)
+            staged_ms = cuda_ms(staged_fn)
         multi.append(dict(_multi_summary(batch), other_ms=o_ms, ms=ms, staged_ms=staged_ms,
                           dispatch=multi_choice(batch)))
     print(json.dumps({"card": card, "other": other_root, "multi_against": multi}), flush=True)
+
+
+def multi_against_only(other_root: str) -> int:
+    """``--multi-against DIR``: ``multi_against`` alone (no Gram, build,
+    pair, count or tree phase)."""
+    card = probe()
+    kernels.build()
+    other, other_dispatch = _load_other(other_root)
+    other.build()
+    multi_against(other, other_dispatch, card, other_root)
     return 0
 
 
@@ -2552,12 +2686,14 @@ def http_path(host: str, ex_ref, n_rows: int, time_rows: int, engine) -> list[di
             expect=("gather_count_multi",))
     run("tree", [_tree_call(rng, n_rows, i) for i in range(FOLD_BATCH)], expect=("gather_count_tree",))
     # range-2 repeats range-1's spans, which answer from the cover memo;
-    # its new spans' covers launch.  Their covers average 10-12 distinct
-    # views, too few for the staged kernel (dispatch.multi_strategy);
-    # range-wide's 16-19 views over 240 rows are enough.
+    # its new spans' covers launch.  Each Range batch's Counts of one row
+    # over overlapping spans share their views, so all three take the
+    # staged kernel (dispatch.multi_strategy, multi_shares): range-1 and
+    # range-2 at 10-12 distinct views a cover, range-wide at 16-19 over
+    # 240 rows.
     one, two, wide = range_requests(time_rows)
-    run("range-1", [_range_call(r, sp) for r, sp in one], expect=("gather_count_multi",))
-    run("range-2", [_range_call(r, sp) for r, sp in two], expect=("gather_count_multi",))
+    run("range-1", [_range_call(r, sp) for r, sp in one], expect=("resident_count_multi",))
+    run("range-2", [_range_call(r, sp) for r, sp in two], expect=("resident_count_multi",))
     run("range-wide", [_range_call(r, sp) for r, sp in wide], expect=("resident_count_multi",))
     # Nested Counts four times as many as "tree": buckets of 128 trees at
     # K=4 and 64 at K=8 and K=16, 1.1-2.3 live references a row: the
@@ -2680,6 +2816,41 @@ def paths_data(d: str):
     add_time_frame(h, N_SLICES, TIME_ROWS, BITS_PER_ROW, SEED + 4)
     print(f"time_frame_s {time.perf_counter() - t0:.3f} ({N_SLICES} slices x {TIME_ROWS} rows, YMD)",
           flush=True)
+    return h
+
+
+def build_data(kind: str, path: str) -> int:
+    """``--build-data KIND DIR``: the executor and HTTP paths' holder
+    (``paths``: ``paths_data``) or the tall path's (``tall``) built in
+    DIR and closed, on the host alone (no card)."""
+    if kind == "paths":
+        paths_data(path).close()
+        return 0
+    t0 = time.perf_counter()
+    build_holder(path, TALL_SLICES, TALL_ROWS, TALL_BITS, SEED + 5).close()
+    print(f"tall_holder_s {time.perf_counter() - t0:.3f} ({TALL_SLICES} slices x {TALL_ROWS} rows)",
+          flush=True)
+    return 0
+
+
+def start_data_builds(paths_dir: str, tall_dir: str) -> list:
+    """Both data directories built by processes of their own on the host,
+    while the kernel phases run on the card."""
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--build-data", kind, path],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for kind, path in (("paths", paths_dir), ("tall", tall_dir))]
+
+
+def open_built(proc, path: str):
+    """Wait for a data build, print its output, and open its holder."""
+    from pilosa_tpu_torch.core.holder import Holder
+
+    out, _ = proc.communicate()
+    print(out, end="", flush=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the data build of {path} failed (rc {proc.returncode})")
+    h = Holder(path)
+    h.open()
     return h
 
 
@@ -4743,6 +4914,23 @@ def analysis_path(base: str) -> tuple[dict, dict]:
 
 def main() -> int:
     card = probe()
+    # The paths' data directories build on the host, in processes of
+    # their own, while the kernels build and the card runs the kernel
+    # phases.
+    tmp, tmp2 = tempfile.TemporaryDirectory(), tempfile.TemporaryDirectory()
+    builds = start_data_builds(tmp.name, tmp2.name)
+    try:
+        return _main(card, builds, tmp.name, tmp2.name)
+    finally:
+        for p in builds:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        tmp.cleanup()
+        tmp2.cleanup()
+
+
+def _main(card: str, builds: list, d: str, d2: str) -> int:
     phase_s = {}
     t_phase = [time.perf_counter()]
 
@@ -4782,45 +4970,40 @@ def main() -> int:
     record_fleet_builds()
 
     lap("diffcheck")
-    with tempfile.TemporaryDirectory() as d:
-        h = paths_data(d)
-        lap("holder")
-        records, launches["executor"] = executor_path(h)
-        print(json.dumps({"card": card, "gather2_paths": time_gather2_paths()}), flush=True)
-        lap("executor")
-        http_records, launches["http"] = server_path(d)
-        print(json.dumps({"card": card, "tree_paths": time_tree_paths()}), flush=True)
-        lap("http")
-        bulk, bulk_launches = bulk_path(d)
-        launches.update(bulk_launches)
-        print(json.dumps({"card": card, "bulk": bulk}), flush=True)
-        lap("bulk")
-        mesh, mesh_launches = mesh_path(d, card)
-        launches.update(mesh_launches)
-        print(json.dumps({"card": card, "mesh": mesh}), flush=True)
-        lap("mesh")
-        fleet, fleet_launches = fleet_path(d, card)
-        launches.update(fleet_launches)
-        print(json.dumps({"card": card, "fleet": fleet}), flush=True)
-        lap("fleet")
-        analysis_base = analysis_copy(d)
+    h = open_built(builds[0], d)
+    lap("holder")
+    records, launches["executor"] = executor_path(h)
+    print(json.dumps({"card": card, "gather2_paths": time_gather2_paths()}), flush=True)
+    lap("executor")
+    http_records, launches["http"] = server_path(d)
+    print(json.dumps({"card": card, "tree_paths": time_tree_paths()}), flush=True)
+    lap("http")
+    bulk, bulk_launches = bulk_path(d)
+    launches.update(bulk_launches)
+    print(json.dumps({"card": card, "bulk": bulk}), flush=True)
+    lap("bulk")
+    mesh, mesh_launches = mesh_path(d, card)
+    launches.update(mesh_launches)
+    print(json.dumps({"card": card, "mesh": mesh}), flush=True)
+    lap("mesh")
+    fleet, fleet_launches = fleet_path(d, card)
+    launches.update(fleet_launches)
+    print(json.dumps({"card": card, "fleet": fleet}), flush=True)
+    lap("fleet")
+    analysis_base = analysis_copy(d)
 
     # The tall path, in a data directory of its own.
     from pilosa_tpu_torch.executor import Executor
 
-    with tempfile.TemporaryDirectory() as d2:
-        t0 = time.perf_counter()
-        h2 = build_holder(d2, TALL_SLICES, TALL_ROWS, TALL_BITS, SEED + 5)
-        print(f"tall_holder_s {time.perf_counter() - t0:.3f} ({TALL_SLICES} slices x {TALL_ROWS} rows)",
-              flush=True)
-        ex2 = Executor(h2)
-        ex2_ref = Executor(h2, engine="numpy")
-        kernels.reset_launches()
-        tall_records = tall_path(ex2, ex2_ref, TALL_ROWS, sync=torch.cuda.synchronize)
-        launches["tall"] = dict(kernels.LAUNCHES)
-        h2.close()
-        del ex2, ex2_ref
-        torch.cuda.empty_cache()
+    h2 = open_built(builds[1], d2)
+    ex2 = Executor(h2)
+    ex2_ref = Executor(h2, engine="numpy")
+    kernels.reset_launches()
+    tall_records = tall_path(ex2, ex2_ref, TALL_ROWS, sync=torch.cuda.synchronize)
+    launches["tall"] = dict(kernels.LAUNCHES)
+    h2.close()
+    del ex2, ex2_ref
+    torch.cuda.empty_cache()
 
     lap("tall")
     analysis, analysis_launches = analysis_path(analysis_base)
@@ -4869,6 +5052,10 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--resident-against"]:
         sys.exit(resident_against(sys.argv[2]))
+    if sys.argv[1:2] == ["--build-data"]:
+        sys.exit(build_data(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--multi-against"]:
+        sys.exit(multi_against_only(sys.argv[2]))
     if sys.argv[1:2] == ["--requests-against"]:
         sys.exit(requests_against(sys.argv[2]))
     if sys.argv[1:2] == ["--requests"]:

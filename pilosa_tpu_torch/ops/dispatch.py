@@ -80,39 +80,48 @@ def topn_scorer_counts(row_matrix: torch.Tensor, pos, src_stack: torch.Tensor):
 
 
 # The staged multi kernel serves a batch whose folds average MULTI_K_MIN
-# or more distinct operands, whose groups of 128 folds make
-# MULTI_REFS_MIN or more references, and which names each distinct row
-# MULTI_REUSE_MIN or more times for every group staging it: a group past
-# the first stages every tile again, so a batch of G groups needs refs >=
-# MULTI_REUSE_MIN x (2G - 1) x U.  Every clause counts references as each
-# query's distinct operands: a Range cover's pads repeat its first id,
-# and both kernels read a repeat almost free (the gather kernel from L1,
-# the staged kernel not at all).
-# Measured on the H100 (PERF_GATES.md, the multi gate: both layouts, unpadded
-# folds and Range-like folds padded to K = 23): at 8-12 distinct
-# operands a fold the gather kernel, whose repeats L2 serves, wins or
-# ties unless rows repeat 8 times; at 15-16 one group of 128 folds is
-# 7-32% faster staged from 3 references a row and 64 folds tie within
-# 10%; from 18 the staged kernel wins at every reuse from 2 (MULTI_K_MIN
-# sits between 12 and 15).  Groups of 16 folds (260-370 references) lose
-# or tie at any reuse, groups of 64 (960+) tie or win: the staged
-# wrapper's host work, compaction and per-query lists, weighs on small
-# batches (MULTI_REFS_MIN sits between).  2 groups win at 8 references a
-# row and lose at 4; 4 groups lose at 8.
-MULTI_K_MIN = 14
+# or more distinct operands, whose blocks of 128 folds make
+# MULTI_REFS_MIN or more references, which names each distinct row
+# MULTI_REUSE_MIN or more times for every block staging it (a batch past
+# 128 folds takes further blocks, each staging every tile again: G
+# blocks need refs >= MULTI_REUSE_MIN x (2G - 1) x U), whose rows fit a
+# ring of two stages or more, and whose folds share their rows: the
+# kernel reads a row once per group of four folds that names it, so its
+# plan's group rows (``kernels.MultiPlan.group_rows``) are at most
+# MULTI_SHARE_MAX of the references, unless the folds are wide (on
+# average MULTI_WIDE_K operands or more and MULTI_WIDE_REUSE references a
+# row and block).  Every clause counts references as each query's
+# distinct operands: a Range cover's pads repeat its first id, and both
+# kernels read a repeat almost free (the gather kernel from L1, the
+# staged kernel not at all).
+# Measured on the H100 (PERF_GATES.md, the multi gate: both layouts,
+# random folds, Range-like folds padded to K = 23, Range batches of 4-16
+# bitmap rows over spans of 4-20 of 31 day views, and the paths'
+# batches): folds whose groups share rows (group rows at most 0.5-0.7 of
+# the references: every Range batch of the paths) tie or win from 9
+# operands a fold and 2 references a row, by up to 50%; random folds,
+# which share little, win only when wide (15 operands and 3 a row); 8
+# operands lose unless the groups share half their rows; 16 folds lose
+# or tie at any reuse (MULTI_REFS_MIN); one stage (981 rows of K=23)
+# loses by 20%.
+MULTI_K_MIN = 9
 MULTI_REFS_MIN = 600
 MULTI_REUSE_MIN = 2
+MULTI_SHARE_MAX = 0.7
+MULTI_WIDE_K = 15
+MULTI_WIDE_REUSE = 3
 
 
 def multi_strategy(n_distinct: int, w: int, batch: int, k: int, n_slices: int,
                    refs: int) -> bool:
-    """Whether the staged multi kernel (``resident_count_multi``) serves a
-    batch of B folds of K operands (K: the padded width) naming
-    ``n_distinct`` rows, ``refs`` references in all (each query's
-    distinct operands, summed): on average MULTI_K_MIN operands a fold,
-    MULTI_REFS_MIN references a group of up to 128 folds, every row named
-    often enough for the batch's groups (above), and a tiling of the rows
-    and the group's operand offsets that fits one block's shared memory.
+    """The clauses of the staged multi kernel's gate that read the
+    batch's shape (``multi_shares`` reads its plan): B folds of K
+    operands (K: the padded width) naming ``n_distinct`` rows, ``refs``
+    references in all (each query's distinct operands, summed) — on
+    average MULTI_K_MIN operands a fold, MULTI_REFS_MIN references a
+    block of up to 128 folds, every row named often enough for the
+    batch's blocks (above), and a tiling of two stages or more for the
+    rows beside the bound on a block's plan (``kernels.multi_group_ints``).
     The rule is the same in both layouts (the gate's grid measured
     both)."""
     if not _multi_refs_ok(batch, refs / batch if batch else 0):
@@ -120,7 +129,18 @@ def multi_strategy(n_distinct: int, w: int, batch: int, k: int, n_slices: int,
     groups = -(-batch // kernels.MULTI_GROUP)
     if refs < MULTI_REUSE_MIN * (2 * groups - 1) * n_distinct:
         return False
-    return kernels.multi_tiling(n_distinct, w, batch, k, n_slices)[0] > 0
+    own = kernels.multi_group_ints(batch, k)
+    return kernels.multi_tiling(n_distinct, w, own)[1] >= 2
+
+
+def multi_shares(group_rows: int, batch: int, n_distinct: int, refs: int) -> bool:
+    """The gate's clause on the plan: the groups' rows at most
+    MULTI_SHARE_MAX of the references, or wide folds named often (above)."""
+    if group_rows <= MULTI_SHARE_MAX * refs:
+        return True
+    blocks = -(-batch // kernels.MULTI_GROUP)
+    return (refs >= MULTI_WIDE_K * batch
+            and refs >= MULTI_WIDE_REUSE * (2 * blocks - 1) * n_distinct)
 
 
 def _multi_refs_ok(batch: int, k: float) -> bool:
@@ -137,36 +157,43 @@ def fold_refs(local: np.ndarray) -> int:
     return local.shape[0] + int(np.count_nonzero(srt[:, 1:] != srt[:, :-1]))
 
 
-def staged_multi_batch(idx, n_slices: int, n_rows: int, w: int):
-    """``multi_strategy`` applied to a batch of fold ids over a matrix of
-    ``n_slices`` x ``n_rows`` rows of ``w`` words: the batch's compaction
-    (``kernels.compact_rows``) where the staged kernel serves it, else
-    None.  A batch the gate declines on B and K alone is not compacted."""
+def staged_multi_batch(op: str, idx, n_slices: int, n_rows: int, w: int):
+    """The multi gate applied to a batch of ``op`` fold ids over a matrix
+    of ``n_slices`` x ``n_rows`` rows of ``w`` words: ``(compaction,
+    plan)`` (``kernels.compact_rows``, ``kernels.multi_plan``) where the
+    staged kernel serves it, else None.  A batch the gate declines on B
+    and K alone is not compacted, one declined on its shape not planned."""
     ix = np.asarray(idx)
     if ix.ndim != 2 or not _multi_refs_ok(*ix.shape):
         return None
     ids, local = kernels.compact_rows(ix, n_rows, "multi fold idx")
-    if not multi_strategy(ids.size, w, ix.shape[0], ix.shape[1], n_slices, fold_refs(local)):
+    refs = fold_refs(local)
+    if not multi_strategy(ids.size, w, ix.shape[0], ix.shape[1], n_slices, refs):
         return None
-    return ids, local
+    plan = kernels.multi_plan(op, ids, local)
+    if not multi_shares(plan.group_rows, ix.shape[0], ids.size, refs):
+        return None
+    return (ids, local), plan
 
 
 def _multi(op: str, matrix: torch.Tensor, idx, row_major: bool):
     """The staged kernel's counts where the gate admits the batch, else
-    None; the batch is compacted once, for the gate and the kernel both."""
+    None; the batch is compacted and planned once, for the gate and the
+    kernel both."""
     a, b, w = matrix.shape
     n_slices, n_rows = (b, a) if row_major else (a, b)
-    compacted = staged_multi_batch(idx, n_slices, n_rows, w)
-    if compacted is None:
+    staged = staged_multi_batch(op, idx, n_slices, n_rows, w)
+    if staged is None:
         return None
-    return kernels.resident_count_multi(op, matrix, idx, row_major, compacted=compacted)
+    compacted, plan = staged
+    return kernels.resident_count_multi(op, matrix, idx, row_major, compacted=compacted, plan=plan)
 
 
 def gather_count_multi(op: str, row_matrix: torch.Tensor, idx):
     """K-operand left-fold counts (N-operand Intersect/Union/Difference,
-    Range covers) -> int32[B]: the staged kernel where ``multi_strategy``
-    admits the batch, else the gather kernel.  The choice reads shapes
-    only."""
+    Range covers) -> int32[B]: the staged kernel where the multi gate
+    (``staged_multi_batch``) admits the batch, else the gather kernel.
+    The choice reads the batch's shape and its plan."""
     got = _multi(op, row_matrix, idx, row_major=False)
     return kernels.gather_count_multi(op, row_matrix, idx) if got is None else got
 
@@ -238,7 +265,7 @@ def gather_count_rowmajor(op: str, row_major: torch.Tensor, pairs):
 
 def gather_count_multi_rowmajor(op: str, row_major: torch.Tensor, idx):
     """K-operand fold counts over a ROW-MAJOR [R, S, W] matrix -> int32[B]:
-    the staged kernel where ``multi_strategy`` admits the batch, else the
+    the staged kernel where the multi gate admits the batch, else the
     row-major gather kernel."""
     got = _multi(op, row_major, idx, row_major=True)
     return kernels.gather_count_multi_rowmajor(op, row_major, idx) if got is None else got

@@ -32,8 +32,11 @@ multi folds, either layout, ``resident_count_multi``.  All eleven are
 bound by device-memory bytes on this card; each source says what its
 design does about that.  The three resident kernels stage the batch's
 distinct rows through shared-memory tiles copied by cp.async
-(``csrc/stage.cuh``); their wrappers compact the ids on the host first
-(``compact_rows``).  The twelfth, ``pair_gram``, replaces the
+(``csrc/stage.cuh``; ``resident_count_multi`` through the producer /
+consumer ring of ``csrc/ring.cuh``); their wrappers compact the ids on
+the host first (``compact_rows``), and ``resident_count_multi``'s builds
+a plan in host C++ (``csrc/multi_plan.cpp``, compiled with g++ at first
+use: ``multi_plan``).  The twelfth, ``pair_gram``, replaces the
 reference's all-pairs Gram (pilosa_tpu/ops/bitwise.py pair_gram, an MXU
 product rather than Pallas): it runs on the tensor cores (wgmma, 1-bit
 AND-popc, both operands from shared memory).  The thirteenth,
@@ -51,6 +54,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -66,6 +70,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+# The host library (csrc/multi_plan.cpp: resident_count_multi's plan).
+HOST_CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 
 KERNELS = (
     "count_rows", "resident_count2", "gather_count2", "gather_src_counts",
@@ -98,7 +104,7 @@ _ARGTYPES = {
     "gather_count_multi_rowmajor": (
         "pk_gather_count_multi_rowmajor", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "topn_counts": ("pk_topn_counts", [_P, _P, _P, _I, _I, _I, _P]),
-    "resident_count_multi": ("pk_resident_count_multi", [_P] * 6 + [_I] * 10 + [_P]),
+    "resident_count_multi": ("pk_resident_count_multi", [_P] * 3 + [_I, _P] + [_I] * 12 + [_P]),
     "pair_gram": ("pk_pair_gram", [_P, _P, _I, _I, _I, _L, _L, _I, _P]),
     "build_planes": ("pk_build_planes", [_P, _L, _P, _L, _P, _I, _P]),
 }
@@ -107,7 +113,7 @@ _ARGTYPES = {
 # one compile and load.  The loaded entry points live in a registered
 # global, filled under the build lock and read by every launch.
 _build_mu = lockcheck.named_lock("ops.kernels._build_mu")
-_fns = lockcheck.named_global("ops.kernels.fns", max_entries=len(KERNELS))
+_fns = lockcheck.named_global("ops.kernels.fns", max_entries=len(KERNELS) + 1)
 
 
 def reset_launches() -> None:
@@ -142,7 +148,7 @@ def build() -> dict:
     import time
 
     with _build_mu:
-        if len(_fns) == len(KERNELS):
+        if all(_fns.get(name) is not None for name in KERNELS):
             return {}
         os.makedirs(BUILD_DIR, exist_ok=True)
         procs = {}
@@ -788,25 +794,63 @@ def gather_count_multi_rowmajor(op: str, row_major: torch.Tensor, idx) -> torch.
 # resident_count_multi (fused_gather_count_multi and its row-major form, staged)
 # ---------------------------------------------------------------------------
 
-# Queries a block holds (16 warps x 8 queries, partial sums in registers):
-# resident_count_multi.cu's kGroup.  A larger batch takes further groups,
-# each staging every tile.
-MULTI_GROUP = 128
+# Queries a fold group holds (a half-warp folds them together, partial
+# sums in registers), groups a block holds, and the queries a block
+# serves: resident_count_multi.cu's kQ, kGroupsPerBlock and the product.
+# A larger batch takes further blocks along the grid's y, each staging
+# every tile.
+MULTI_Q = 4
+MULTI_GROUPS_PER_BLOCK = 32
+MULTI_GROUP = MULTI_Q * MULTI_GROUPS_PER_BLOCK
+# Tilings (chunk_words, stages) in the order the wrapper prefers them, the
+# first that fits shared memory winning: 64-word chunks (a half-warp
+# reads a row's chunk as 16 int4 vectors) in a ring of three stages,
+# then two; 32-word chunks (a quarter-warp a row) where 64 do not fit
+# twice; one stage last (64-word chunks in one stage take the bytes of
+# 32-word ones in two, and were slower at every shape: PERF_GATES.md).
+MULTI_TILINGS = ((64, 3), (64, 2), (32, 3), (32, 2), (32, 1))
+# The most plan ints a launch carries in its own parameters (a
+# __grid_constant__ struct of 16 KiB; CUDA 12.1 allows 32 KB); a larger
+# plan is uploaded.  resident_count_multi.cu's kPlanInts.
+MULTI_PARAM_INTS = 4096
+# Warps of a block that copy the tiles into the ring: one alone set the
+# pace; four were within 3% of six and eight at every path shape
+# (PERF_GATES.md), and more would cap the registers (resident_count_multi.cu
+# kMaxProducerWarps; chip_smoke.py's "multi_tilings" times 1-4).
+MULTI_PRODUCER_WARPS = 4
+# The barriers of a ring of up to four stages (full and empty, 8 bytes
+# each), in front of the plan in shared memory.
+_MULTI_BAR_BYTES = 64
+
+
+def multi_smem_bytes(u: int, chunk_words: int, stages: int, block_ints: int) -> int:
+    """Shared memory of a resident_count_multi launch: the ring's tiles
+    (U rows of chunk_words words a stage), its barriers, a block's plan
+    ints (its groups' records and their offsets) and the U row ids."""
+    return stages * u * chunk_words * 4 + _MULTI_BAR_BYTES + 4 * (block_ints + u)
 
 
 def multi_group_ints(batch: int, k: int) -> int:
-    """resident_count_multi's own shared ints for one group, at most: each
-    query's operand offsets (K, padded to a multiple of four), its count
-    of groups of four and its index in the output."""
-    return min(batch, MULTI_GROUP) * (-(-k // 4) * 4 + 2)
+    """The most plan ints one block of resident_count_multi can hold for
+    ``batch`` folds of K operands (``MultiPlan.block_ints`` is the exact
+    count): per group of MULTI_Q queries, its two int4 headers, its
+    union's rows (at most MULTI_Q x K) and at most four ints of header
+    and padding for each of its at most 15 classes; and the groups'
+    offsets."""
+    g = -(-min(batch, MULTI_GROUP) // MULTI_Q)
+    return g * (8 + MULTI_Q * k + 4 * (2 ** MULTI_Q - 1)) + g + 1
 
 
-def multi_tiling(u: int, w: int, batch: int, k: int, n_slices: int) -> tuple[int, int]:
+def multi_tiling(u: int, w: int, block_ints: int) -> tuple[int, int]:
     """(chunk_words, stages) of a resident_count_multi launch over U
-    distinct rows named by ``batch`` folds of K operands (K: the padded
-    list width, which bounds the wrapper's lists); chunk_words 0 when
-    nothing fits (at W = 32,768 about 860 rows at most)."""
-    return staged_tiling(u, w, multi_group_ints(batch, k), n_slices)
+    distinct rows of W words with ``block_ints`` plan ints a block (the
+    gate passes ``multi_group_ints``, which bounds them): the first of
+    MULTI_TILINGS whose chunk divides W and which fits one block's shared
+    memory; (0, 0) where none does."""
+    for chunk, stages in MULTI_TILINGS:
+        if w % chunk == 0 and multi_smem_bytes(u, chunk, stages, block_ints) <= SMEM_BYTES:
+            return chunk, stages
+    return 0, 0
 
 
 def _multi_dims(matrix, row_major: bool) -> tuple[int, int, int]:
@@ -815,6 +859,133 @@ def _multi_dims(matrix, row_major: bool) -> tuple[int, int, int]:
         raise ValueError(f"multi fold: matrix shape {tuple(matrix.shape)}, want 3 dims")
     a, b, w = matrix.shape
     return (b, a, w) if row_major else (a, b, w)
+
+
+class MultiPlan(NamedTuple):
+    """resident_count_multi's launch plan, one int32 array (``ints``):
+
+    - ``[0, u)``: the U distinct rows the batch names (matrix rows);
+    - ``[u, u + groups + 1)``: each group's record offset in ``ints``,
+      then the end of the last;
+    - from the first multiple of four past those: the groups' records.
+
+    A group is MULTI_Q queries folded together.  Its record, int4-aligned:
+    the out index of each of its queries (-1 past the batch), the row of
+    each query's first operand (andnot; 0 otherwise), then its classes.
+    A class is the rows that exactly the same queries of the group name,
+    ``mask`` (bit j: the group's query j) and ``n`` rows: one int ``mask
+    | n << 4`` and the rows (indices into the U staged rows), padded to a
+    multiple of four ints.  For andnot the classes hold each query's
+    operands after its first.  ``op`` is the fold the kernel runs (a fold
+    of one operand is and); ``block_ints`` the most plan ints one block
+    copies (its groups' records and offsets); ``group_rows`` the rows
+    the classes fold, summed over the groups (the shared-memory reads of
+    one vector of a tile)."""
+    ints: np.ndarray
+    u: int
+    groups: int
+    block_ints: int
+    op: str
+    group_rows: int
+
+
+def _plan_fn():
+    """pk_multi_plan (csrc/multi_plan.cpp, host code), compiled at first
+    use with the host C++ compiler into BUILD_DIR and bound with ctypes,
+    on the CPU as on the card's machine.  The library is named by the
+    hash of the source, the flags, the compiler and the machine (a copy
+    of the tree on another machine builds its own)."""
+    fn = _fns.get("multi_plan")
+    if fn is not None:
+        return fn
+    with _build_mu:
+        fn = _fns.get("multi_plan")
+        if fn is None:
+            src = os.path.join(_CSRC, "multi_plan.cpp")
+            cxx = shutil.which("g++") or shutil.which("c++")
+            if cxx is None:
+                raise RuntimeError("no host C++ compiler (g++) for csrc/multi_plan.cpp")
+            h = hashlib.sha256(" ".join((cxx, *HOST_CXX_FLAGS, *os.uname())).encode())
+            with open(src, "rb") as f:
+                h.update(f.read())
+            path = os.path.join(BUILD_DIR, f"libmulti_plan-{h.hexdigest()[:16]}.so")
+            if not os.path.exists(path):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{path}.{os.getpid()}.tmp"
+                # The build lock exists to hold other threads across the compile.
+                with lockcheck.allowed("subprocess"):
+                    p = subprocess.run([cxx, *HOST_CXX_FLAGS, "-o", tmp, src],
+                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                if p.returncode != 0:
+                    raise RuntimeError(f"{cxx} failed for multi_plan.cpp:\n"
+                                       f"{p.stdout.decode(errors='replace')}")
+                os.replace(tmp, path)
+            fn = ctypes.CDLL(path).pk_multi_plan
+            fn.argtypes = [_P, _I, _I, _P, _I, _I, _P, _L, _P]
+            fn.restype = ctypes.c_longlong
+            _fns.put("multi_plan", fn)
+    return fn
+
+
+def multi_plan(op: str, ids: np.ndarray, local: np.ndarray) -> MultiPlan:
+    """The plan of a resident_count_multi launch over the compacted batch
+    ``(ids, local)`` (``compact_rows``), built by csrc/multi_plan.cpp:
+    each query's operands without their repeats (andnot's first operand
+    kept apart), the queries ordered by the component of the row-sharing
+    graph they lie in and then by their sorted operands, cut into groups
+    of MULTI_Q in that order (a Range batch's Counts of one bitmap row
+    over overlapping spans fall together), and each group's rows split
+    into classes by the queries that name them: the kernel folds a
+    class's rows once, one shared-memory read a row, and applies the
+    result to each query of its mask."""
+    b, k = local.shape
+    u = int(ids.size)
+    if k == 1:
+        op = "and"
+    groups = -(-b // MULTI_Q)
+    cap = -(-(u + groups + 1) // 4) * 4 + groups * (8 + MULTI_Q * k + 4 * (2 ** MULTI_Q - 1))
+    loc = np.ascontiguousarray(local, dtype=np.int32)
+    rows = np.ascontiguousarray(ids, dtype=np.int32)
+    out = np.empty(cap, dtype=np.int32)
+    meta = np.empty(3, dtype=np.int32)
+    n = _plan_fn()(loc.ctypes.data, b, k, rows.ctypes.data, u, int(op == "andnot"),
+                   out.ctypes.data, cap, meta.ctypes.data)
+    if n < 0:
+        raise RuntimeError(f"multi_plan: a plan of {b} x {k} operands passed {cap} ints")
+    return MultiPlan(out[:n], u, int(meta[0]), int(meta[1]), op, int(meta[2]))
+
+
+def multi_plan_fold(plan: MultiPlan, rows) -> torch.Tensor:
+    """A plain model of the kernel's fold over a plan: ``rows`` the U
+    staged rows of every slice, int32[S, U, W] (``matrix[:, ids]``);
+    group by group and class by class, each class's rows folded once and
+    applied to the queries of its mask -> int32[B], as the kernel counts.
+    The CPU tests hold it against the Pallas folds."""
+    ints, u, op = plan.ints, plan.u, plan.op
+    g_start = ints[u:u + plan.groups + 1]
+    b = int((ints[g_start[:-1, None] + np.arange(MULTI_Q)] >= 0).sum())
+    out = torch.zeros(b, dtype=torch.int32)
+    ident = torch.full(rows[:, 0].shape, -1 if op == "and" else 0, dtype=rows.dtype)
+    for g in range(plan.groups):
+        at, end = int(g_start[g]), int(g_start[g + 1])
+        acc = [ident.clone() for _ in range(MULTI_Q)]
+        at += 2 * MULTI_Q
+        while at < end:
+            m, n = int(ints[at]) & 15, int(ints[at]) >> 4
+            t = rows[:, ints[at + 1]]
+            for x in ints[at + 2:at + 1 + n]:
+                t = t & rows[:, x] if op == "and" else t | rows[:, x]
+            for j in range(MULTI_Q):
+                if m >> j & 1:
+                    acc[j] = acc[j] & t if op == "and" else acc[j] | t
+            at += 4 * ((n + 4) // 4)
+        for j in range(MULTI_Q):
+            q = int(ints[int(g_start[g]) + j])
+            if q < 0:
+                continue
+            a = rows[:, ints[int(g_start[g]) + MULTI_Q + j]] & ~acc[j] if op == "andnot" else acc[j]
+            out[q] = bitwise.count(a).sum(dtype=torch.int32)
+    return out
 
 
 def resident_count_multi_plain(op: str, matrix, idx, row_major: bool = False, compacted=None):
@@ -829,11 +1000,13 @@ def resident_count_multi_plain(op: str, matrix, idx, row_major: bool = False, co
 
 
 def resident_count_multi(op: str, matrix: torch.Tensor, idx, row_major: bool = False,
-                         compacted=None) -> torch.Tensor:
+                         compacted=None, plan: MultiPlan = None) -> torch.Tensor:
     """``gather_count_multi``'s function (``row_major``:
     ``gather_count_multi_rowmajor``'s) -> int32[B], each distinct row the
-    batch names staged in shared memory once per word chunk.
-    ``compacted``: ``compact_rows(idx, R, ...)`` where the caller has it
+    batch names staged in shared memory once per word chunk and read
+    from there once per group of MULTI_Q folds that names it
+    (``multi_plan``).  ``compacted``: ``compact_rows(idx, R, ...)`` and
+    ``plan``: ``multi_plan(op, *compacted)``, where the caller has them
     already.  On the CPU: the same remap, then the plain fold over the
     compacted rows."""
     if op not in MULTI_OPS:
@@ -845,57 +1018,32 @@ def resident_count_multi(op: str, matrix: torch.Tensor, idx, row_major: bool = F
     if _on_cpu(matrix):
         return resident_count_multi_plain(op, matrix, idx, row_major, (ids, local))
     _words(matrix, "resident_count_multi matrix", 3)
-    b, k = local.shape
+    b = local.shape[0]
     out = torch.zeros(b, dtype=torch.int32, device=matrix.device)
     if b == 0:
         return out
-    chunk, stages = multi_tiling(ids.size, w, b, k, s)
+    plan = plan or multi_plan(op, ids, local)
+    chunk, stages = multi_tiling(plan.u, w, plan.block_ints)
     if chunk == 0:
-        raise ValueError(f"resident_count_multi: {ids.size} rows of {w} words and {b} x {k} "
-                         "operands do not fit shared memory")
-    return _launch_resident_multi(op, matrix, ids, local, chunk, stages, row_major, out)
+        raise ValueError(f"resident_count_multi: {ids.size} rows of {w} words and a plan of "
+                         f"{plan.block_ints} ints a block do not fit shared memory")
+    return _launch_resident_multi(plan, matrix, chunk, stages, row_major, out)
 
 
-def fold_lists(op: str, local: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Each query's operands with the repeats the fold ignores dropped
-    (and / or: every repeat; andnot: repeats after the first operand),
-    padded to a common multiple of four with an operand whose repeat the
-    fold ignores, rows ordered by their own length, longest first:
-    ``(lists int32[B, K4], n_groups int32[B], order int32[B])`` with row i
-    holding the operands of query ``order[i]`` in its first ``4 *
-    n_groups[i]`` entries.  The values are the same: a fold repeats what
-    it drops."""
-    b, k = local.shape
-    keep_first = op == "andnot" and k > 1
-    rest = np.sort(local[:, 1:] if keep_first else local, axis=1)
-    new = np.ones(rest.shape, dtype=bool)
-    new[:, 1:] = rest[:, 1:] != rest[:, :-1]
-    lead = int(keep_first)
-    kq = lead + new.sum(axis=1)
-    lists = np.repeat(rest[:, :1], -(-int(kq.max()) // 4) * 4, axis=1)
-    rows, cols = np.nonzero(new)
-    lists[rows, lead + np.cumsum(new, axis=1)[rows, cols] - 1] = rest[rows, cols]
-    if keep_first:
-        lists[:, 0] = local[:, 0]
-    order = np.argsort(-kq, kind="stable").astype(np.int32)
-    return lists[order], ((kq[order] + 3) // 4).astype(np.int32), order
-
-
-def _launch_resident_multi(op, matrix, ids, local, chunk, stages, row_major, out):
-    """One resident_count_multi launch at a given tiling (the wrapper's
-    own, or another one a timing compares it with).  A fold of one
-    operand is that row whatever the op."""
+def _launch_resident_multi(plan: MultiPlan, matrix, chunk, stages, row_major, out,
+                           producers: int = MULTI_PRODUCER_WARPS):
+    """One resident_count_multi launch of a plan at a given tiling and
+    count of producer warps (the wrapper's own, or others a timing
+    compares it with).  A plan of up to MULTI_PARAM_INTS ints crosses in
+    the launch's parameters (no upload); a larger one is uploaded."""
     s, r, w = _multi_dims(matrix, row_major)
-    if local.shape[1] == 1:
-        op = "and"
-    lists, n_groups, order = fold_lists(op, local)
-    u, (b, k4) = ids.size, lists.shape
-    dev = _ints(np.concatenate([ids, lists.reshape(-1), n_groups, order]), matrix.device)
-    base = dev.data_ptr()
+    ints = plan.ints
+    dev = None if ints.size <= MULTI_PARAM_INTS else _ints(ints, matrix.device)
     err = _fn("resident_count_multi")(
-        matrix.data_ptr(), base, base + 4 * u, base + 4 * (u + b * k4),
-        base + 4 * (u + b * k4 + b), out.data_ptr(),
-        s, r, w, u, b, k4, chunk, stages, int(row_major), OPS[op], _stream(matrix),
+        matrix.data_ptr(), ints.ctypes.data if dev is None else None,
+        None if dev is None else dev.data_ptr(), ints.size, out.data_ptr(),
+        s, r, w, plan.u, plan.groups, out.shape[0], plan.block_ints, chunk, stages, producers,
+        int(row_major), OPS[plan.op], _stream(matrix),
     )
     _check(err, "resident_count_multi")
     LAUNCHES["resident_count_multi"] += 1

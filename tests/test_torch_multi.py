@@ -167,21 +167,29 @@ def test_multi_dispatch_compacts_the_batch_once(layout, monkeypatch):
 
 
 @pytest.mark.parametrize("u,b,k,s,want", [
-    (563, 128, 23, 64, (64, 1)),   # range-1: one stage of 64-word chunks
-    (507, 128, 23, 64, (64, 1)),   # the timed Range batch
-    (240, 128, 19, 64, (64, 2)),   # range-wide: two stages
-    (850, 512, 16, 4, (64, 1)),    # the one-stage edge chip_smoke checks
-    (900, 128, 23, 64, (0, 0)),    # no stage of 64-word chunks fits
-    (250, 64, 16, 64, (64, 2)),    # the pool's K=16 batch
-    (136, 64, 3, 64, (128, 2)),    # few rows: wider chunks
-    (1024, 512, 16, 32, (0, 0)),   # every row of the tall pool: no stage fits
+    (563, 128, 23, 64, (32, 2)),   # range-1, at the gate's bound on the plan
+    (507, 128, 23, 64, (32, 3)),   # the timed Range batch
+    (240, 128, 19, 64, (64, 3)),   # range-wide: three stages of 64 words
+    (435, 90, 23, 64, (32, 3)),    # range-2
+    (850, 512, 16, 4, (32, 1)),    # one stage of 32-word chunks
+    (900, 128, 23, 64, (32, 1)),
+    (250, 64, 16, 64, (64, 3)),    # the pool's K=16 batch
+    (136, 64, 3, 64, (64, 3)),     # few rows
+    (1024, 512, 16, 32, (32, 1)),  # every row of the tall pool: one stage
+    (1600, 128, 23, 64, (32, 1)),  # the most rows one stage holds here
+    (1700, 128, 23, 64, (0, 0)),   # no stage fits
     (1800, 128, 4, 64, (0, 0)),    # no stage of 1,800 rows fits
 ])
 def test_multi_tiling(u, b, k, s, want):
-    assert kernels.multi_tiling(u, W, b, k, s) == want
+    """The gate's tiling: at ``multi_group_ints``, which bounds the plan
+    ints a block copies, the first of MULTI_TILINGS that fits."""
+    own = kernels.multi_group_ints(b, k)
+    assert kernels.multi_tiling(u, W, own) == want
     if want[0]:
-        assert kernels.staged_smem_bytes(
-            u, *want, kernels.multi_group_ints(b, k)) <= kernels.SMEM_BYTES
+        assert kernels.multi_smem_bytes(u, *want, own) <= kernels.SMEM_BYTES
+        for t in kernels.MULTI_TILINGS[:kernels.MULTI_TILINGS.index(want)]:
+            assert kernels.multi_smem_bytes(u, *t, own) > kernels.SMEM_BYTES
+    assert kernels.multi_tiling(u, 48, own) == (0, 0)  # no 32-word chunk divides W
 
 
 def test_multi_gate_needs_operands_references_reuse_and_a_tiling():
@@ -190,9 +198,10 @@ def test_multi_gate_needs_operands_references_reuse_and_a_tiling():
     kmin, refs, reuse = dispatch.MULTI_K_MIN, dispatch.MULTI_REFS_MIN, dispatch.MULTI_REUSE_MIN
     ms = dispatch.multi_strategy
     assert ms(240, W, 128, 19, 64, 2280)          # range-wide: 17.8 operands, 9.5 a row
-    assert not ms(563, W, 128, 23, 64, 1482)      # range-1: 11.6 operands a fold
-    assert not ms(435, W, 90, 23, 64, 875)        # range-2: 9.7
-    assert not ms(100, W, 128, 23, 64, 128 * 10)  # 12.8 a row, but 10 operands
+    assert ms(563, W, 128, 23, 64, 1482)          # range-1: 11.6 operands a fold, 2.6 a row
+    assert ms(435, W, 90, 23, 64, 875)            # range-2: 9.7, 2.01
+    assert not ms(438, W, 90, 23, 64, 875)        # 1.99 a row
+    assert not ms(100, W, 128, 23, 64, 128 * 8)   # 10.2 a row, but 8 operands
     assert ms(250, W, 64, 16, 64, 995)            # the pool's K=16: 15.5 operands, 4.0 a row
     assert not ms(136, W, 64, 3, 64, 64 * 3)      # http nary: K=3
     assert not ms(16, W, 128, 4, 64, 128 * 4)     # 32 a row, but K=4
@@ -200,21 +209,71 @@ def test_multi_gate_needs_operands_references_reuse_and_a_tiling():
     assert not ms(640, W, 1, 640, 25, 640)        # the wide Union: once a row
     assert not ms(8, W, 16, 16, 64, 16 * 16)      # 256 references a group
     assert not ms(64, W, 128, 8, 64, 128 * 8)     # 16 a row, but K=8
-    # B=512 K=16 names 512 rows 16 times, but every one of 4 groups stages them.
+    # B=512 K=16 names 512 rows 16 times, but every one of 4 blocks stages them.
     assert ms(512, W, 512, 16, 32, 512 * 16) == (16 >= reuse * 7)
-    assert ms(512, W, 256, 16, 32, 256 * 16)      # 2 groups, 8 a row
-    assert not ms(820, W, 256, 16, 32, 256 * 16)  # 2 groups, 5 a row
-    # The rows and offsets must fit.
-    assert not ms(900, W, 128, 23, 64, 128 * 23)  # 3.3 a row, no stage fits
-    assert not ms(4, 48, 64, 16, 64, 64 * 16)     # no chunk of 64+ words divides W
+    assert ms(4096 // (3 * reuse), W, 256, 16, 32, 256 * 16)  # 2 blocks, 3 x MULTI_REUSE_MIN a row
+    assert not ms(4096 // (3 * reuse) + 1, W, 256, 16, 32, 256 * 16)
+    assert not ms(820, W, 256, 16, 32, 256 * 16)  # 2 blocks, 5 a row
+    # The rows and plan must fit two stages.
+    assert kernels.multi_tiling(900, W, kernels.multi_group_ints(128, 23)) == (32, 1)
+    assert not ms(900, W, 128, 23, 64, 128 * 23)  # 3.3 a row, but one stage only
+    assert not ms(4, 48, 64, 16, 64, 64 * 16)     # no chunk of 32+ words divides W
     for k in (kmin, 23, 64):
         b = max(-(-refs // k), 16)
         u = int(b * k // reuse)
-        assert ms(u, W, b, k, 64, b * k) == (kernels.multi_tiling(u, W, b, k, 64)[0] > 0)
+        two = kernels.multi_tiling(u, W, kernels.multi_group_ints(b, k))[1] >= 2
+        assert ms(u, W, b, k, 64, b * k) == two
         assert not ms(u + 1, W, b, k, 64, b * k)
         # One operand fewer a fold on average than the gate asks.
         assert not ms(1, W, b, k, 64, b * (kmin - 1)) or kmin <= 1
     assert not ms(1, W, -(-refs // kmin) - 1, kmin, 64, (-(-refs // kmin) - 1) * kmin)
+
+
+def test_multi_gate_reads_the_plans_sharing():
+    """Past the shape clauses the gate reads the plan: groups whose rows
+    are at most MULTI_SHARE_MAX of the references, or wide folds named
+    often enough."""
+    sh, share = dispatch.multi_shares, dispatch.MULTI_SHARE_MAX
+    assert sh(831, 128, 563, 1482)                     # range-1: 0.56 of its references
+    assert sh(int(share * 1000), 128, 400, 1000)
+    assert not sh(int(share * 1000) + 1, 128, 400, 1000)
+    assert sh(845, 64, 250, 995)                       # the pool's K=16: wide, 3.98 a row
+    wide_k, wide_reuse = dispatch.MULTI_WIDE_K, dispatch.MULTI_WIDE_REUSE
+    b, u = 64, 100
+    refs = max(wide_k * b, wide_reuse * u)
+    assert sh(refs, b, u, refs)
+    assert not sh(refs, b, u, refs - 1)
+    assert not sh(1000, 128, 512, 1024)                # random K=8 folds: little shared
+    assert not sh(1020, 256, 300, 1024)                # two blocks at 3.4 a row
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_multi_gate_takes_range_batches_not_random_ones(layout, monkeypatch):
+    """A Range-like batch (Counts of a few bitmap rows over overlapping
+    spans) and a random one of the same width and references a row: the
+    first shares its rows within groups and takes the staged kernel, the
+    second the gather kernel; both equal Pallas."""
+    rng = np.random.default_rng([len(layout), 13])
+    s, w, bitmaps, views, k = 2, 1024, 4, 30, 12
+    rm = _words(rng, (s, bitmaps * views, w))
+    spans = np.empty((128, k), dtype=np.int32)
+    for q in range(128):
+        v0 = int(rng.integers(0, views - k + 1))
+        spans[q] = (v0 + np.arange(k)) * bitmaps + q % bitmaps
+    rand = np.stack([rng.choice(bitmaps * views, size=k, replace=False) for _ in range(128)])
+    entry = dispatch.gather_count_multi if layout == "slice" else dispatch.gather_count_multi_rowmajor
+    gather = "gather_count_multi" if layout == "slice" else "gather_count_multi_rowmajor"
+    for idx, staged in ((spans[rng.permutation(128)], True), (rand.astype(np.int32), False)):
+        ids, local = kernels.compact_rows(idx, bitmaps * views, "idx")
+        refs = dispatch.fold_refs(local)
+        assert dispatch.multi_strategy(ids.size, w, 128, k, s, refs)
+        plan = kernels.multi_plan("or", ids, local)
+        assert dispatch.multi_shares(plan.group_rows, 128, ids.size, refs) == staged
+        seen = _spy(monkeypatch)
+        got = entry("or", _matrix(rm, layout), idx)
+        monkeypatch.undo()
+        assert seen == ["resident_count_multi" if staged else gather]
+        np.testing.assert_array_equal(got.numpy(), _pallas("or", rm, idx, layout))
 
 
 def test_resident_count_multi_checks_its_arguments():
@@ -232,25 +291,3 @@ def test_resident_count_multi_checks_its_arguments():
     with pytest.raises(IndexError, match="out of range"):  # row-major: R is the first dim
         kernels.resident_count_multi("or", rm, np.full((1, 2), 2, np.int32), row_major=True)
     assert kernels.resident_count_multi("or", rm, np.zeros((0, 3), np.int32)).shape == (0,)
-
-
-@pytest.mark.parametrize("k", [1, 2, 5, 23])
-@pytest.mark.parametrize("op", kernels.MULTI_OPS)
-def test_fold_lists_drop_repeats_and_keep_the_counts(op, k):
-    """The staged kernel's operand lists: each query's repeats dropped
-    (andnot keeps its first operand apart), padded to a multiple of four
-    with an operand the fold ignores, longest first; folding each row's
-    first 4 x n_groups entries gives the unpadded counts."""
-    rng = np.random.default_rng([kernels.MULTI_OPS.index(op), k, 8])
-    s, r, b, w = 2, 6, 9, 64
-    rm = _words(rng, (s, r, w))
-    local = rng.integers(0, r, size=(b, k)).astype(np.int32)
-    fop = "and" if k == 1 else op  # one operand folds as itself
-    lists, n_groups, order = kernels.fold_lists(fop, local)
-    assert lists.shape[1] % 4 == 0 and sorted(order.tolist()) == list(range(b))
-    assert (np.diff(n_groups) <= 0).all() and n_groups.min() >= 1
-    assert 4 * n_groups.max() == lists.shape[1] <= -(-min(k, r + 1) // 4) * 4
-    got = np.zeros(b, dtype=np.int64)
-    for row, q in enumerate(order):
-        got[q] = jbw.np_gather_count_multi(fop, rm, lists[row:row + 1, :4 * n_groups[row]])[0]
-    np.testing.assert_array_equal(got, jbw.np_gather_count_multi(fop, rm, local))
