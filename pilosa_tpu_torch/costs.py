@@ -8,14 +8,21 @@ queryable place (``/debug/costs``).
 
 Two halves:
 
-- :class:`DispatchMeter` — device-side cost attribution at the engine
-  dispatch seams (gram / gather / stream / native lanes).  Each metered
-  dispatch emits a tagged histogram (``engine.dispatch_ms.<lane>``), a
+- :class:`DispatchMeter` — cost attribution at the engine dispatch
+  seams (gram / gather / stream / native lanes).  Each metered dispatch
+  emits a tagged histogram (``engine.dispatch_ms.<lane>``) and a
   transfer-byte counter (``engine.dispatch_bytes.<lane>``, read as a
   delta of the engine's host->device upload ledger plus explicitly
-  reported operand bytes), and — when the request is traced — a
-  ``device`` child span tagged with the lane and bytes, so a trace
-  finally shows device time, not just host time.  The disabled path
+  reported operand bytes).  The histogram times the HOST's time in the
+  metered block, not the device: CUDA launches return before the kernel
+  runs.  When the request is traced the dispatch is also a ``device``
+  child span tagged with the lane and bytes, and each kernel launched
+  inside it is timed on the device between two CUDA events recorded at
+  its launch (``ops.kernels._launch``); their sum, read once the
+  caller's fetch has synchronised, is the span's ``device_ms`` tag.  A
+  dispatch that launches no kernel (a Gram lookup, a native lane) has
+  no such tag.  That tag is the device time; the span's ``ms`` stays
+  host time.  The disabled path
   (``meter is None`` at every call site) adds one branch per site, the
   same contract as tracing.
 - :class:`CostLedger` — a bounded LRU ring keyed by (index, frame,
@@ -23,7 +30,8 @@ Two halves:
   estimates.  The tracer calls :meth:`CostLedger.fold` from
   ``finish_request`` for every recorded trace (sampled or slow), so the
   ledger rides the existing trace stream: no new per-request work on
-  the unsampled fast path.
+  the unsampled fast path.  Its device time is each ``device`` span's
+  ``device_ms`` tag, or the span's host ``ms`` where it has none.
 
 Enable/disable: the server and lockstep front end construct the meter
 and ledger unless ``PILOSA_TPU_COSTS`` is falsy ("0"/"false"/"no"); the
@@ -56,9 +64,15 @@ def enabled_from_env() -> bool:
 class _Measure:
     """One metered dispatch (context manager): wall time from enter to
     exit, transfer bytes = the engine upload-ledger delta plus anything
-    the caller adds explicitly via :meth:`add_bytes`."""
+    the caller adds explicitly via :meth:`add_bytes`.  Under a traced
+    span, the kernels launched inside the block are timed on the device
+    (``ops.kernels.TIMED``) and their sum is the ``device`` span's
+    ``device_ms`` where they have run by the exit: a caller that fetches
+    the result inside the block has synchronised, so reading them adds
+    no synchronisation, and one that does not leaves the tag out."""
 
-    __slots__ = ("meter", "lane", "span", "t0", "extra_bytes", "up0", "dev_span")
+    __slots__ = ("meter", "lane", "span", "t0", "extra_bytes", "up0", "dev_span",
+                 "events", "outer")
 
     def __init__(self, meter: "DispatchMeter", lane: str, span):
         self.meter = meter
@@ -66,6 +80,7 @@ class _Measure:
         self.span = span
         self.extra_bytes = 0
         self.dev_span = None
+        self.events = None
 
     def add_bytes(self, n: int) -> None:
         # analysis-ok: check-then-act: _Measure is a per-request stack object; it never crosses threads
@@ -73,8 +88,12 @@ class _Measure:
 
     def __enter__(self) -> "_Measure":
         if self.span is not None:
+            from pilosa_tpu_torch.ops.kernels import TIMED
+
             self.dev_span = self.span.child("device")
             self.dev_span.tags["lane"] = self.lane
+            self.outer = getattr(TIMED, "events", None)
+            TIMED.events = self.events = []
         self.up0 = getattr(self.meter.engine, "stat_upload_bytes", 0)
         self.t0 = time.perf_counter()
         return self
@@ -85,6 +104,14 @@ class _Measure:
             getattr(self.meter.engine, "stat_upload_bytes", 0) - self.up0
         ) + self.extra_bytes
         self.meter._record(self.lane, dt_ms, moved, self.dev_span)
+        if self.events is not None:
+            from pilosa_tpu_torch.ops.kernels import TIMED
+
+            TIMED.events = self.outer
+            if self.events and all(ev1.query() for _, ev1 in self.events):
+                self.dev_span.tags["device_ms"] = round(
+                    sum(ev0.elapsed_time(ev1) for ev0, ev1 in self.events), 3
+                )
         return False
 
 
@@ -206,8 +233,9 @@ class CostLedger:
     def fold(self, trace, dt_ms: float, body: bytes = b"") -> None:
         """Fold one finished trace (trace.Trace) into the ledger: the
         root's lane/tenant/frame tags key the entry; ``device`` child
-        spans (the dispatch meter's) contribute device time and bytes.
-        Called by Tracer.finish_request for every recorded trace."""
+        spans (the dispatch meter's) contribute device time (their
+        ``device_ms`` tag, else their host ``ms``) and bytes.  Called by
+        Tracer.finish_request for every recorded trace."""
         from pilosa_tpu_torch.trace import fingerprint
 
         root = trace.root
@@ -229,18 +257,14 @@ class CostLedger:
             )
             for c in children:
                 if isinstance(c, dict):
-                    if c.get("name") == "device":
-                        ctags = c.get("tags", {})
-                        device_ms += float(c.get("ms") or 0.0)
-                        bytes_moved += int(ctags.get("bytes") or 0)
-                    else:
-                        stack.append(c)
+                    name, ms, ctags = c.get("name"), c.get("ms"), c.get("tags", {})
                 else:
-                    if c.name == "device":
-                        device_ms += float(c.ms or 0.0)
-                        bytes_moved += int(c.tags.get("bytes") or 0)
-                    else:
-                        stack.append(c)
+                    name, ms, ctags = c.name, c.ms, c.tags
+                if name == "device":
+                    device_ms += float(ctags.get("device_ms", ms) or 0.0)
+                    bytes_moved += int(ctags.get("bytes") or 0)
+                else:
+                    stack.append(c)
         self.observe(
             tenant=tenant,
             index=index,

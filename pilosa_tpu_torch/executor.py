@@ -57,6 +57,10 @@ DEFAULT_FRAME = "general"
 
 
 _WORDS = SLICE_WIDTH // 32
+# Bytes of one row in one slice: a launch's floor is its distinct rows x
+# slices x this (the launch spans' ``bytes_read``, ``fused``'s
+# ``need_bytes``).
+_ROW_SLICE_BYTES = SLICE_WIDTH // 8
 
 # Device kernels accumulate counts in int32: one dispatch may cover at
 # most this many slices, since a full-density count is n_slices * 2^20 per
@@ -472,7 +476,7 @@ class Executor:
                     skey = None if slices is None else tuple(sorted(slices))
                     qsp = span.child("qcache.lookup") if span is not None else None
                     cached, qtoken = self.qcache.lookup(
-                        self.holder, index, query, skey, remote=remote,
+                        self.holder, index, query, skey, remote=remote, span=qsp,
                     )
                     if qsp is not None:
                         qsp.finish()
@@ -500,17 +504,24 @@ class Executor:
                 if span is not None:
                     span.tags["lane"] = "write_native"
                 return w
-            fast = self._flat_fast_path(index, query, slices, opt)
+            flsp = span.child("flat") if span is not None else None
+            fast = self._flat_fast_path(index, query, slices, opt, flsp)
+            if flsp is not None:
+                flsp.finish()
+                # The compiled lanes tag the one they try ("lane"); the
+                # last one tried declined when nothing answered.
+                tried = flsp.tags.pop("lane", "none")
+                flsp.tags["lane" if fast is not None else "declined"] = tried
             if fast is not None:
                 if span is not None:
                     # The compiled-query lane answered (native serve /
                     # Gram / gather kernels behind one entry point).
                     span.tags["lane"] = "flat"
                 if qtoken is not None:
-                    self.qcache.commit(self.holder, qtoken, fast)
+                    self._qcache_commit(qtoken, fast, span)
                 return fast
             psp = span.child("parse") if span is not None else None
-            query = pql.parse_cached(query)
+            query = pql.parse_cached(query, psp)
             if psp is not None:
                 psp.finish()
         if not query.calls:
@@ -552,9 +563,11 @@ class Executor:
             return batched_writes
 
         fsp = span.child("fused") if span is not None else None
-        fused = self._fuse_count_pair_batch(index, query.calls, std_slices, inv_slices, opt)
+        fused = self._fuse_count_pair_batch(
+            index, query.calls, std_slices, inv_slices, opt, fsp
+        )
         if fused is None:
-            fused = self._fuse_count_range_batch(index, query.calls, std_slices, opt)
+            fused = self._fuse_count_range_batch(index, query.calls, std_slices, opt, fsp)
         if fsp is not None:
             fsp.finish()
             if fused is None:
@@ -591,8 +604,16 @@ class Executor:
             if csp is not None:
                 csp.finish()
         if qtoken is not None:
-            self.qcache.commit(self.holder, qtoken, results)
+            self._qcache_commit(qtoken, results, span)
         return results
+
+    def _qcache_commit(self, qtoken, results, span) -> None:
+        """Admit an executed miss to the query cache (a ``qcache.commit``
+        span under a traced request's root)."""
+        csp = span.child("qcache.commit") if span is not None else None
+        self.qcache.commit(self.holder, qtoken, results)
+        if csp is not None:
+            csp.finish()
 
     # -- query-batch fusion ------------------------------------------------
 
@@ -932,7 +953,7 @@ class Executor:
             self._note_dirty_rows(index, fname, (row_id,))
         return [ch]
 
-    def _flat_fast_path(self, index: str, src: str, slices, opt) -> Optional[list]:
+    def _flat_fast_path(self, index: str, src: str, slices, opt, fsp=None) -> Optional[list]:
         """Compiled-query lane: serve an all-``Count(<op>(Bitmap,Bitmap))``
         request straight from the native matcher's pair arrays — no Token
         stream, no Call objects, no per-call Python work (the dominant
@@ -940,6 +961,10 @@ class Executor:
         ANYTHING outside the exact shape — other calls, inverse views,
         unusual args, parse errors — so the normal parse path keeps every
         behavior and error message.
+
+        ``fsp``: a traced request's ``flat`` span; each compiled lane
+        tags it (``lane``) as it is tried, and its dispatches' ``device``
+        spans nest under it.
         """
         # analysis-ok: lockstep-determinism: deployment config, launcher sets identical env on every rank
         if os.environ.get("PILOSA_TPU_NO_FASTLANE", "").lower() in ("1", "true", "yes"):
@@ -998,8 +1023,10 @@ class Executor:
                         self._serve_states.pop((index, fname), None)
             if st is not None:
                 t0 = time.perf_counter() if rec else 0.0
+                if fsp is not None:
+                    fsp.tags["lane"] = "serve"
                 if self.meter is not None:
-                    with self.meter.measure("native", opt.span) as d:
+                    with self.meter.measure("native", fsp) as d:
                         counts = native.serve_pairs(
                             raw, st["frame_b"], st["allow_default"],
                             st["rowkey_b"], st["rs"], st["ps"], st["gram"],
@@ -1041,7 +1068,9 @@ class Executor:
                 "PILOSA_TPU_NO_SERVEMULTI", ""
             ).lower() not in ("1", "true", "yes"):
                 t0 = time.perf_counter() if rec else 0.0
-                counts = self._serve_multi_counts(index, raw, opt)
+                if fsp is not None:
+                    fsp.tags["lane"] = "serve_multi"
+                counts = self._serve_multi_counts(index, raw, opt, fsp)
                 if counts is not None:
                     if rec:
                         self.planner.record(
@@ -1049,6 +1078,8 @@ class Executor:
                             ms=(time.perf_counter() - t0) * 1e3, plan=plan,
                         )
                     return counts
+        if fsp is not None:
+            fsp.tags["lane"] = "pairs"
         m = native.pql_match_pairs(raw)
         if m is None:
             # Not an all-pairs body: the breadth lanes own the other
@@ -1057,9 +1088,13 @@ class Executor:
             # all-Count(Range(...)) batches through the fused multi-view
             # evaluator with the parse already native.
             if local:
-                tree = self._tree_fast_path(index, raw, src, opt)
+                if fsp is not None:
+                    fsp.tags["lane"] = "tree"
+                tree = self._tree_fast_path(index, raw, src, opt, fsp)
                 if tree is not None:
                     return tree
+                if fsp is not None:
+                    fsp.tags["lane"] = "range"
                 return self._range_fast_path(index, raw, opt)
             return None
         op_ids, frame_ids, key_ids, r1, r2, frames_b, keys_b = m
@@ -1155,7 +1190,7 @@ class Executor:
 
     # -- serve-lane breadth (multi-frame / Range / nested-tree) -----------
 
-    def _serve_multi_counts(self, index: str, raw: bytes, opt) -> Optional[list]:
+    def _serve_multi_counts(self, index: str, raw: bytes, opt, fsp=None) -> Optional[list]:
         """Multi-frame one-call serving: bundle every VALID armed state
         for the index (names, row labels, glut base addresses) and hand
         the whole request to ``pn_serve_multi`` — parse, per-frame
@@ -1190,7 +1225,7 @@ class Executor:
         n_rows = np.array([len(st["rs"]) for st in states], dtype=np.int64)
         gram_dims = np.array([st["gram"].shape[0] for st in states], dtype=np.int64)
         if self.meter is not None:
-            with self.meter.measure("native", opt.span) as d:
+            with self.meter.measure("native", fsp) as d:
                 counts = native.serve_multi(
                     raw, names_cat, name_offs, rlabels_cat, rlabel_offs,
                     default_sid, rs_addrs, ps_addrs, gram_addrs, n_rows, gram_dims,
@@ -1210,7 +1245,7 @@ class Executor:
                     self._serve_states.move_to_end(k)
         return counts.tolist()
 
-    def _tree_fast_path(self, index: str, raw: bytes, src: str, opt) -> Optional[list]:
+    def _tree_fast_path(self, index: str, raw: bytes, src: str, opt, fsp=None) -> Optional[list]:
         """Nested-tree serving: an all-Count(op-tree over Bitmap leaves)
         body evaluated straight off the fragment's armed container table
         (``pn_serve_tree`` — matcher and evaluator fused, intermediate id
@@ -1240,7 +1275,7 @@ class Executor:
         except UnicodeEncodeError:
             return None
         if self.meter is not None:
-            with self.meter.measure("native", opt.span) as d:
+            with self.meter.measure("native", fsp) as d:
                 counts = frag.serve_tree(
                     raw, frame_b, fname == DEFAULT_FRAME, rowkey_b
                 )
@@ -1815,7 +1850,7 @@ class Executor:
         return frame, view, ("tree", 1 << d), tuple(leaves), tuple(opc)
 
     def _fuse_count_pair_batch(
-        self, index: str, calls, slices, inv_slices, opt: ExecOptions
+        self, index: str, calls, slices, inv_slices, opt: ExecOptions, fsp=None
     ) -> Optional[dict[int, int]]:
         """Run all Count(<op>(Bitmap, Bitmap, ...)) calls in a request as
         fused device dispatches (one per distinct op/arity group).
@@ -1834,7 +1869,9 @@ class Executor:
         programs and dispatched once per depth bucket
         (executor.go:261-276's uniform any-depth evaluation, fused).
         Distributed requests forward ONE batch per remote node and fuse
-        locally per node.
+        locally per node.  ``fsp``: a traced request's ``fused`` span
+        (children ``fused.match``, ``fused.plan`` and one ``device``
+        span a launch).
         """
         if not slices:
             return None
@@ -1842,6 +1879,7 @@ class Executor:
         # call idx -> (frame, view, kernel_op, row-id tuple) for flat
         # calls, or (frame, view, ("tree", 2^D), leaves, opc) for nested
         # trees / multi-operand Xor (the fused tree lane).
+        msp = fsp.child("fused.match") if fsp is not None else None
         matched: dict[int, tuple] = {}
         batch_view: Optional[str] = None
         for i, c in enumerate(calls):
@@ -1906,6 +1944,8 @@ class Executor:
             elif entry[1] != batch_view:
                 return None
             matched[i] = entry
+        if msp is not None:
+            msp.finish()
         # Fuse only when the WHOLE request is fusable reads: a write call
         # anywhere in the request must be observed by later Counts
         # (per-call ordering semantics), so mixed requests take the
@@ -1922,14 +1962,17 @@ class Executor:
         totals = self._fused_dispatch(
             index, idxs, slices, opt,
             lambda: pql.Query(calls=[calls[i] for i in idxs]),
+            # The span goes along only where the request is traced: an
+            # untraced call is the one it always was.
             lambda node_slices: self._fused_local_counts(
-                index, matched, idxs, node_slices, plan=opt.plan
+                index, matched, idxs, node_slices, plan=opt.plan,
+                **({} if fsp is None else {"span": fsp}),
             ),
         )
         return dict(zip(idxs, totals))
 
     def _fuse_count_range_batch(
-        self, index: str, calls, slices, opt: ExecOptions
+        self, index: str, calls, slices, opt: ExecOptions, fsp=None
     ) -> Optional[dict[int, int]]:
         """Run an all-``Count(Range(...))`` request as fused device
         dispatches: the per-call view covers (time.go:95-167) become rows
@@ -1946,6 +1989,7 @@ class Executor:
             # bound the sequential per-call path (host-summed python ints)
             # keeps Range counts exact.
             return None
+        msp = fsp.child("fused.match") if fsp is not None else None
         matched: dict[int, tuple[str, int, list[str]]] = {}
         for i, c in enumerate(calls):
             if c.name != "Count" or len(c.children) != 1:
@@ -1963,6 +2007,8 @@ class Executor:
                 else []
             )
             matched[i] = (frame_name, row_id, views)
+        if msp is not None:
+            msp.finish()
 
         # Working-set guard: fusing pays through the cached multi-view
         # matrix; a request whose distinct (frame, view, row) combos
@@ -2233,7 +2279,7 @@ class Executor:
         )
 
     def _fused_local_counts(
-        self, index: str, matched: dict, idxs: list[int], slices, plan=None
+        self, index: str, matched: dict, idxs: list[int], slices, plan=None, span=None
     ) -> list[int]:
         """Fused counts for the given slice batch, aligned with idxs.
 
@@ -2249,6 +2295,12 @@ class Executor:
         each resident part's cost folds back through Planner.record.
         The streaming regime has no lane choice to plan, so it neither
         applies nor records plans.
+
+        ``span``: a traced request's ``fused`` span.  It gains
+        ``need_bytes`` (the batch's distinct rows read once), a
+        ``fused.plan`` child for each part's planning (grouping, pool,
+        matrix, lane) and, in the resident regime, one ``device`` span a
+        launch (``_group_counts``).
         """
         forced = plan.get("lane") if plan is not None else None
         rec = self.planner is not None and plan is not None
@@ -2261,7 +2313,16 @@ class Executor:
         by_fv: dict[tuple[str, str], list[int]] = {}
         for i in idxs:
             by_fv.setdefault(tuple(matched[i][:2]), []).append(i)
+        if span is not None:
+            rows = sum(len({x for i in f_idxs for x in matched[i][3]})
+                       for f_idxs in by_fv.values())
+            span.tags["need_bytes"] = (
+                span.tags.get("need_bytes", 0) + rows * len(slices) * _ROW_SLICE_BYTES
+            )
         for (frame, view), f_idxs in by_fv.items():
+            # Each part's planning: the first part's includes the pool and
+            # the chunking of the (frame, view)'s calls.
+            psp = span.child("fused.plan") if span is not None else None
             pool = self._pool_for(index, frame, view, slices)
             # Row-chunk bound: the pool's budgeted capacity, but never so
             # small that chunking degenerates (at huge slice counts the
@@ -2275,6 +2336,8 @@ class Executor:
                 f_idxs, lambda i: matched[i][3], row_cap, oversize_ok=True
             ))
             for part in parts:
+                if psp is None and span is not None:
+                    psp = span.child("fused.plan")
                 want = sorted({x for i in part for x in matched[i][3]})
                 # Group calls by (op, operand-count bucket): one dispatch
                 # each.  Jitted engines bucket the operand axis to powers
@@ -2358,11 +2421,14 @@ class Executor:
                         if not rm_pool and any(kb == 2 for _, kb in groups)
                         else None
                     )
+                    if psp is not None:
+                        psp.finish()
+                        psp = None
                     for gk, op_idxs in sorted(groups.items(), key=_group_sort_key):
                         counts = self.engine.to_numpy(
                             self._group_counts(
                                 gk, op_idxs, matched, id_pos, matrix, static,
-                                gram, row_major=rm_pool,
+                                gram, row_major=rm_pool, span=span,
                             )
                         )
                         for k2, i in enumerate(op_idxs):
@@ -2383,6 +2449,9 @@ class Executor:
                     # chunks.  Device results stay un-fetched inside the
                     # loop (gather_count_dev) so chunk k+1's upload
                     # pipelines behind chunk k's kernel.
+                    if psp is not None:
+                        psp.finish()
+                        psp = None
                     id_pos = {r: k for k, r in enumerate(want)}
                     s_chunk = self._slice_chunk(len(want))
                     # Tall row sets hit the GATHER kernels; engines with
@@ -2420,22 +2489,44 @@ class Executor:
         return [out[i] for i in idxs]
 
     def _group_counts(
-        self, gk, op_idxs, matched, id_pos, matrix, static, gram, row_major=False
+        self, gk, op_idxs, matched, id_pos, matrix, static, gram, row_major=False,
+        span=None,
     ):
         """One fused dispatch for an (op, arity-bucket) call group; returns
         the engine-native count array (fetch deferred to the caller).
         Metered as the "gather" lane (cost attribution): dispatch wall
-        time + any host->device operand bytes the engine ledger sees."""
-        if self.meter is not None:
-            with self.meter.measure("gather"):
-                return self._group_counts_inner(
-                    gk, op_idxs, matched, id_pos, matrix, static, gram,
-                    row_major=row_major,
+        time + any host->device operand bytes the engine ledger sees.
+
+        Under a traced request's ``span`` the dispatch is its launch span
+        (``device``, ``costs._Measure``) and the fetch moves inside it: the
+        counts come back on the host, the span's ``ms`` runs until they
+        are there, and its kernels' device time (``device_ms``) can be read
+        with no synchronisation of its own.  Tags: ``op``, ``k`` (the
+        operand bucket), ``calls``, ``rows`` (distinct ids), ``slices`` and
+        ``bytes_read`` (rows x slices x bytes a row a slice; 0 for a Gram
+        answer, which reads the Gram, not the rows)."""
+        if self.meter is None:
+            return self._group_counts_inner(
+                gk, op_idxs, matched, id_pos, matrix, static, gram,
+                row_major=row_major,
+            )
+        with self.meter.measure("gather", span) as d:
+            counts = self._group_counts_inner(
+                gk, op_idxs, matched, id_pos, matrix, static, gram,
+                row_major=row_major,
+            )
+            if span is not None:
+                counts = self.engine.to_numpy(counts)
+                op, kb = gk
+                rows = len({x for i in op_idxs for x in matched[i][3]})
+                n_slices = matrix.shape[1 if row_major else 0]
+                reads = gram is None or kb != 2 or isinstance(op, tuple)
+                d.dev_span.tags.update(
+                    op=op[0] if isinstance(op, tuple) else op, k=kb,
+                    calls=len(op_idxs), rows=rows, slices=n_slices,
+                    bytes_read=rows * n_slices * _ROW_SLICE_BYTES if reads else 0,
                 )
-        return self._group_counts_inner(
-            gk, op_idxs, matched, id_pos, matrix, static, gram,
-            row_major=row_major,
-        )
+        return counts
 
     def _group_counts_inner(
         self, gk, op_idxs, matched, id_pos, matrix, static, gram, row_major=False

@@ -14,8 +14,10 @@ Every wrapper:
   lies on the CPU, and launches its kernel (or raises) for a CUDA tensor;
 - checks device, dtype, contiguity, alignment and shape, and allocates
   its output with ``torch.empty``/``torch.zeros`` on the current stream;
-- adds one to ``LAUNCHES[name]`` where it launches its kernel, and
-  nowhere else.
+- launches its kernel through ``_launch``, which adds one to
+  ``LAUNCHES[name]`` (nowhere else does) and, where the thread's
+  ``TIMED.events`` is a list, appends the pair of CUDA events recorded
+  on the stream just before and after the launch.
 
 Eleven kernels replace every Pallas kernel of
 pilosa_tpu/ops/pallas_kernels.py: fused_count1 and fused_count2
@@ -54,6 +56,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -82,6 +85,12 @@ KERNELS = (
 
 # Launch counters: one per kernel, bumped only where the kernel launches.
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+# Device timing of a traced dispatch (``costs._Measure``): while a
+# thread's ``TIMED.events`` is a list, each launch on that thread appends
+# its (start, end) CUDA events, recorded on its stream around the kernel
+# alone, for reading once the caller has synchronised.
+TIMED = threading.local()
 
 OPS = {"none": 0, "and": 1, "or": 2, "xor": 3, "andnot": 4}
 
@@ -207,6 +216,27 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _launch(name: str, t: torch.Tensor, *args) -> None:
+    """Launch kernel ``name`` with ``args`` on the current stream of
+    ``t``'s device (the entry point's last argument), raise if the launch
+    failed, and count it; timed between two CUDA events where the
+    thread's ``TIMED.events`` is a list."""
+    fn = _fn(name)
+    stream = torch.cuda.current_stream(t.device)
+    events = getattr(TIMED, "events", None)
+    if events is None:
+        err = fn(*args, stream.cuda_stream)
+    else:
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record(stream)
+        err = fn(*args, stream.cuda_stream)
+        ev1.record(stream)
+        events.append((ev0, ev1))
+    _check(err, name)
+    LAUNCHES[name] += 1
+
+
 _sms = lockcheck.named_global("ops.kernels.sms", max_entries=64)
 
 
@@ -311,12 +341,11 @@ def count_rows(a: torch.Tensor, b=None, op: str = "none") -> torch.Tensor:
             raise ValueError(f"count_rows: b shape {tuple(b.shape)} vs a {tuple(a.shape)}")
     out = a.new_empty(m)
     n_seg, seg_vecs = count_rows_segments(m, w, sm_count(a.device))
-    err = _fn("count_rows")(
+    _launch(
+        "count_rows", a,
         a.data_ptr(), None if b is None else b.data_ptr(), stride, out.data_ptr(), m, w, code,
-        n_seg, seg_vecs, _stream(a),
+        n_seg, seg_vecs,
     )
-    _check(err, "count_rows")
-    LAUNCHES["count_rows"] += 1
     return out
 
 
@@ -429,12 +458,11 @@ def resident_count2(op: str, row_matrix: torch.Tensor, pairs) -> torch.Tensor:
     if chunk == 0:
         raise ValueError(f"resident_count2: {u} rows of {w} words do not fit shared memory")
     dev = _ints(np.concatenate([ids, local.reshape(-1)]), row_matrix.device)
-    err = _fn("resident_count2")(
+    _launch(
+        "resident_count2", row_matrix,
         row_matrix.data_ptr(), dev.data_ptr(), dev.data_ptr() + 4 * u, out.data_ptr(),
-        s, r, w, u, b, chunk, stages, OPS[op], _stream(row_matrix),
+        s, r, w, u, b, chunk, stages, OPS[op],
     )
-    _check(err, "resident_count2")
-    LAUNCHES["resident_count2"] += 1
     return out
 
 
@@ -489,12 +517,11 @@ def gather_count2(op: str, row_matrix: torch.Tensor, pairs) -> torch.Tensor:
     out = torch.empty(b, dtype=torch.int32, device=row_matrix.device)
     n_seg, seg_vecs = gather2_segments(b, s, w, sm_count(row_matrix.device))
     dev = None if b <= GATHER2_PARAM_PAIRS else _ints(p, row_matrix.device)
-    err = _fn("gather_count2")(
+    _launch(
+        "gather_count2", row_matrix,
         row_matrix.data_ptr(), p.ctypes.data if dev is None else dev.data_ptr(), out.data_ptr(),
-        s, r, w, b, OPS[op], n_seg, seg_vecs, _stream(row_matrix),
+        s, r, w, b, OPS[op], n_seg, seg_vecs,
     )
-    _check(err, "gather_count2")
-    LAUNCHES["gather_count2"] += 1
     return out
 
 
@@ -520,12 +547,10 @@ def gather_src_counts(row_matrix: torch.Tensor, pos, src_stack: torch.Tensor) ->
         raise ValueError(f"gather_src_counts: pos shape {tuple(p.shape)}, want [K]")
     k = p.shape[0]
     out = torch.empty((s, k), dtype=torch.int32, device=row_matrix.device)
-    err = _fn("gather_src_counts")(
+    _launch(
+        "gather_src_counts", row_matrix,
         row_matrix.data_ptr(), p.data_ptr(), src_stack.data_ptr(), out.data_ptr(), s, r, w, k,
-        _stream(row_matrix),
     )
-    _check(err, "gather_src_counts")
-    LAUNCHES["gather_src_counts"] += 1
     return out
 
 
@@ -556,12 +581,10 @@ def gather_count_multi(op: str, row_matrix: torch.Tensor, idx) -> torch.Tensor:
         raise ValueError(f"gather_count_multi: idx shape {tuple(ix.shape)}, want [B, K >= 1]")
     b, k = ix.shape
     out = torch.zeros(b, dtype=torch.int32, device=row_matrix.device)
-    err = _fn("gather_count_multi")(
+    _launch(
+        "gather_count_multi", row_matrix,
         row_matrix.data_ptr(), ix.data_ptr(), out.data_ptr(), s, r, w, b, k, OPS[op],
-        _stream(row_matrix),
     )
-    _check(err, "gather_count_multi")
-    LAUNCHES["gather_count_multi"] += 1
     return out
 
 
@@ -654,12 +677,11 @@ def gather_count_tree(row_matrix: torch.Tensor, leaves, opc) -> torch.Tensor:
     ints = np.concatenate([lv.reshape(-1), tree_opcode_words(oc).reshape(-1)])
     out = row_matrix.new_empty(b)
     dev = None if ints.size <= TREE_PARAM_INTS else _ints(ints, row_matrix.device)
-    err = _fn("gather_count_tree")(
+    _launch(
+        "gather_count_tree", row_matrix,
         row_matrix.data_ptr(), ints.ctypes.data if dev is None else dev.data_ptr(),
-        out.data_ptr(), s, r, w, b, k, _stream(row_matrix),
+        out.data_ptr(), s, r, w, b, k,
     )
-    _check(err, "gather_count_tree")
-    LAUNCHES["gather_count_tree"] += 1
     return out
 
 
@@ -716,12 +738,11 @@ def resident_count_tree(row_matrix: torch.Tensor, leaves, opc, compacted=None) -
         raise ValueError(f"resident_count_tree: {u} rows of {w} words do not fit shared memory")
     dev = _ints(np.concatenate([ids, local.reshape(-1), oc.reshape(-1)]), row_matrix.device)
     base = dev.data_ptr()
-    err = _fn("resident_count_tree")(
+    _launch(
+        "resident_count_tree", row_matrix,
         row_matrix.data_ptr(), base, base + 4 * u, base + 4 * (u + b * k), out.data_ptr(),
-        s, r, w, u, b, k, chunk, stages, _stream(row_matrix),
+        s, r, w, u, b, k, chunk, stages,
     )
-    _check(err, "resident_count_tree")
-    LAUNCHES["resident_count_tree"] += 1
     return out
 
 
@@ -747,12 +768,10 @@ def gather_count2_rowmajor(op: str, row_major: torch.Tensor, pairs) -> torch.Ten
         raise ValueError(f"gather_count2_rowmajor: pairs shape {tuple(p.shape)}, want [B, 2]")
     b = p.shape[0]
     out = torch.zeros(b, dtype=torch.int32, device=row_major.device)
-    err = _fn("gather_count2_rowmajor")(
+    _launch(
+        "gather_count2_rowmajor", row_major,
         row_major.data_ptr(), p.data_ptr(), out.data_ptr(), r, s, w, b, OPS[op],
-        _stream(row_major),
     )
-    _check(err, "gather_count2_rowmajor")
-    LAUNCHES["gather_count2_rowmajor"] += 1
     return out
 
 
@@ -781,12 +800,10 @@ def gather_count_multi_rowmajor(op: str, row_major: torch.Tensor, idx) -> torch.
             f"gather_count_multi_rowmajor: idx shape {tuple(ix.shape)}, want [B, K >= 1]")
     b, k = ix.shape
     out = torch.zeros(b, dtype=torch.int32, device=row_major.device)
-    err = _fn("gather_count_multi_rowmajor")(
+    _launch(
+        "gather_count_multi_rowmajor", row_major,
         row_major.data_ptr(), ix.data_ptr(), out.data_ptr(), r, s, w, b, k, OPS[op],
-        _stream(row_major),
     )
-    _check(err, "gather_count_multi_rowmajor")
-    LAUNCHES["gather_count_multi_rowmajor"] += 1
     return out
 
 
@@ -1039,14 +1056,13 @@ def _launch_resident_multi(plan: MultiPlan, matrix, chunk, stages, row_major, ou
     s, r, w = _multi_dims(matrix, row_major)
     ints = plan.ints
     dev = None if ints.size <= MULTI_PARAM_INTS else _ints(ints, matrix.device)
-    err = _fn("resident_count_multi")(
+    _launch(
+        "resident_count_multi", matrix,
         matrix.data_ptr(), ints.ctypes.data if dev is None else None,
         None if dev is None else dev.data_ptr(), ints.size, out.data_ptr(),
         s, r, w, plan.u, plan.groups, out.shape[0], plan.block_ints, chunk, stages, producers,
-        int(row_major), OPS[plan.op], _stream(matrix),
+        int(row_major), OPS[plan.op],
     )
-    _check(err, "resident_count_multi")
-    LAUNCHES["resident_count_multi"] += 1
     return out
 
 
@@ -1069,11 +1085,10 @@ def topn_counts(row_matrix: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     if tuple(src.shape) != (s, w) or src.device != row_matrix.device:
         raise ValueError(f"topn_counts: src {tuple(src.shape)} vs matrix {(s, r, w)}")
     out = torch.zeros(r, dtype=torch.int32, device=row_matrix.device)
-    err = _fn("topn_counts")(
-        row_matrix.data_ptr(), src.data_ptr(), out.data_ptr(), s, r, w, _stream(row_matrix),
+    _launch(
+        "topn_counts", row_matrix,
+        row_matrix.data_ptr(), src.data_ptr(), out.data_ptr(), s, r, w,
     )
-    _check(err, "topn_counts")
-    LAUNCHES["topn_counts"] += 1
     return out
 
 
@@ -1170,12 +1185,10 @@ def pair_gram(row_matrix: torch.Tensor) -> torch.Tensor:
     if s == 0 or r == 0 or w == 0:
         return out.to(torch.int64)
     sched = gram_schedule(r, s, w, sm_count(row_matrix.device))
-    err = _fn("pair_gram")(
+    _launch(
+        "pair_gram", row_matrix,
         row_matrix.data_ptr(), out.data_ptr(), s, r, w, ss, rs, sched["n_blocks"],
-        _stream(row_matrix),
     )
-    _check(err, "pair_gram")
-    LAUNCHES["pair_gram"] += 1
     return out.to(torch.int64)
 
 
@@ -1251,10 +1264,11 @@ def build_planes(keys: torch.Tensor, n_groups: int) -> tuple[torch.Tensor, torch
     n_blocks = build_schedule(n_groups, sm_count(keys.device))["n_blocks"]
     buf = torch.empty(n_words + n_blocks, dtype=torch.int32, device=keys.device)
     ptr = buf.data_ptr()
-    err = _fn("build_planes")(keys.data_ptr(), keys.numel(), ptr, n_words, ptr + 4 * n_words,
-                              n_blocks, _stream(keys))
-    _check(err, "build_planes")
-    LAUNCHES["build_planes"] += 1
+    _launch(
+        "build_planes", keys,
+        keys.data_ptr(), keys.numel(), ptr, n_words, ptr + 4 * n_words,
+        n_blocks,
+    )
     planes, descents = buf.split((n_words, n_blocks))
     return planes.view(n_groups, PLANE_WORDS), descents
 

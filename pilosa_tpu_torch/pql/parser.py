@@ -305,13 +305,18 @@ def _parse_simple_write(src: str):
 
 
 def parse(src: str) -> Query:
+    return _parse_named(src)[0]
+
+
+def _parse_named(src: str) -> tuple:
+    """(query, the parser that read it: "simple", "native" or "python")."""
     q = _parse_simple_write(src)
     if q is not None:
-        return q
+        return q, "simple"
     q = _parse_native(src)
     if q is not None:
-        return q
-    return _Parser(tokenize(src), src).parse_query()
+        return q, "native"
+    return _Parser(tokenize(src), src).parse_query(), "python"
 
 
 # Prepared-query cache: dashboards and importers re-send identical PQL
@@ -330,9 +335,18 @@ _PARSE_MEMO = lockcheck.named_global(
 )
 
 
-def parse_cached(src: str) -> Query:
+def parse_cached(src: str, span=None) -> Query:
+    """``parse`` through the memo.  ``span``: a traced request's parse
+    span, tagged ``memo`` (hit or miss) and, on a miss, ``parser``."""
     q = _PARSE_MEMO.get(src)
     if q is None:
-        q = parse(src)  # outside the lock: a slow parse never serializes
+        # Outside the lock: a slow parse never serializes.
+        if span is None:
+            q = parse(src)
+        else:
+            q, how = _parse_named(src)
+            span.tags.update(memo="miss", parser=how)
         _PARSE_MEMO.put(src, q)
+    elif span is not None:
+        span.tags["memo"] = "hit"
     return q

@@ -269,7 +269,7 @@ class QueryCache:
     # ineligible query on the lock-free probe below.
     _CANON_MISS = object()
 
-    def _canonical(self, query_str: str) -> Optional[tuple]:
+    def _canonical(self, query_str: str, span=None) -> Optional[tuple]:
         """(fingerprint, frames) for an eligible query string, None for
         write-bearing / non-cacheable / unparseable ones.  Memoized: the
         steady-state repeated request pays one dict lookup, not a parse
@@ -282,6 +282,9 @@ class QueryCache:
         unique queries just re-parses and re-inserts itself.  All
         mutation stays under ``_mu`` (the lockset detector's contract
         for ``_canon``).
+
+        ``span``: a traced request's ``qcache.lookup`` span; a memo miss
+        parses under a ``parse`` child of it.
         """
         val = self._canon.get(query_str, self._CANON_MISS)
         if val is not self._CANON_MISS:
@@ -290,11 +293,14 @@ class QueryCache:
         if len(query_str) <= _FINGERPRINT_MAX_LEN:
             from pilosa_tpu_torch import pql
 
+            psp = span.child("parse") if span is not None else None
             try:
-                q = pql.parse_cached(query_str)
+                q = pql.parse_cached(query_str, psp)
             # analysis-ok: exception-hygiene: fingerprint probe; the normal execution path raises the real parse error
             except Exception:  # noqa: BLE001 — normal path raises the real error
                 q = None
+            if psp is not None:
+                psp.finish()
             if (
                 q is not None
                 and q.calls
@@ -327,7 +333,8 @@ class QueryCache:
             self.ineligible += 1
         self.stats.count("qcache.ineligible")
 
-    def lookup(self, holder, index: str, query_str: str, slices_key, remote: bool = False):
+    def lookup(self, holder, index: str, query_str: str, slices_key, remote: bool = False,
+               span=None):
         """One request's cache probe.
 
         Returns ``(results, pending)``: a valid entry yields
@@ -338,9 +345,10 @@ class QueryCache:
         ``remote`` is part of the key: a remote-serving execution covers
         local slices only, never a coordinator's global answer (remote
         reads always carry explicit slices today — this keys the
-        invariant rather than assuming it).
+        invariant rather than assuming it).  ``span``: a traced
+        request's ``qcache.lookup`` span (see :meth:`_canonical`).
         """
-        info = self._canonical(query_str)
+        info = self._canonical(query_str, span)
         if info is None:
             self.note_ineligible()
             return None, None

@@ -1534,6 +1534,8 @@ class ReplicaRouter:
                                        deadline=deadline, trace=trace)
         finally:
             self._gate_exit()
+            if trace is not None:
+                self.tracer.release(trace)
         if self.tracer is not None:
             extra = self.tracer.finish_request(
                 trace, name=f"{method} {path}",

@@ -259,9 +259,13 @@ class Handler:
             # slow-query log) can split replay load from live load.
             trace.root.tags["replay"] = True
         t0 = time.perf_counter()
-        out = self._dispatch_qos(
-            method, path, params, body, headers, trace.root if trace else None
-        )
+        try:
+            out = self._dispatch_qos(
+                method, path, params, body, headers, trace.root if trace else None
+            )
+        finally:
+            if trace is not None:
+                tracer.release(trace)
         dt_ms = (time.perf_counter() - t0) * 1e3
         self._note_applied(headers, out)
         # An UNSAMPLED request crossing slow-ms synthesizes a root-only

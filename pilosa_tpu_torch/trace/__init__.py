@@ -35,6 +35,15 @@ Design:
   cache/QoS disposition tags.  Force-sample a repro
   (``X-Pilosa-Trace: 1``) to get the full breakdown for a known-slow
   query.
+- **One clock** — a span starts at ``time.perf_counter_ns()``, the
+  clock a device profiler's window markers can be tied to; a recorded
+  trace's root carries that absolute ``t0_ns``, its children their
+  ``start_ms`` and ``ms`` relative to the root.
+- **Collector pauses** — while at least one traced request is open,
+  one ``gc.callbacks`` hook charges every pause of Python's collector
+  to the traced request open on the thread that paused: root tags
+  ``gc_ms``, ``gc_n`` and ``gc_full`` (full collections), so the
+  slow-query line says when the collector made a request slow.
 - **Cross-node propagation** — a coordinator's remote hop sends its
   trace id in ``X-Pilosa-Trace``; the peer (forced by the header)
   traces its own execution and returns the serialized span tree in the
@@ -54,10 +63,14 @@ Finished traces land in a bounded in-memory ring served at
 ``/debug/traces`` (JSON, newest-first, ``?min-ms=`` filter).  Config:
 ``[trace] sample-rate / slow-ms / ring`` TOML, ``PILOSA_TPU_TRACE_*``
 env, wired through Config into the server, lockstep CLI, and handler.
+
+Counts: ``trace.sampled`` and ``trace.slow`` (the stats client) are the
+tracer's only counters.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import logging
 import random
@@ -93,12 +106,12 @@ class Span:
     serialization time (a crash/timeout mid-stage still shows where
     the time went)."""
 
-    __slots__ = ("name", "trace_id", "t0", "ms", "tags", "children")
+    __slots__ = ("name", "trace_id", "t0_ns", "ms", "tags", "children")
 
     def __init__(self, name: str, trace_id: str = ""):
         self.name = name
         self.trace_id = trace_id
-        self.t0 = time.perf_counter()
+        self.t0_ns = time.perf_counter_ns()
         self.ms: Optional[float] = None
         self.tags: dict = {}
         self.children: list = []
@@ -110,7 +123,7 @@ class Span:
 
     def finish(self) -> "Span":
         if self.ms is None:
-            self.ms = (time.perf_counter() - self.t0) * 1e3
+            self.ms = (time.perf_counter_ns() - self.t0_ns) / 1e6
         return self
 
     def annotate(self, **tags) -> "Span":
@@ -127,14 +140,14 @@ class Span:
         elif isinstance(payload, dict):
             self.children.append(payload)
 
-    def to_json(self, base_t0: Optional[float] = None) -> dict:
-        base = self.t0 if base_t0 is None else base_t0
+    def to_json(self, base_ns: Optional[int] = None) -> dict:
+        base = self.t0_ns if base_ns is None else base_ns
         ms = self.ms
         if ms is None:  # still running at serialization time
-            ms = (time.perf_counter() - self.t0) * 1e3
+            ms = (time.perf_counter_ns() - self.t0_ns) / 1e6
         out = {
             "name": self.name,
-            "start_ms": round((self.t0 - base) * 1e3, 3),
+            "start_ms": round((self.t0_ns - base) / 1e6, 3),
             "ms": round(ms, 3),
         }
         if self.tags:
@@ -163,7 +176,8 @@ class Span:
 class Trace:
     """One sampled request: the root span plus door metadata."""
 
-    __slots__ = ("id", "root", "forced", "propagate", "wall_ts")
+    __slots__ = ("id", "root", "forced", "propagate", "wall_ts",
+                 "gc_t0_ns", "gc_ns", "gc_n", "gc_full")
 
     def __init__(self, name: str, trace_id: str = "", forced: bool = False,
                  propagate: bool = False):
@@ -176,9 +190,12 @@ class Trace:
         # harmless there).
         self.propagate = propagate
         self.wall_ts = time.time()
+        # Collector pauses on the request's thread (_CollectorPauses).
+        self.gc_t0_ns = self.gc_ns = self.gc_n = self.gc_full = 0
 
     def to_json(self, slow_ms: float = 0.0) -> dict:
         root = self.root.to_json()
+        root["t0_ns"] = self.root.t0_ns
         return {
             "id": self.id,
             "name": self.root.name,
@@ -188,6 +205,52 @@ class Trace:
             "slow": bool(slow_ms > 0 and root["ms"] >= slow_ms),
             "spans": root,
         }
+
+
+@lockcheck.guarded_class
+class _CollectorPauses:
+    """Python's collector pauses, charged to the traced request open on
+    the thread that paused.  One ``gc.callbacks`` hook is installed while
+    at least one traced request is open, and removed when the last one
+    closes, so an untraced process pays nothing."""
+
+    _guarded_by_ = {"_open": "trace._gc_mu"}
+
+    def __init__(self):
+        self._mu = lockcheck.named_lock("trace._gc_mu")
+        self._open: dict = {}  # thread ident -> its open Trace
+        self._hook = self._pause
+
+    def open(self, trace: Trace) -> None:
+        with self._mu:
+            if not self._open:
+                gc.callbacks.append(self._hook)
+            self._open[threading.get_ident()] = trace
+
+    def close(self, trace: Trace) -> None:
+        tid = threading.get_ident()
+        with self._mu:
+            if self._open.get(tid) is not trace:
+                return
+            del self._open[tid]
+            if not self._open:
+                gc.callbacks.remove(self._hook)
+
+    def _pause(self, phase: str, info: dict) -> None:
+        # Lock-free: a collection can start on a thread that holds _mu.
+        trace = self._open.get(threading.get_ident())
+        if trace is None:
+            return
+        if phase == "start":
+            trace.gc_t0_ns = time.perf_counter_ns()
+        elif trace.gc_t0_ns:
+            trace.gc_ns += time.perf_counter_ns() - trace.gc_t0_ns
+            trace.gc_t0_ns = 0
+            trace.gc_n += 1
+            trace.gc_full += info.get("generation") == 2
+
+
+_PAUSES = _CollectorPauses()
 
 
 def fingerprint(body: bytes, max_snippet: int = 120) -> dict:
@@ -214,11 +277,7 @@ class Tracer:
     default — an operator can still ``X-Pilosa-Trace: 1`` a repro
     without a restart)."""
 
-    _guarded_by_ = {
-        "stat_sampled": "trace._mu",
-        "stat_slow": "trace._mu",
-        "_ring": "trace._mu",
-    }
+    _guarded_by_ = {"_ring": "trace._mu"}
 
     def __init__(
         self,
@@ -241,8 +300,6 @@ class Tracer:
         self._rng = rng if rng is not None else random.Random()
         self._mu = lockcheck.named_lock("trace._mu")
         self._ring: "deque[dict]" = deque(maxlen=max(1, int(ring)))
-        self.stat_sampled = 0
-        self.stat_slow = 0
 
     # -- the door ---------------------------------------------------------
 
@@ -268,10 +325,17 @@ class Tracer:
         else:
             tid = "" if raw.strip().lower() in ("1", "true", "yes") else raw.strip()
             trace = Trace(name, trace_id=tid, forced=True, propagate=True)
-        with self._mu:
-            self.stat_sampled += 1
+        _PAUSES.open(trace)
         self.stats.count("trace.sampled")
         return trace
+
+    def release(self, trace: Optional[Trace]) -> None:
+        """Stop charging collector pauses to ``trace`` (a no-op once
+        done).  ``finish_request`` does it; a door does it in a
+        ``finally`` too, so a request that raises before
+        ``finish_request`` leaves no hook installed."""
+        if trace is not None:
+            _PAUSES.close(trace)
 
     # -- completion -------------------------------------------------------
 
@@ -301,36 +365,45 @@ class Tracer:
             trace = Trace(name)
             trace.root.ms = dt_ms
             trace.root.tags["unsampled"] = True
+        else:
+            _PAUSES.close(trace)
         root = trace.root
         root.finish()
+        if trace.gc_n:
+            root.tags["gc_ms"] = round(trace.gc_ns / 1e6, 3)
+            root.tags["gc_n"] = trace.gc_n
+            root.tags["gc_full"] = trace.gc_full
         if status:
             root.tags["status"] = status
         if tags:
             root.tags.update(tags)
-        self.record(trace)
+        entry = self.record(trace)
         if self.costs is not None:
             self.costs.fold(trace, dt_ms, body)
         if slow:
             self._log_slow(trace, dt_ms, body)
         if trace.propagate:
-            payload = json.dumps([root.to_json()], separators=(",", ":"))
+            # The ring entry's tree, serialized once; the root's clock
+            # is this process's own, so it stays out of the hop.
+            tree = {k: v for k, v in entry["spans"].items() if k != "t0_ns"}
+            payload = json.dumps([tree], separators=(",", ":"))
             if len(payload) > _SPANS_HEADER_MAX:
                 # Header-size degradation: keep the root timing, drop
                 # the tree rather than breaking the HTTP response.
-                slim = root.to_json()
-                slim.pop("children", None)
-                slim["truncated"] = True
-                payload = json.dumps([slim], separators=(",", ":"))
+                tree.pop("children", None)
+                tree["truncated"] = True
+                payload = json.dumps([tree], separators=(",", ":"))
             return {TRACE_SPANS_HEADER: payload}
         return None
 
-    def record(self, trace: Trace) -> None:
+    def record(self, trace: Trace) -> dict:
+        """Put ``trace`` in the ring; returns its ring entry."""
+        entry = trace.to_json(self.slow_ms)
         with self._mu:
-            self._ring.appendleft(trace.to_json(self.slow_ms))
+            self._ring.appendleft(entry)
+        return entry
 
     def _log_slow(self, trace: Trace, dt_ms: float, body: bytes) -> None:
-        with self._mu:
-            self.stat_slow += 1
         self.stats.count("trace.slow")
         rec = {
             "trace_id": trace.id,
