@@ -331,6 +331,7 @@ SOURCES = {
     "resident_count_multi": "pilosa_tpu_torch/csrc/resident_count_multi.cu",
     "pair_gram": "pilosa_tpu_torch/csrc/pair_gram.cu",
     "build_planes": "pilosa_tpu_torch/csrc/build_planes.cu",
+    "gather_count_multi_mixed": "pilosa_tpu_torch/csrc/gather_count_multi_mixed.cu",
 }
 # The def line of each Pallas kernel in pilosa_tpu/ops/pallas_kernels.py.
 REPLACES = {
@@ -352,18 +353,24 @@ REPLACES = {
     # not Pallas: the reference's device bulk build lane, a jitted sort,
     # dedup and scatter-add (its kernel body: _jax_kernel, :152)
     "build_planes": "pilosa_tpu/bulk/build.py:181",
+    # replaces none by itself: fused_gather_count_multi's per-(op, K)
+    # launches of one request, folded into one
+    "gather_count_multi_mixed": "pilosa_tpu/ops/pallas_kernels.py:554",
 }
 # Which path must launch each kernel: the executor path keeps the four
-# pair/TopN kernels, the HTTP path the four fold kernels (the staged tree
-# kernel through the "tree-hot" request, the staged multi kernel through
-# the "range-wide" request), the tall path the two row-major kernels, and the
-# differential sweep the whole-row scorer, the bulk path the plane build.
+# pair/TopN kernels, the HTTP path the five fold kernels (the mixed multi
+# kernel through the N-ary requests, the gather multi kernel through the
+# "range-short" request's Range covers, the staged tree kernel through the
+# "tree-hot" request, the staged multi kernel through the "range-wide"
+# request), the tall path the two row-major kernels, and the differential
+# sweep the whole-row scorer, the bulk path the plane build.
 PATH_OF = {
     "count_rows": "executor", "resident_count2": "executor", "gather_count2": "executor",
     "gather_src_counts": "executor", "gather_count_multi": "http", "gather_count_tree": "http",
     "resident_count_tree": "http", "resident_count_multi": "http",
     "gather_count2_rowmajor": "tall", "gather_count_multi_rowmajor": "tall",
     "topn_counts": "diffcheck", "pair_gram": "executor", "build_planes": "bulk",
+    "gather_count_multi_mixed": "http",
 }
 PAIR_OPS = ("and", "or", "xor", "andnot")
 PQL_OPS = {"and": "Intersect", "or": "Union", "andnot": "Difference", "xor": "Xor"}
@@ -606,6 +613,7 @@ def check_kernels() -> tuple[dict, list, list, dict]:
     fold_cases = check_fold_kernels(rm, rng, diff)
     print(json.dumps({"tree_checks": check_tree_edges(rm, diff)}), flush=True)
     print(json.dumps({"narrow_folds": check_narrow_folds(rm, diff)}), flush=True)
+    print(json.dumps({"mixed_checks": check_mixed(rm, diff)}), flush=True)
     check_staged_kernels(rm, diff)
     print(json.dumps({"staged_checks": {"resident_count_multi": check_staged_multi(rm, diff)}}),
           flush=True)
@@ -647,6 +655,11 @@ def check_kernels() -> tuple[dict, list, list, dict]:
     )
     res.update(time_fold_kernels(rm, fold_cases))
     del fold_cases
+    # The mixed kernel at the single-group shapes of the line's
+    # gather_count_multi entry, timed there.
+    single = [dict(shape=e["shape"], gather_ms=e["abba_gather_ms"], mixed_ms=e["mixed_ms"],
+                   mixed_over_gather=e["mixed_over_gather"])
+              for e in [res["gather_count_multi"], *res["gather_count_multi"]["shapes"]]]
     staged, gate = time_staged_kernels(rm, pairs_r)
     res.update(staged)
     words = _Words()
@@ -658,6 +671,7 @@ def check_kernels() -> tuple[dict, list, list, dict]:
     res.update(tall)
     del rm, stack, rows
     torch.cuda.empty_cache()
+    res["gather_count_multi_mixed"] = dict(time_mixed(diff), single_group=single)
     res.update(check_gram(diff))
     res.update(check_build_planes(diff))
     for name in res:
@@ -757,6 +771,19 @@ def range_requests(time_rows: int) -> tuple[list, list, list]:
     two = [two[i] for i in rng.permutation(len(two))]
     wide = [(r, sp) for sp in wide_spans(rng, RANGE_WIDE_SPANS) for r in range(time_rows)]
     return one, two, [wide[i] for i in rng.permutation(len(wide))]
+
+
+def range_short(time_rows: int) -> list:
+    """range-short's (row, span) items: every row over each of two short
+    August spans that no other request asks, each over August 15th (a day
+    of STAMPS): covers of 1-7 day views."""
+    rng = np.random.default_rng(RANGE_SEED + 1)
+    spans = []
+    for _ in range(2):
+        d = int(rng.integers(9, 16))
+        end = max(16, d + int(rng.integers(1, 8)))
+        spans.append((f"2017-08-{d:02d}T00:00", f"2017-08-{end:02d}T00:00"))
+    return [(r, sp) for sp in spans for r in range(time_rows)]
 
 
 def range_batches(one, two, wide) -> list:
@@ -1216,6 +1243,13 @@ def time_fold_kernels(rm, cases) -> dict:
             f"{where} [{m.shape[0]}, {m.shape[1]}, {W}], B={idx.shape[0]}, K={idx.shape[1]}, {op}",
             m, idx, lambda: kernels.gather_count_multi(op, m, idx),
             lambda: _chunked(lambda x: kernels.gather_count_multi_plain(op, m, x), idx)))
+        # The same one group through the mixed entry, timed in turns with
+        # the gather entry.
+        ops, off, ids = kernels.mixed_groups([(op, idx)])
+        gather_ms, mixed_ms = abba_medians(lambda: kernels.gather_count_multi(op, m, idx),
+                                       lambda: kernels.gather_count_multi_mixed(m, ops, off, ids))
+        multi[-1].update(abba_gather_ms=gather_ms, mixed_ms=mixed_ms,
+                         mixed_over_gather=mixed_ms / gather_ms)
     tree = []
     for c in cases["gather_count_tree"]:
         lv, oc = c["leaves"], c["opc"]
@@ -1229,6 +1263,154 @@ def time_fold_kernels(rm, cases) -> dict:
     # depth-3 tree (K=8); every other shape rides along under "shapes".
     out = {"gather_count_multi": dict(multi[0], shapes=multi[1:]),
            "gather_count_tree": dict(tree[2], shapes=tree[:2] + tree[3:])}
+    return out
+
+
+def abba_medians(fa, fb) -> tuple[float, float]:
+    """Median CUDA-event times of fa and fb over ``_abba_rounds`` (a b b
+    a, three times, the L2 flushed before each launch)."""
+    a, b = _abba_rounds(fa, fb)
+    return float(np.median(a)), float(np.median(b))
+
+
+def check_mixed(rm, diff) -> list:
+    """gather_count_multi_mixed against its plain version on the card,
+    exactly: and / or / andnot mixed in one batch with K = 1-23 ragged,
+    ids repeated inside a query, andnot whose first operand other queries
+    name; batches on both sides of the launch's parameters (ids in the
+    parameters, ids in a device array); both layouts (a row-major copy of
+    16 slices); and B = 1-2 over 5 and 7 slices, which narrow the chunk.
+    Each case also against the gather kernel group by group.  Returns the
+    cases' names."""
+    rng = np.random.default_rng(SEED + 21)
+    names = []
+
+    def batch(b, kmax, n_rows):
+        ops = [kernels.MULTI_OPS[i] for i in rng.integers(0, 3, size=b)]
+        ks = rng.integers(1, kmax + 1, size=b)
+        ids = rng.integers(0, n_rows, size=int(ks.sum())).astype(np.int32)
+        off = np.concatenate([[0], np.cumsum(ks)]).astype(np.int32)
+        for q in range(1, b, 5):  # a repeat inside a query
+            if ks[q] > 1:
+                ids[off[q] + 1] = ids[off[q]]
+        for q in range(0, b, 4):  # andnot's first operand named by the next query
+            if ops[q] == "andnot" and q + 1 < b:
+                ids[off[q + 1]] = ids[off[q]]
+        return ops, off, ids
+
+    row = rm[:16].transpose(0, 1).contiguous()
+    for b, kmax in ((48, 23), (400, 23), (32, 16)):
+        ops, off, ids = batch(b, kmax, N_ROWS)
+        n_ints = kernels.multi_mixed_ints(ops, off, ids).size
+        where = "params" if n_ints <= kernels.MIXED_PARAM_INTS else "array"
+        got = kernels.gather_count_multi_mixed(rm, ops, off, ids)
+        diff("gather_count_multi_mixed", got, kernels.gather_count_multi_mixed_plain(rm, ops, off, ids))
+        # (a fold of one operand is that operand under any op)
+        one = torch.cat([kernels.gather_count_multi(op if off[q + 1] - off[q] > 1 else "or", rm,
+                                                    ids[off[q]:off[q + 1]][None])
+                         for q, op in enumerate(ops)])
+        diff("gather_count_multi_mixed", got, one)
+        diff("gather_count_multi_mixed", kernels.gather_count_multi_mixed(row, ops, off, ids, True),
+             kernels.gather_count_multi_mixed_plain(rm[:16], ops, off, ids))
+        names.append(f"B={b} K=1-{kmax} ({n_ints} ints, {where}), slice- and row-major")
+    for s in (5, 7):
+        for b in (1, 2):
+            ops, off, ids = batch(b, 23, N_ROWS)
+            m = rm[:s]
+            diff("gather_count_multi_mixed", kernels.gather_count_multi_mixed(m, ops, off, ids),
+                 kernels.gather_count_multi_mixed_plain(m, ops, off, ids))
+            names.append(f"S={s} B={b}: NV={_fold_vectors(b, s, torch.cuda.get_device_properties(0).multi_processor_count)}")
+    torch.cuda.synchronize()
+    return names
+
+
+# The star-team cell (benchport: configuration startrace-gh, traffic
+# team-stars): 32 Counts a request, Union of 8-16 and Intersect of 3-4 of
+# 512 users drawn Zipf(1.0), over the pool its 32 GiB budget gives, 653
+# rows of 401 slices, slice-major.
+STAR_SLICES = 401
+STAR_POOL_ROWS = 653
+STAR_USERS = 512
+STAR_CALLS = 32
+STAR_REQUESTS = 4
+
+
+def star_team_groups(rng) -> list:
+    """One star-team request's N-ary groups as the executor hands them to
+    the mixed dispatch: [(op, int32[B_g, K])] in (op, K) order; each call's
+    users drawn as the traffic draws them (the K largest of Zipf log
+    weights plus Gumbel noise), users at pool slots 0-511."""
+    log_p = -np.log(np.arange(1, STAR_USERS + 1, dtype=np.float64))
+    rank_row = rng.permutation(STAR_USERS)
+    groups: dict = {}
+    for _ in range(STAR_CALLS):
+        union = rng.random() < 0.5
+        k = int(rng.integers(8, 17) if union else rng.integers(3, 5))
+        order = np.argsort(-(log_p + rng.gumbel(size=STAR_USERS)))[:k]
+        groups.setdefault(("or" if union else "and", k), []).append(rank_row[order])
+    return [(op, np.array(rows, dtype=np.int32)) for (op, _k), rows in sorted(groups.items())]
+
+
+def wall_ms(fn, reps: int = 5) -> float:
+    """Median host-clock ms of fn() (which ends with the counts on the
+    host), the L2 flushed before each."""
+    fn()
+    out = []
+    for _ in range(reps):
+        _flush_l2()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def time_mixed(diff) -> dict:
+    """The mixed kernel's "kernels" line entry at star-team's shape: a few
+    requests drawn as the traffic draws them over a [401, 653, W] pool,
+    each held exactly against the plain version and the gather kernel's
+    per-group launches; the kernel through its entry point (``ms``, L2
+    flushed) beside its bound (the batch's distinct rows read once), the
+    plain version, the per-group gather_count_multi launches it replaces,
+    timed in turns with it and summed (``groups_ms``), and on the host's
+    clock both ways with each launch's fetch, as the executor ran them
+    (``wall_ms``, ``groups_wall_ms``), and their host work alone
+    (``host_ms``, ``groups_host_ms``)."""
+    pool = _rand_words(_gen(SEED + 22), (STAR_SLICES, STAR_POOL_ROWS, W))
+    rng = np.random.default_rng(SEED + 23)
+    reqs = []
+    for _ in range(STAR_REQUESTS):
+        groups = star_team_groups(rng)
+        ops, off, ids = kernels.mixed_groups(groups)
+
+        def mixed(_a=(ops, off, ids)):
+            return kernels.gather_count_multi_mixed(pool, *_a)
+
+        def per_group(_g=groups):
+            return [kernels.gather_count_multi(op, pool, idx) for op, idx in _g]
+
+        got = mixed()
+        diff("gather_count_multi_mixed", got, kernels.gather_count_multi_mixed_plain(pool, ops, off, ids))
+        diff("gather_count_multi_mixed", got, torch.cat(per_group()))
+        u = len(np.unique(ids))
+        refs = sum(len(set(ids[off[q]:off[q + 1]].tolist())) for q in range(len(ops)))
+        nb, by = bound(STAR_SLICES * u * W * 4 + kernels.multi_mixed_ints(ops, off, ids).nbytes
+                       + len(ops) * 4, STAR_SLICES * W * (refs + len(ops)))
+        groups_ms, ms = abba_medians(per_group, mixed)
+        reqs.append(dict(
+            ms=ms, bound_ms=nb, bound_by=by, groups_ms=groups_ms,
+            plain_ms=cuda_ms(lambda: kernels.gather_count_multi_mixed_plain(pool, ops, off, ids),
+                             reps=1, warm=1),
+            wall_ms=wall_ms(lambda: mixed().cpu()),
+            groups_wall_ms=wall_ms(lambda: [c.cpu() for c in per_group()]),
+            host_ms=host_ms(mixed, n=20), groups_host_ms=host_ms(per_group, n=20),
+            groups=len(groups), calls=len(ops), distinct=u, named=int(ids.size)))
+    del pool
+    torch.cuda.empty_cache()
+    out = {k: float(np.median([r[k] for r in reqs])) for k in reqs[0] if k != "bound_by"}
+    out.update(bound_by=reqs[0]["bound_by"], requests=reqs,
+               shape=f"star-team: pool [{STAR_SLICES}, {STAR_POOL_ROWS}, {W}], {STAR_CALLS} Counts "
+                     f"(Union 8-16, Intersect 3-4, Zipf users), medians of {STAR_REQUESTS} requests")
     return out
 
 
@@ -2683,7 +2865,7 @@ def http_path(host: str, ex_ref, n_rows: int, time_rows: int, engine) -> list[di
         expect=("resident_count2",))
     for name, (op, idx) in nary_requests(n_rows).items():
         run(name, [f"Count({PQL_OPS[op]}({', '.join(_bm(r) for r in ids)}))" for ids in idx],
-            expect=("gather_count_multi",))
+            expect=("gather_count_multi_mixed",))
     run("tree", [_tree_call(rng, n_rows, i) for i in range(FOLD_BATCH)], expect=("gather_count_tree",))
     # range-2 repeats range-1's spans, which answer from the cover memo;
     # its new spans' covers launch.  Each Range batch's Counts of one row
@@ -2695,6 +2877,11 @@ def http_path(host: str, ex_ref, n_rows: int, time_rows: int, engine) -> list[di
     run("range-1", [_range_call(r, sp) for r, sp in one], expect=("resident_count_multi",))
     run("range-2", [_range_call(r, sp) for r, sp in two], expect=("resident_count_multi",))
     run("range-wide", [_range_call(r, sp) for r, sp in wide], expect=("resident_count_multi",))
+    # Short August spans no earlier request asked: covers of 1-7 day
+    # views, too few references for the staged gate, so the Range lane's
+    # batch takes the gather multi kernel.
+    run("range-short", [_range_call(r, sp) for r, sp in range_short(time_rows)],
+        expect=("gather_count_multi",))
     # Nested Counts four times as many as "tree": buckets of 128 trees at
     # K=4 and 64 at K=8 and K=16, 1.1-2.3 live references a row: the
     # gather kernel (dispatch.tree_strategy).  The same over 64 hot rows:
@@ -2750,7 +2937,7 @@ def tall_path(ex, ex_ref, n_rows: int, sync=lambda: None) -> list[dict]:
     calls = [f"Count({PQL_OPS[op]}({', '.join(_bm(r) for r in rows)}))" for op, rows in nary]
     last = nary[-1][1]
     run("tall-nary", calls, _subset(rng, len(calls)),
-        expect=("gather_count_multi_rowmajor", "gather_count2_rowmajor"))
+        expect=("gather_count_multi_mixed", "gather_count2_rowmajor"))
     # One Union over more rows than the pool holds streams its slices
     # through row-major transients, one launch per slice chunk; checked
     # whole.  A pair Count rides beside it: the fused path takes bodies of
@@ -3466,7 +3653,7 @@ MESH_SUBSET = 4
 # The kernels the mesh path runs ("yes" in PERF.md's table): each must
 # launch on every rank.
 MESH_KERNELS = ("count_rows", "resident_count2", "gather_count2", "gather_src_counts",
-                "gather_count_multi", "resident_count_multi", "gather_count_tree",
+                "gather_count_multi_mixed", "resident_count_multi", "gather_count_tree",
                 "resident_count_tree", "topn_counts", "pair_gram", "build_planes")
 # main_path's TopN (checked there against the numpy engine): f is not
 # written between it and the fleet phase, whose groups hold all 64 slices,
@@ -3499,6 +3686,9 @@ def record_mesh_batches() -> None:
     wrap(dispatch, "gather_count", lambda op, m, p: ("pair", op, m.shape[1], np.array(p, np.int32)))
     wrap(dispatch, "gather_count_multi",
          lambda op, m, ix: ("multi", op, m.shape[1], np.array(ix, np.int32)))
+    wrap(dispatch, "gather_count_multi_mixed",
+         lambda m, groups, row_major=False: ("mixed", None, m.shape[1],
+                            tuple((op, np.array(ix, np.int32)) for op, ix in groups)))
     wrap(dispatch, "gather_count_tree",
          lambda m, lv, oc: ("tree", None, m.shape[1], (np.array(lv, np.int32), np.array(oc, np.int32))))
     wrap(dispatch, "topn_scorer_counts", lambda m, pos, s: ("scorer", None, m.shape[1],
@@ -3527,7 +3717,7 @@ def mesh_requests(n_rows: int, time_rows: int) -> list:
         ("pairs cold", _pair_calls(("and",), pairs), "gram", ("resident_count2",)),
         ("pairs warm", _pair_calls(("or",), pairs), "gram", ("pair_gram",)),
         ("nary", [f"Count({PQL_OPS[op]}({', '.join(_bm(r) for r in ids)}))" for ids in idx],
-         "gram", ("gather_count_multi",)),
+         "gram", ("gather_count_multi_mixed",)),
         ("range-wide", [_range_call(r, sp) for r, sp in wide], "gram", ("resident_count_multi",)),
         ("tree", [_tree_call(rng, n_rows, i) for i in range(FOLD_BATCH)], "gram",
          ("gather_count_tree",)),
@@ -3950,8 +4140,11 @@ def _check_shard(s: int, checked: dict) -> None:
     src = _rand_words(gen, (s, W))
     seen = set()
     for kind, op, r, ids in MESH_BATCHES:
-        raw = b"" if ids is None else b"".join(np.ascontiguousarray(x).tobytes()
-                                              for x in (ids if kind == "tree" else (ids,)))
+        if kind == "mixed":
+            raw = b"".join(op.encode() + ix.tobytes() for op, ix in ids)
+        else:
+            raw = b"" if ids is None else b"".join(np.ascontiguousarray(x).tobytes()
+                                                  for x in (ids if kind == "tree" else (ids,)))
         key = (kind, op, r, raw)
         if key in seen:
             continue
@@ -3964,6 +4157,10 @@ def _check_shard(s: int, checked: dict) -> None:
         elif kind == "multi":
             got = dispatch.gather_count_multi(op, mat(r), ids)
             want = _chunked(lambda ix: kernels.gather_count_multi_plain(op, mat(r), ix), ids)
+        elif kind == "mixed":
+            got = dispatch.gather_count_multi_mixed(mat(r), ids)
+            want = torch.cat([_chunked(lambda ix, _op=op: kernels.gather_count_multi_plain(_op, mat(r), ix),
+                                       idx) for op, idx in ids])
         elif kind == "tree":
             lv, oc = ids
             got = dispatch.gather_count_tree(mat(r), lv, oc)
@@ -4104,7 +4301,7 @@ FLEET_SENDS = 2
 FLEET_DIRECT = ("pairs warm", "nary", "tree", "range-wide")
 FLEET_HOP_SENDS = 6
 # The kernels this phase runs ("yes" in PERF.md's table): each must launch.
-FLEET_KERNELS = ("count_rows", "resident_count2", "gather_src_counts", "gather_count_multi",
+FLEET_KERNELS = ("count_rows", "resident_count2", "gather_src_counts", "gather_count_multi_mixed",
                  "resident_count_multi", "gather_count_tree", "pair_gram", "build_planes")
 # Each wait (a group's readiness, a replay, a resync) and each request.
 FLEET_WAIT_S = 300
@@ -4685,7 +4882,7 @@ ANALYSIS_SEED = SEED + 20
 ANALYSIS_READS = ("pairs", "nary", "tree", "topn")
 # The kernels the reads reach on the card, as the HTTP path's expect at
 # the same batch shapes: pairs, N-ary, tree, and TopN's two.
-ANALYSIS_KERNELS = ("resident_count2", "gather_count_multi", "gather_count_tree", "count_rows",
+ANALYSIS_KERNELS = ("resident_count2", "gather_count_multi_mixed", "gather_count_tree", "count_rows",
                     "gather_src_counts")
 ANALYSIS_TIMEOUT_S = 600
 
@@ -4945,7 +5142,8 @@ def _main(card: str, builds: list, d: str, d2: str) -> int:
     ptx = ptxas_usage((
         "count_rows", "resident_count2", "gather_count_multi", "gather_count_tree", "resident_count_tree",
         "gather_count2_rowmajor", "gather_count_multi_rowmajor", "topn_counts",
-        "resident_count_multi", "pair_gram", "gather_count2", "build_planes"))
+        "resident_count_multi", "pair_gram", "gather_count2", "build_planes",
+        "gather_count_multi_mixed"))
     print(json.dumps({"ptxas": ptx}), flush=True)
 
     lap("build")
@@ -5031,7 +5229,9 @@ def _main(card: str, builds: list, d: str, d2: str) -> int:
                       "chunk_words", "stages", "smem_bytes", "kernel_ms", "n_seg",
                       "kernel_ms_by_n_seg", "host_ms", "bytes_bound_ms", "ops_bound_ms",
                       "int8_ops_bound_ms", "int_mm_only_ms", "checked", "schedule", "buckets",
-                      "b1_probe", "library_note", "download_pinned_ms", "download_pageable_ms"):
+                      "b1_probe", "library_note", "download_pinned_ms", "download_pageable_ms",
+                      "groups", "groups_ms", "wall_ms", "groups_wall_ms", "groups_host_ms",
+                      "distinct", "single_group", "requests"):
             if extra in t:
                 entry[extra] = t[extra]
         if name in ptx:

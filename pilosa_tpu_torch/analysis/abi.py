@@ -100,6 +100,15 @@ _DEF_RE = re.compile(
 )
 
 
+# A kernel entry point: ``extern "C" <ret> pk_<name>(<params>) {`` (one
+# definition, not a block), in pilosa_tpu_torch/csrc/*.cu.
+_PK_DEF_RE = re.compile(
+    r'extern\s+"C"\s+(?P<ret>[A-Za-z_][\w]*(?:\s+[A-Za-z_][\w]*)*\s*\**)\s*'
+    r"\b(?P<name>pk_\w+)\s*\((?P<params>[^)]*)\)\s*\{",
+    re.DOTALL,
+)
+
+
 class AbiIssue:
     """One conformance failure, anchored at a native.py line."""
 
@@ -320,4 +329,115 @@ def check_abi(cpp_path: str, native_py_path: str,
                 f"`{name}` is not among the .so's exported dynamic "
                 "symbols — stale build or dropped export",
             ))
+    return issues
+
+
+# -- the kernels' boundary: ops/kernels.py's _ARGTYPES vs csrc/*.cu -----------
+#
+# Every CUDA kernel is a plain C entry point (``pk_*``) bound by ctypes
+# from one table, ``_ARGTYPES`` in ops/kernels.py: {kernel: ("pk_<name>",
+# [argtypes])}, each restype ``c_int`` (the entry returns its
+# cudaError_t).  The same drift as the native bridge's is a launch with
+# a pointer cut to 32 bits or an argument in the wrong slot.
+
+KERNEL_RESTYPE = "i32"
+
+
+def _list_widths(node: ast.expr, aliases: dict[str, str]) -> list[str] | None:
+    """Widths of an argtypes list expression: a list literal, ``+`` of
+    two, or one times an integer constant; None where it is anything
+    else (the gate fails closed)."""
+    if isinstance(node, (ast.List, ast.Tuple)):
+        return [_ctypes_width(e, aliases) for e in node.elts]
+    if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Add):
+        a, b = _list_widths(node.left, aliases), _list_widths(node.right, aliases)
+        return None if a is None or b is None else a + b
+    if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Mult):
+        for lst, n in ((node.left, node.right), (node.right, node.left)):
+            if isinstance(n, ast.Constant) and isinstance(n.value, int):
+                w = _list_widths(lst, aliases)
+                return None if w is None else w * n.value
+    return None
+
+
+def parse_kernel_argtypes(path: str) -> dict[str, tuple[str, list[str], int]]:
+    """``{symbol: (kernel, [param_widths], line)}`` from the module-level
+    ``_ARGTYPES`` dict of ops/kernels.py; module-level aliases (``_P =
+    ctypes.c_void_p``) are resolved.  An entry whose list cannot be
+    classified gets a single ``"?"`` width."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    aliases: dict[str, str] = {}
+    out: dict[str, tuple[str, list[str], int]] = {}
+    for node in tree.body:
+        if not isinstance(node, ast.Assign) or len(node.targets) != 1:
+            continue
+        tgt = node.targets[0]
+        if not isinstance(tgt, ast.Name):
+            continue
+        if tgt.id != "_ARGTYPES":
+            w = _ctypes_width(node.value, aliases)
+            if w != "?":
+                aliases[tgt.id] = w
+            continue
+        if not isinstance(node.value, ast.Dict):
+            continue
+        for key, val in zip(node.value.keys, node.value.values):
+            if not (isinstance(key, ast.Constant) and isinstance(val, ast.Tuple)
+                    and len(val.elts) == 2 and isinstance(val.elts[0], ast.Constant)):
+                continue
+            widths = _list_widths(val.elts[1], aliases)
+            out[str(val.elts[0].value)] = (str(key.value), widths or ["?"], val.lineno)
+    return out
+
+
+def parse_kernel_sources(csrc_dir: str) -> dict[str, tuple[str, list[str]]]:
+    """``{symbol: (ret_width, [param_widths])}`` for every ``extern "C"
+    ... pk_*(...) {`` definition in the ``.cu`` files of ``csrc_dir``."""
+    out: dict[str, tuple[str, list[str]]] = {}
+    for fn in sorted(os.listdir(csrc_dir)):
+        if not fn.endswith(".cu"):
+            continue
+        with open(os.path.join(csrc_dir, fn), encoding="utf-8") as f:
+            text = _COMMENT_RE.sub(" ", f.read())
+        for m in _PK_DEF_RE.finditer(text):
+            params_src = m.group("params").strip()
+            params = ([] if not params_src or params_src == "void"
+                      else [_c_slot_width(p) or "?" for p in params_src.split(",")])
+            out[m.group("name")] = (_c_slot_width(m.group("ret")) or "?", params)
+    return out
+
+
+def check_kernel_abi(csrc_dir: str, kernels_py_path: str) -> list[AbiIssue]:
+    """The kernels' ctypes table against their CUDA entry points: every
+    declared ``pk_*`` defined, with the same arity and widths, returning
+    int.  Issues anchor at the entry's line of ops/kernels.py."""
+    issues: list[AbiIssue] = []
+    decls = parse_kernel_argtypes(kernels_py_path)
+    defs = parse_kernel_sources(csrc_dir)
+    for sym, (kernel, widths, line) in sorted(decls.items()):
+        d = defs.get(sym)
+        if d is None:
+            issues.append(AbiIssue(
+                sym, line,
+                f"`{sym}` (kernel {kernel}) declared in _ARGTYPES but defined in no "
+                'extern "C" entry of csrc/*.cu — missing symbol'))
+            continue
+        ret, params = d
+        if len(widths) != len(params):
+            issues.append(AbiIssue(
+                sym, line,
+                f"`{sym}` arity mismatch: _ARGTYPES declares {len(widths)} argtypes, "
+                f"the CUDA entry takes {len(params)} parameters"))
+        else:
+            for i, (pw, cw) in enumerate(zip(widths, params)):
+                if pw != cw:
+                    issues.append(AbiIssue(
+                        sym, line,
+                        f"`{sym}` argument {i} width mismatch: _ARGTYPES declares {pw}, "
+                        f"the CUDA entry takes {cw}"))
+        if ret != KERNEL_RESTYPE:
+            issues.append(AbiIssue(
+                sym, line,
+                f"`{sym}` returns {ret}; the wrappers read a cudaError_t as c_int"))
     return issues

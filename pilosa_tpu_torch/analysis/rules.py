@@ -672,19 +672,27 @@ def rule_guarded_fields(files, root: str) -> list[Finding]:
 NATIVE_PY_REL = "native.py"
 NATIVE_CPP_NAME = "pilosa_native.cpp"
 NATIVE_SO_NAME = "libpilosa_native.so"
+# The kernels' bridge: ops/kernels.py's _ARGTYPES against csrc/*.cu.
+KERNELS_PY_REL = "ops/kernels.py"
+KERNELS_CSRC_REL = "csrc"
 
 
 def rule_native_abi(files, root: str) -> list[Finding]:
     from pilosa_tpu_torch.analysis import abi
 
+    out: list[Finding] = []
+    csrc = os.path.join(root, KERNELS_CSRC_REL)
+    if any(sf.rel == KERNELS_PY_REL for sf in files) and os.path.isdir(csrc):
+        for issue in abi.check_kernel_abi(csrc, os.path.join(root, KERNELS_PY_REL)):
+            out.append(Finding("native-abi", KERNELS_PY_REL, issue.line, issue.name,
+                               issue.message))
     if not any(sf.rel == NATIVE_PY_REL for sf in files):
-        return []  # tree without a native bridge (fixture packages)
+        return out  # tree without a native bridge (fixture packages)
     native_dir = os.path.join(os.path.dirname(os.path.abspath(root)), "native")
     cpp = os.path.join(native_dir, NATIVE_CPP_NAME)
     if not os.path.exists(cpp):
-        return []  # source-only install: nothing to conform against
+        return out  # source-only install: nothing to conform against
     so = os.path.join(native_dir, NATIVE_SO_NAME)
-    out: list[Finding] = []
     for issue in abi.check_abi(cpp, os.path.join(root, NATIVE_PY_REL),
                                so_path=so):
         out.append(

@@ -183,6 +183,12 @@ class NumpyEngine:
     def gather_count_multi_dev(self, op: str, row_matrix, idx):
         return self.gather_count_multi(op, row_matrix, idx)
 
+    def gather_count_multi_mixed_dev(self, row_matrix, groups, row_major: bool = False):
+        """The counts of fold groups ``[(op, idx int[B_g, K_g])]`` ->
+        int64[sum B_g] in group order (one ``gather_count_multi`` a group:
+        on the host a launch costs nothing)."""
+        return np.concatenate([self.gather_count_multi(op, row_matrix, idx) for op, idx in groups])
+
     def gather_count_tree_dev(self, row_matrix, leaves, opc):
         return self.gather_count_tree(row_matrix, leaves, opc)
 
@@ -436,6 +442,14 @@ class TorchEngine:
 
     def gather_count_multi_dev(self, op: str, row_matrix, idx):
         return dispatch.gather_count_multi(op, row_matrix.contiguous(), idx).long()
+
+    def gather_count_multi_mixed_dev(self, row_matrix, groups, row_major: bool = False):
+        """The counts of fold groups ``[(op, idx int[B_g, K_g])]`` on the
+        device (int64[sum B_g], group order): one launch of the mixed
+        kernel for every group the staged gate declines
+        (``dispatch.gather_count_multi_mixed``); ``row_major`` for a
+        row-major [R, S, W] matrix."""
+        return dispatch.gather_count_multi_mixed(row_matrix.contiguous(), groups, row_major).long()
 
     def gather_count_or_multi(self, row_matrix, idx) -> np.ndarray:
         return self.gather_count_multi("or", row_matrix, idx)
@@ -805,6 +819,16 @@ class MeshEngine(TorchEngine):
             return super().gather_count_multi_dev(op, row_matrix, idx)
         local = self._timed(
             lambda: dispatch.gather_count_multi(op, _local(row_matrix).contiguous(), idx))
+        return self.mesh.all_reduce_sum(local.long())
+
+    def gather_count_multi_mixed_dev(self, row_matrix, groups, row_major: bool = False):
+        """The local mixed launch on the block and ONE all_reduce for
+        every group (the groups' order is the executor's, the same on
+        every rank)."""
+        if not isinstance(row_matrix, SliceShard):
+            return super().gather_count_multi_mixed_dev(row_matrix, groups, row_major)
+        local = self._timed(
+            lambda: dispatch.gather_count_multi_mixed(_local(row_matrix).contiguous(), groups))
         return self.mesh.all_reduce_sum(local.long())
 
     def gather_count_tree_dev(self, row_matrix, leaves, opc):

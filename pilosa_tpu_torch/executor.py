@@ -108,6 +108,39 @@ def _group_sort_key(kv):
     return (str(op[0]) if isinstance(op, tuple) else op, kb)
 
 
+def _launch_batches(groups: dict) -> list:
+    """A resident part's launches, in ``_group_sort_key`` order: each
+    pair (K = 2) and tree group alone, and every N-ary group together in
+    one batch (one launch of the mixed kernel), at the first one's place.
+    Each batch is a list of ``(group key, call indices)``."""
+    out, nary = [], None
+    for gk, op_idxs in sorted(groups.items(), key=_group_sort_key):
+        op, kb = gk
+        if kb == 2 or isinstance(op, tuple):
+            out.append([(gk, op_idxs)])
+            continue
+        if nary is None:
+            nary = []
+            out.append(nary)
+        nary.append((gk, op_idxs))
+    return out
+
+
+def _fold_ids(op: str, kb: int, op_idxs, matched, id_pos, bb: int) -> np.ndarray:
+    """int32[bb, kb]: each call's operand positions, padded to ``kb``
+    with an operand the fold ignores (and / or: the first; andnot: the
+    second), and rows past the calls repeating the first call's."""
+    rows = [[id_pos[x] for x in matched[i][3]] for i in op_idxs]
+    if bb == len(rows) and all(len(pos) == kb for pos in rows):
+        return np.array(rows, dtype=np.int32)  # exact arities: nothing to pad
+    idx_arr = np.zeros((bb, kb), dtype=np.int32)
+    for r, pos in enumerate(rows):
+        idx_arr[r, : len(pos)] = pos
+        idx_arr[r, len(pos):] = pos[0] if op != "andnot" else pos[1]
+    idx_arr[len(rows):] = idx_arr[0]
+    return idx_arr
+
+
 def _tree_depth(node) -> int:
     if isinstance(node, int):
         return 0
@@ -2284,9 +2317,12 @@ class Executor:
         """Fused counts for the given slice batch, aligned with idxs.
 
         2-operand groups keep the pair lane (Gram-eligible); 3+-operand
-        groups run the multi-fold kernel with the operand axis padded to
-        a power-of-two bucket (fold-idempotent pad: the first operand for
-        and/or, the second for andnot) so jitted shapes stay stable.
+        groups run the multi-fold kernels with the operand axis padded to
+        a power-of-two bucket on jitted engines (fold-idempotent pad: the
+        first operand for and/or, the second for andnot) so their shapes
+        stay stable.  In the resident regime all of a part's 3+-operand
+        groups share one launch of the mixed kernel (one fetch); the
+        streaming regime launches each group alone.
         Batches whose unique row set exceeds the pool capacity are chunked
         (rows page through HBM per chunk) instead of falling back to host.
 
@@ -2424,14 +2460,17 @@ class Executor:
                     if psp is not None:
                         psp.finish()
                         psp = None
-                    for gk, op_idxs in sorted(groups.items(), key=_group_sort_key):
+                    # One launch and one fetch for all of the part's
+                    # N-ary groups (the mixed kernel); each pair and tree
+                    # group keeps its own.
+                    for batch in _launch_batches(groups):
                         counts = self.engine.to_numpy(
                             self._group_counts(
-                                gk, op_idxs, matched, id_pos, matrix, static,
-                                gram, row_major=rm_pool, span=span,
+                                batch, matched, id_pos, matrix, static,
+                                gram, row_major=rm_pool, span=span, mixed=True,
                             )
                         )
-                        for k2, i in enumerate(op_idxs):
+                        for k2, i in enumerate(i for _gk, op_idxs in batch for i in op_idxs):
                             out[i] = int(counts[k2])
                     if rec:
                         # Lane that ACTUALLY ran (a veto self-corrects).
@@ -2476,7 +2515,7 @@ class Executor:
                         for gk, op_idxs in sorted(groups.items(), key=_group_sort_key):
                             acc.setdefault(gk, []).append(
                                 self._group_counts(
-                                    gk, op_idxs, matched, id_pos, matrix, static,
+                                    [(gk, op_idxs)], matched, id_pos, matrix, static,
                                     None, row_major=row_major,
                                 )
                             )
@@ -2489,49 +2528,56 @@ class Executor:
         return [out[i] for i in idxs]
 
     def _group_counts(
-        self, gk, op_idxs, matched, id_pos, matrix, static, gram, row_major=False,
-        span=None,
+        self, batch, matched, id_pos, matrix, static, gram, row_major=False,
+        span=None, mixed=False,
     ):
-        """One fused dispatch for an (op, arity-bucket) call group; returns
-        the engine-native count array (fetch deferred to the caller).
-        Metered as the "gather" lane (cost attribution): dispatch wall
-        time + any host->device operand bytes the engine ledger sees.
+        """One fused dispatch for a launch batch (``_launch_batches``):
+        one (op, arity-bucket) call group ``[(gk, op_idxs)]``, or, with
+        ``mixed`` (the resident regime), one or more N-ary groups that one
+        launch of the mixed kernel folds together;
+        returns the engine-native count array, the batch's calls in order
+        (fetch deferred to the caller).  Metered as the "gather" lane
+        (cost attribution): dispatch wall time + any host->device operand
+        bytes the engine ledger sees.
 
         Under a traced request's ``span`` the dispatch is its launch span
         (``device``, ``costs._Measure``) and the fetch moves inside it: the
         counts come back on the host, the span's ``ms`` runs until they
         are there, and its kernels' device time (``device_ms``) can be read
-        with no synchronisation of its own.  Tags: ``op``, ``k`` (the
-        operand bucket), ``calls``, ``rows`` (distinct ids), ``slices`` and
-        ``bytes_read`` (rows x slices x bytes a row a slice; 0 for a Gram
-        answer, which reads the Gram, not the rows)."""
+        with no synchronisation of its own.  Tags: ``op`` (``mixed`` where
+        the batch folds more than one), ``k`` (the largest operand
+        bucket), ``groups`` (the (op, K) groups it folds), ``calls``,
+        ``rows`` (distinct ids), ``slices`` and ``bytes_read`` (rows x
+        slices x bytes a row a slice; 0 for a Gram answer, which reads the
+        Gram, not the rows)."""
         if self.meter is None:
             return self._group_counts_inner(
-                gk, op_idxs, matched, id_pos, matrix, static, gram,
-                row_major=row_major,
+                batch, matched, id_pos, matrix, static, gram, row_major, mixed,
             )
         with self.meter.measure("gather", span) as d:
             counts = self._group_counts_inner(
-                gk, op_idxs, matched, id_pos, matrix, static, gram,
-                row_major=row_major,
+                batch, matched, id_pos, matrix, static, gram, row_major, mixed,
             )
             if span is not None:
                 counts = self.engine.to_numpy(counts)
-                op, kb = gk
-                rows = len({x for i in op_idxs for x in matched[i][3]})
+                ops = {op[0] if isinstance(op, tuple) else op for (op, _kb), _ in batch}
+                rows = len({x for _gk, op_idxs in batch for i in op_idxs for x in matched[i][3]})
                 n_slices = matrix.shape[1 if row_major else 0]
+                (op, kb), _ = batch[0]
                 reads = gram is None or kb != 2 or isinstance(op, tuple)
                 d.dev_span.tags.update(
-                    op=op[0] if isinstance(op, tuple) else op, k=kb,
-                    calls=len(op_idxs), rows=rows, slices=n_slices,
+                    op=ops.pop() if len(ops) == 1 else "mixed",
+                    k=max(kb for (_op, kb), _ in batch), groups=len(batch),
+                    calls=sum(len(op_idxs) for _gk, op_idxs in batch), rows=rows,
+                    slices=n_slices,
                     bytes_read=rows * n_slices * _ROW_SLICE_BYTES if reads else 0,
                 )
         return counts
 
     def _group_counts_inner(
-        self, gk, op_idxs, matched, id_pos, matrix, static, gram, row_major=False
+        self, batch, matched, id_pos, matrix, static, gram, row_major=False, mixed=False
     ):
-        op, kb = gk
+        (op, kb), op_idxs = batch[0]
         if isinstance(op, tuple):  # ("tree", K): nested expression trees
             k = op[1]
             n = len(op_idxs)
@@ -2561,17 +2607,21 @@ class Executor:
             if row_major:
                 return self.engine.gather_count_rowmajor_dev(op, matrix, pairs)
             return self.engine.gather_count_dev(op, matrix, pairs)
+        if mixed:
+            # One launch for every N-ary group, ragged (no batch padding:
+            # the kernel takes any B and K).
+            return self.engine.gather_count_multi_mixed_dev(
+                matrix,
+                [(gop, _fold_ids(gop, gkb, ixs, matched, id_pos, len(ixs)))
+                 for (gop, gkb), ixs in batch],
+                row_major=row_major,
+            )
         # Jitted engines get a padded batch bucket too (pad rows repeat
         # the first call's operands; extra counts discarded) — ragged B
         # recompiles per group size.
         n = len(op_idxs)
         bb = (1 << (n - 1).bit_length()) if (static and n > 1) else n
-        idx_arr = np.zeros((bb, kb), dtype=np.int32)
-        for r, i in enumerate(op_idxs):
-            pos = [id_pos[x] for x in matched[i][3]]
-            idx_arr[r, : len(pos)] = pos
-            idx_arr[r, len(pos):] = pos[0] if op != "andnot" else pos[1]
-        idx_arr[n:] = idx_arr[0]
+        idx_arr = _fold_ids(op, kb, op_idxs, matched, id_pos, bb)
         if row_major:
             return self.engine.gather_count_multi_rowmajor_dev(op, matrix, idx_arr)
         return self.engine.gather_count_multi_dev(op, matrix, idx_arr)

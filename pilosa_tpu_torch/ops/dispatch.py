@@ -198,6 +198,38 @@ def gather_count_multi(op: str, row_matrix: torch.Tensor, idx):
     return kernels.gather_count_multi(op, row_matrix, idx) if got is None else got
 
 
+def gather_count_multi_mixed(matrix: torch.Tensor, groups, row_major: bool = False):
+    """The counts of several fold groups ``[(op, idx int[B_g, K_g])]``
+    -> int32[sum B_g], in group order: each group the multi gate
+    (``staged_multi_batch``) admits keeps its staged launch, and the rest
+    go together into one launch of the mixed kernel, whose queries carry
+    their own op and K, so a row that several groups name is read about
+    once.  ``matrix``: slice-major [S, R, W], or row-major [R, S, W]
+    with ``row_major``."""
+    a, b, w = matrix.shape
+    n_slices, n_rows = (b, a) if row_major else (a, b)
+    counts: list = [None] * len(groups)
+    for g, (op, idx) in enumerate(groups):
+        staged = staged_multi_batch(op, idx, n_slices, n_rows, w)
+        if staged is not None:
+            compacted, plan = staged
+            counts[g] = kernels.resident_count_multi(op, matrix, idx, row_major,
+                                                     compacted=compacted, plan=plan)
+    rest = [grp for grp, c in zip(groups, counts) if c is None]
+    if not rest:
+        return torch.cat(counts)
+    mixed = kernels.gather_count_multi_mixed(matrix, *kernels.mixed_groups(rest), row_major)
+    if len(rest) == len(groups):
+        return mixed
+    q = 0
+    for g, (_op, idx) in enumerate(groups):
+        if counts[g] is None:
+            n = np.shape(idx)[0]
+            counts[g] = mixed[q:q + n]
+            q += n
+    return torch.cat(counts)
+
+
 # The staged tree kernel serves a batch whose LIVE leaf references (the
 # leaves that reach the root, ``kernels.tree_live_leaves``: the only ones
 # the gather kernel loads) reach this many per distinct leaf row in each

@@ -46,7 +46,11 @@ AND-popc, both operands from shared memory).  The thirteenth,
 lane (pilosa_tpu/bulk/build.py build_planes_jax, a jitted sort, dedup and
 scatter-add rather than Pallas): from keys in ascending order it writes
 each word of the arena once, bound by the bytes of the arena and the
-pairs.
+pairs.  The fourteenth, ``gather_count_multi_mixed``, replaces no TPU
+kernel by itself: it folds the per-(op, K) launches of
+``gather_count_multi`` (either layout) for one request into one launch
+whose queries carry their own op and K, so each row the request names is
+read about once.
 """
 
 from __future__ import annotations
@@ -80,7 +84,7 @@ KERNELS = (
     "count_rows", "resident_count2", "gather_count2", "gather_src_counts",
     "gather_count_multi", "gather_count_tree", "resident_count_tree",
     "gather_count2_rowmajor", "gather_count_multi_rowmajor", "topn_counts",
-    "resident_count_multi", "pair_gram", "build_planes",
+    "resident_count_multi", "pair_gram", "build_planes", "gather_count_multi_mixed",
 )
 
 # Launch counters: one per kernel, bumped only where the kernel launches.
@@ -116,6 +120,7 @@ _ARGTYPES = {
     "resident_count_multi": ("pk_resident_count_multi", [_P] * 3 + [_I, _P] + [_I] * 12 + [_P]),
     "pair_gram": ("pk_pair_gram", [_P, _P, _I, _I, _I, _L, _L, _I, _P]),
     "build_planes": ("pk_build_planes", [_P, _L, _P, _L, _P, _I, _P]),
+    "gather_count_multi_mixed": ("pk_gather_count_multi_mixed", [_P, _P, _P] + [_I] * 6 + [_P]),
 }
 
 # One build at a time: the first launches of several threads wait for the
@@ -584,6 +589,106 @@ def gather_count_multi(op: str, row_matrix: torch.Tensor, idx) -> torch.Tensor:
     _launch(
         "gather_count_multi", row_matrix,
         row_matrix.data_ptr(), ix.data_ptr(), out.data_ptr(), s, r, w, b, k, OPS[op],
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# gather_count_multi_mixed (the (op, K) groups of fused_gather_count_multi, in one launch)
+# ---------------------------------------------------------------------------
+
+# The most ints a launch carries in its own parameters (offsets, packed
+# ops and ids; a 16 KiB __grid_constant__ struct): gather_count_multi_mixed.cu's
+# kParamInts.
+MIXED_PARAM_INTS = 4096
+_MIXED_CODES = {op: OPS[op] for op in MULTI_OPS}
+_MIXED_SHIFTS = 4 * np.arange(8, dtype=np.uint32)
+
+
+def _mixed_codes(ops) -> list:
+    """Each query's op code (OPS), raising on an op outside MULTI_OPS."""
+    try:
+        return [_MIXED_CODES[o] for o in ops]
+    except KeyError as e:
+        raise ValueError(f"unsupported multi-op {e.args[0]!r}") from None
+
+
+def multi_mixed_ints(ops, off, ids) -> np.ndarray:
+    """The mixed kernel's int layout -> int32[B + 1 + ceil(B / 8) + N]:
+    the B + 1 offsets, the ops' codes packed 4 bits each (query q's in
+    bits 4 (q % 8) of word q // 8), then the N ids."""
+    codes = _mixed_codes(ops) + [0] * (-len(ops) % 8)
+    words = (np.array(codes, dtype=np.uint32).reshape(-1, 8) << _MIXED_SHIFTS).sum(
+        axis=1, dtype=np.uint32)
+    return np.concatenate([np.asarray(off, dtype=np.int32), words.view(np.int32),
+                           np.asarray(ids, dtype=np.int32)])
+
+
+def mixed_groups(groups) -> tuple[list, list, np.ndarray]:
+    """``(ops, off, ids)`` of the mixed kernel for fold groups ``[(op,
+    int[B_g, K_g])]``: their queries in group order."""
+    ops, off, ids = [], [0], []
+    for op, idx in groups:
+        ix = np.asarray(idx)
+        b, k = ix.shape
+        ops += [op] * b
+        off += range(off[-1] + k, off[-1] + k * b + 1, k)
+        ids.append(ix.reshape(-1))
+    return ops, off, np.concatenate(ids)
+
+
+def _mixed_batch(ops, off, ids, n_rows: int) -> tuple[np.ndarray, np.ndarray]:
+    """``(off, ids)`` as int32 arrays, checked: offsets from 0 to N that
+    give each of the B queries K >= 1, ids in range (a kernel would read
+    out of bounds)."""
+    o = np.asarray(off, dtype=np.int32)
+    ix = _host_ids(ids, n_rows, "gather_count_multi_mixed ids")
+    if (o.ndim != 1 or ix.ndim != 1 or o.size != len(ops) + 1 or o[0] != 0 or o[-1] != ix.size
+            or (o[1:] <= o[:-1]).any()):
+        raise ValueError("gather_count_multi_mixed: offsets must run from 0 to len(ids), "
+                         "one query of K >= 1 per op")
+    return o, ix
+
+
+def gather_count_multi_mixed_plain(row_matrix, ops, off, ids, row_major: bool = False):
+    """The plain version: the queries grouped by (op, K), each group
+    folded by ``bitwise.gather_count_multi`` (a fold of one operand is
+    that operand under any op, so K = 1 folds as "or")."""
+    rm = row_matrix.transpose(0, 1) if row_major else row_matrix
+    _mixed_codes(ops)
+    o, ix = _mixed_batch(ops, off, ids, rm.shape[1])
+    k = np.diff(o)
+    out = torch.zeros(len(ops), dtype=torch.int32, device=rm.device)
+    for key in sorted({(op, int(kk)) for op, kk in zip(ops, k)}):
+        qs = np.array([q for q, op in enumerate(ops) if (op, int(k[q])) == key])
+        idx = ix[o[qs][:, None] + np.arange(key[1])]
+        op = key[0] if key[1] > 1 else "or"
+        out[torch.from_numpy(qs)] = bitwise.gather_count_multi(op, rm, idx)
+    return out
+
+
+def gather_count_multi_mixed(row_matrix: torch.Tensor, ops, off, ids,
+                             row_major: bool = False) -> torch.Tensor:
+    """Per-query ``sum_s popcount(fold_{ops[q]} rm[s, ids[off[q]:off[q + 1]]])``
+    -> int32[B] for a batch whose queries each carry their own op (and /
+    or / andnot, andnot folding ``acc & ~row``) and their own K >= 1 (CSR
+    offsets ``off`` into ``ids``), over a slice-major [S, R, W] matrix or,
+    with ``row_major``, a row-major [R, S, W] one.  A batch of up to
+    MIXED_PARAM_INTS ints (``multi_mixed_ints``) crosses in the launch's
+    parameters (no upload); a larger batch is uploaded."""
+    if _on_cpu(row_matrix):
+        return gather_count_multi_mixed_plain(row_matrix, ops, off, ids, row_major)
+    _words(row_matrix, "gather_count_multi_mixed matrix", 3)
+    a, b, w = row_matrix.shape
+    s, r = (b, a) if row_major else (a, b)
+    o, ix = _mixed_batch(ops, off, ids, r)
+    ints = multi_mixed_ints(ops, o, ix)
+    out = row_matrix.new_empty(len(ops))
+    dev = None if ints.size <= MIXED_PARAM_INTS else _ints(ints, row_matrix.device)
+    _launch(
+        "gather_count_multi_mixed", row_matrix,
+        row_matrix.data_ptr(), ints.ctypes.data if dev is None else dev.data_ptr(),
+        out.data_ptr(), s, r, w, len(ops), ints.size, int(row_major),
     )
     return out
 

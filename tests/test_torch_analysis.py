@@ -451,6 +451,71 @@ def test_native_abi_real_tree_is_conformant():
     assert "pn_write_batch" in decls and len(decls["pn_write_batch"][1]) == 23
 
 
+def _mk_kernel_tree(tmp_path, cu_src):
+    """A package with ops/kernels.py (an _ARGTYPES table in the port's
+    form) and csrc/k.cu."""
+    py = """
+    import ctypes
+
+    _P = ctypes.c_void_p
+    _I = ctypes.c_int
+    _L = ctypes.c_longlong
+    _ARGTYPES = {
+        "k": ("pk_k", [_P, _P] + [_I] * 2 + [_L, _P]),
+    }
+    """
+    root = _mkpkg(tmp_path, {"ops/__init__.py": "", "ops/kernels.py": py})
+    csrc = os.path.join(root, "csrc")
+    os.makedirs(csrc, exist_ok=True)
+    with open(os.path.join(csrc, "k.cu"), "w") as f:
+        f.write(textwrap.dedent(cu_src))
+    return root
+
+
+_KERNEL_CU_OK = """
+// pk_k: a kernel entry
+extern "C" int pk_k(const void* rm, void* out, int s, int w, long long n,
+                    void* stream) {
+  return 0;
+}
+"""
+
+
+@pytest.mark.parametrize("variant", ["ok", "arity", "width", "missing"])
+def test_kernel_abi_gate(tmp_path, variant):
+    """The kernels' ctypes table (ops/kernels.py ``_ARGTYPES``) against
+    the csrc/*.cu entry points: a grown entry, a 64-bit count declared
+    as int, and a renamed entry each fail, anchored at kernels.py."""
+    cu = {
+        "ok": _KERNEL_CU_OK,
+        "arity": _KERNEL_CU_OK.replace("long long n,", "long long n, int flags,"),
+        "width": _KERNEL_CU_OK.replace("long long n,", "int n,"),
+        "missing": _KERNEL_CU_OK.replace("pk_k(", "pk_k2("),
+    }[variant]
+    fs = _new(_run(_mk_kernel_tree(tmp_path, cu), ("native-abi",)))
+    if variant == "ok":
+        assert fs == []
+        return
+    assert len(fs) == 1 and fs[0].path == "ops/kernels.py" and fs[0].scope == "pk_k"
+    assert {"arity": "arity mismatch", "width": "argument 4 width mismatch",
+            "missing": "missing symbol"}[variant] in fs[0].message
+
+
+def test_kernel_abi_real_tree_is_conformant():
+    """Every kernel of the port (ops/kernels.py ``_ARGTYPES``) against
+    its entry point in csrc/: zero issues, and the parse covered each."""
+    from pilosa_tpu_torch.analysis import abi
+    from pilosa_tpu_torch.ops import kernels
+
+    root = engine.package_root()
+    kpy = os.path.join(root, "ops", "kernels.py")
+    issues = abi.check_kernel_abi(os.path.join(root, "csrc"), kpy)
+    assert issues == [], "\n".join(i.message for i in issues)
+    decls = abi.parse_kernel_argtypes(kpy)
+    assert sorted(k for k, _w, _l in decls.values()) == sorted(kernels.KERNELS)
+    assert decls["pk_gather_count_multi_mixed"][1] == ["ptr"] * 3 + ["i32"] * 6 + ["ptr"]
+
+
 # -- rule 8: stale-suppression ----------------------------------------------
 
 

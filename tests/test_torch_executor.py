@@ -246,7 +246,8 @@ def test_fold_lanes_match_jax(tq_pair, monkeypatch, kind, lane):
     covers the Range matrix's rebuild on a generation change."""
     jh, th, n_rows, seed = tq_pair
     calls = {"multi": 0, "tree": 0}
-    for name, key in (("gather_count_multi", "multi"), ("gather_count_tree", "tree")):
+    for name, key in (("gather_count_multi", "multi"), ("gather_count_multi_mixed", "multi"),
+                      ("gather_count_tree", "tree")):
         def spy(*a, _o=getattr(dispatch, name), _k=key, **k):
             calls[_k] += 1
             return _o(*a, **k)

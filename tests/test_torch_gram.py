@@ -347,6 +347,7 @@ def test_wrapper_constants_match_the_cuda_sources():
     assert kernels.GATHER2_PARAM_PAIRS == _constexpr("gather_count2.cu", "kParamPairs")
     assert kernels.GATHER2_STEP_VECS == (_constexpr("gather_count2.cu", "kThreads")
                                          * _constexpr("gather_count2.cu", "kVecs"))
+    assert kernels.MIXED_PARAM_INTS == _constexpr("gather_count_multi_mixed.cu", "kParamInts")
     assert "pair_gram" in kernels.KERNELS and "build_planes" in kernels.KERNELS
-    assert len(kernels.KERNELS) == 13
+    assert len(kernels.KERNELS) == 14
     assert set(kernels.KERNELS) == set(kernels._ARGTYPES) == set(kernels.LAUNCHES)

@@ -341,6 +341,35 @@ def test_lockstep_query_service(tmp_path):
     assert by_pid[0]["collectives"] == by_pid[1]["collectives"] > 0
 
 
+def test_lockstep_mixed_nary_counts(tmp_path):
+    """N-ary Counts of the three folds with ragged K beside a pair Count:
+    each rank's fused lane folds every N-ary group in one mixed launch and
+    one all_reduce over its block; the body equals the JAX service's, the
+    counts the seed's (row r: columns 10 + r and 500 of each slice), and
+    the ranks' collectives agree."""
+    job = _LockstepJob(2)
+    twin = _JaxTwin(tmp_path, 2)
+
+    def bm(*rows):
+        return ", ".join(f'Bitmap(rowID={r}, frame="f")' for r in rows)
+
+    q = " ".join([f"Count(Union({bm(0, 1, 2)}))", f"Count(Intersect({bm(0, 1, 2, 3)}))",
+                  f"Count(Difference({bm(0, 1, 2)}))", f"Count(Union({bm(1, 2, 3, 0)}))",
+                  f"Count(Intersect({bm(0, 1)}))", f"Count(Difference({bm(3, 0, 1, 2)}))"])
+    try:
+        job.wait_ready()
+        body = job.raw(q)
+        assert twin.raw(q) == body
+        outs = job.shutdown_and_collect()
+    finally:
+        job.cleanup()
+        twin.close()
+    n = job_slices(2)
+    assert json.loads(body)["results"] == [4 * n, n, n, 5 * n, n, n]
+    assert outs[0]["collectives"] == outs[1]["collectives"] > 0
+    assert outs[0]["digest"] == outs[1]["digest"]
+
+
 def test_lockstep_fail_stop_on_dead_worker(tmp_path):
     """A broken control connection degrades the service: the failing
     request errors and every subsequent request is refused."""

@@ -238,8 +238,26 @@ def rank_executor(n: int) -> dict:
             "ragged_counts": ragged, "ragged_collectives": eng.mesh.stat_collectives - c0,
             "single_slice_score": eng.supports_single_slice_score,
         }
+        # The fused lane's mixed launch: three fold groups, one local
+        # launch and one all_reduce for all of them.
+        mm = eng.matrix(mixed_matrix())
+        c0 = eng.mesh.stat_collectives
+        counts = eng.to_numpy(eng.gather_count_multi_mixed_dev(mm, MIXED_GROUPS))
+        out["mixed"] = {"counts": counts.astype(np.int64).tolist(),
+                        "collectives": eng.mesh.stat_collectives - c0}
         h.close()
     return out
+
+
+# Fold groups (op, ids) over a [EX_SLICES, 6, 64] matrix for the mixed
+# launch on the mesh.
+MIXED_GROUPS = (("and", np.array([[0, 1, 2], [1, 2, 3]], np.int32)),
+                ("or", np.array([[0, 1, 2, 3, 4]], np.int32)),
+                ("andnot", np.array([[5, 0, 1, 2], [2, 2, 5, 3]], np.int32)))
+
+
+def mixed_matrix() -> np.ndarray:
+    return np.random.default_rng(23).integers(0, 1 << 32, size=(EX_SLICES, 6, 64), dtype=np.uint32)
 
 
 def rank_main(coordinator: str, n: int, pid: int) -> int:
@@ -495,6 +513,18 @@ def test_mesh_engine_shard_rule(jobs, n):
         assert rule["ragged_counts"] == [RAGGED_SLICES * 64]  # words of 1: one bit each
         assert rule["ragged_collectives"] == (1 if n == 1 else 0)
         assert rule["single_slice_score"] is (n == 1)
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_mesh_engine_mixed_launch_one_collective(jobs, n):
+    """MeshEngine.gather_count_multi_mixed_dev: every group's counts, in
+    group order, from one local mixed launch and ONE all_reduce."""
+    from pilosa_tpu_torch.ops.bitwise import np_gather_count_multi
+
+    m = mixed_matrix()
+    want = [int(v) for op, idx in MIXED_GROUPS for v in np_gather_count_multi(op, m, idx)]
+    for r in jobs[n]:
+        assert r["executor"]["mixed"] == {"counts": want, "collectives": 1}
 
 
 def test_new_engine_mesh(monkeypatch):

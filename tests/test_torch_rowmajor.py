@@ -184,6 +184,9 @@ def _force_rowmajor(monkeypatch):
 
 
 def _spy_rowmajor(monkeypatch):
+    """Counts the row-major lanes' plain launches: pair folds, and multi
+    folds (the row-major gather fold, or the mixed fold over a row-major
+    matrix, which the resident parts' N-ary groups take)."""
     calls = {"pair": 0, "multi": 0}
     for name, key in (("gather_count2_rowmajor_plain", "pair"),
                       ("gather_count_multi_rowmajor_plain", "multi")):
@@ -192,6 +195,12 @@ def _spy_rowmajor(monkeypatch):
             return _o(*a, **kw)
 
         monkeypatch.setattr(kernels, name, spy)
+
+    def mixed(*a, _o=kernels.gather_count_multi_mixed_plain, **kw):
+        calls["multi"] += bool(a[4] if len(a) > 4 else kw.get("row_major", False))
+        return _o(*a, **kw)
+
+    monkeypatch.setattr(kernels, "gather_count_multi_mixed_plain", mixed)
     return calls
 
 

@@ -134,7 +134,7 @@ def test_server_bodies_match_jax(servers, monkeypatch):
     js, ts = servers
     assert ts.executor.engine.name == "torch" and ts.executor.engine.device.type == "cpu"
     lanes = {}
-    for name in ("gather_count_multi", "gather_count_tree"):
+    for name in ("gather_count_multi", "gather_count_multi_mixed", "gather_count_tree"):
         def spy(*a, _o=getattr(dispatch, name), _n=name, **k):
             lanes[_n] = lanes.get(_n, 0) + 1
             return _o(*a, **k)
@@ -147,7 +147,10 @@ def test_server_bodies_match_jax(servers, monkeypatch):
         got = _request(ts.host, method, path, body)
         assert got == want, (name, got[0], got[1][:300], want[1][:300])
         reached[name] = {k: v - before.get(k, 0) for k, v in lanes.items() if v > before.get(k, 0)}
-    for name in ("nary", "range-1", "range-3", "nary-2"):
+    # N-ary batches fold in one mixed launch; Range covers keep the multi fold.
+    for name in ("nary", "nary-2"):
+        assert reached[name].get("gather_count_multi_mixed"), (name, reached[name])
+    for name in ("range-1", "range-3"):
         assert reached[name].get("gather_count_multi"), (name, reached[name])
     assert reached["tree"].get("gather_count_tree"), reached["tree"]
     assert json.loads(_request(ts.host, "POST", "/index/i/query", b'Count(Bitmap(rowID=3, frame="f"))')[1])

@@ -87,19 +87,58 @@ def test_nary_request_spans_from_door_to_launches(server):
     fused = kids["fused"]
     names = [c["name"] for c in fused["children"]]
     assert names[:2] == ["fused.match", "fused.plan"] and set(names[2:]) == {"device"}
-    devices = [c for c in fused["children"] if c["name"] == "device"]
-    for d in devices:
-        tags = d["tags"]
-        assert tags["lane"] == "gather" and tags["op"] in ("and", "or")
-        assert tags["slices"] == N_SLICES and tags["calls"] >= 1
-        assert tags["bytes_read"] == tags["rows"] * N_SLICES * SLICE_WIDTH // 8
-        assert "device_ms" not in tags  # no CUDA device: host time only
-    assert sum(d["tags"]["calls"] for d in devices) == fused["tags"]["calls"] == 8
-    assert sum(d["tags"]["bytes_read"] for d in devices) >= fused["tags"]["need_bytes"] > 0
+    # One launch folds the request's (op, K) groups of both ops: its
+    # rows are the request's rows, read once.
+    (d,) = [c for c in fused["children"] if c["name"] == "device"]
+    tags = d["tags"]
+    assert tags["lane"] == "gather" and tags["op"] == "mixed" and tags["groups"] >= 2
+    assert tags["slices"] == N_SLICES and tags["k"] >= 8
+    assert tags["bytes_read"] == tags["rows"] * N_SLICES * SLICE_WIDTH // 8
+    assert "device_ms" not in tags  # no CUDA device: host time only
+    assert tags["calls"] == fused["tags"]["calls"] == 8
+    assert tags["bytes_read"] == fused["tags"]["need_bytes"] > 0
     # Children start inside their parent, on the root's clock.
     for sp in _walk(root):
         for c in sp.get("children", []):
             assert sp["start_ms"] <= c["start_ms"] <= sp["start_ms"] + sp["ms"] + 1e-3
+
+
+def test_nary_groups_share_one_launch_beside_pair_and_tree(server):
+    """N-ary Counts of both ops beside a pair Count and a nested tree
+    Count, each kind over rows of its own, in an index of its own (so no
+    Gram answers the pair): one launch folds every N-ary group (``op``
+    mixed, ``groups`` its (op, K) groups), the pair and the tree keep a
+    launch each, and the launches read the request's rows once."""
+    _post(server.host, "/index/m")
+    _post(server.host, "/index/m/frame/f")
+    rng = np.random.default_rng(11)
+    sets = [f'SetBit(rowID={r}, frame="f", columnID={int(c)})'
+            for r in range(N_ROWS) for c in rng.integers(0, N_SLICES * SLICE_WIDTH, size=30)]
+    _post(server.host, "/index/m/query", "\n".join(sets).encode())
+    calls, keys = [], set()
+    for k in range(12):
+        op, lo, hi = ("Union", 8, 16) if k % 2 else ("Intersect", 3, 4)
+        rows = rng.choice(30, size=int(rng.integers(lo, hi + 1)), replace=False)
+        keys.add((op, len(rows)))
+        calls.append(f"Count({op}({', '.join(f'Bitmap(rowID={int(r)}, frame=\"f\")' for r in rows)}))")
+    calls.append('Count(Intersect(Bitmap(rowID=30, frame="f"), Bitmap(rowID=31, frame="f")))')
+    calls.append('Count(Union(Intersect(Bitmap(rowID=32, frame="f"), Bitmap(rowID=33, frame="f")), '
+                 'Difference(Bitmap(rowID=34, frame="f"), Bitmap(rowID=35, frame="f"))))')
+    n0 = len(server.tracer)
+    status, _ = _post(server.host, "/index/m/query", "\n".join(calls).encode(),
+                      {trace.TRACE_HEADER: "1"})
+    assert status == 200 and len(server.tracer) == n0 + 1
+    root = server.tracer.traces_json(limit=1)[0]["spans"]
+    (fused,) = [c for c in root["children"] if c["name"] == "fused"]
+    devices = [c["tags"] for c in fused["children"] if c["name"] == "device"]
+    by_op = {d["op"]: d for d in devices}
+    assert len(devices) == 3 and set(by_op) == {"mixed", "and", "tree"}
+    mixed = by_op["mixed"]
+    assert mixed["groups"] == len(keys) and mixed["calls"] == 12
+    assert mixed["k"] == max(k for _op, k in keys)
+    assert by_op["and"]["groups"] == by_op["tree"]["groups"] == 1
+    assert by_op["and"]["k"] == 2 and by_op["and"]["rows"] == 2 and by_op["tree"]["rows"] == 4
+    assert sum(d["bytes_read"] for d in devices) == fused["tags"]["need_bytes"] > 0
 
 
 def test_a_cached_answer_parses_nothing(server):
