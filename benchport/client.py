@@ -4,8 +4,8 @@ It makes its requests from the seed before the window opens, warms its
 connection, then sends the next request only after the reply to the last
 one, from the window's opening until its close, and records for every
 request the time it was due (sent) and done (answered), and its answer.
-Imports the standard library and the traffic generator only: nothing of
-the program and no torch.
+Imports the standard library, the traffic generator and the mix's shape
+only: nothing of the program and no torch.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import http.client
 import json
 import time
 
-from benchport.traffic_gen import Traffic
+from benchport.traffic_gen import shape
 
 TRACE_HEADER = "X-Pilosa-Trace"
 
@@ -39,12 +39,13 @@ def _answer(status: int, payload: bytes, n_calls: int):
 
 
 def run(pipe, client: int, mix: dict, cfg: dict, seed: int, n_max: int, n_warm: int,
-        trace: bool) -> None:
+        trace: bool, root: str) -> None:
     """The client's life: ``ready`` -> (``warm`` host port) -> ``warmed``
-    -> (``go`` t_start t_end) -> ``done`` with its records."""
-    traffic = Traffic(mix, cfg, seed)
-    window = [traffic.body(*traffic.request("window", client, i)) for i in range(n_max)]
-    warm = [traffic.body(*traffic.request("warm", client, i)) for i in range(n_warm)]
+    -> (``go`` t_start t_end) -> ``done`` with its records.  The mix's
+    shape is found under ``root``."""
+    traffic = shape(mix, cfg, seed, root)
+    window = [traffic.body(traffic.request("window", client, i)) for i in range(n_max)]
+    warm = [traffic.body(traffic.request("warm", client, i)) for i in range(n_warm)]
     pipe.send(("ready", client))
     _, host, port = pipe.recv()
     path = f"/index/{cfg['index']}/query"

@@ -28,7 +28,7 @@ def main(argv=None) -> int:
     import torch
 
     from benchport.harness import Bench, Request, judge, sample
-    from benchport.traffic_gen import Traffic
+    from benchport.traffic_gen import shape
 
     p = argparse.ArgumentParser(description="the check's control at a cell's size")
     p.add_argument("--workload", required=True)
@@ -41,15 +41,15 @@ def main(argv=None) -> int:
     device = "cuda" if torch.cuda.is_available() else "cpu"
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
-        traffic = Traffic(mix, cfg, seed)
+        traffic = shape(mix, cfg, seed, ROOT)
         reqs = []
         for c in range(int(mix["clients"])):
             for i in range(REQUESTS):
                 r = Request(c, i, 0.0, 0.0, [])
-                r.ops, r.rows = traffic.request("window", c, i)
+                r.calls = traffic.request("window", c, i)
                 reqs.append(r)
         checked = sample(reqs, seed, int(mix["check_requests"]))
-        wrong, compared = judge(cfg, seed, checked, device, control=True)
+        wrong, compared = judge(cfg, seed, checked, device, control=True, root=ROOT)
         print(json.dumps({"workload": args.workload, "seed": seed, "control": "bfloat16 counts",
                           "wrong_counts": wrong, "compared": compared, "limit": 0,
                           "seconds": round(time.perf_counter() - t0, 3)}), flush=True)

@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import argparse
 import gc
-import importlib.util
 import json
 import os
 import shutil
@@ -31,7 +30,8 @@ import sys
 import tempfile
 import time
 
-from benchport.traffic_gen import STREAMS, Traffic, rng_for
+from benchport import schema
+from benchport.traffic_gen import STREAMS, rng_for, shape
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "pilosa_tpu")
 # Limits of the check's numbers: exact counts, every request answered.
@@ -87,28 +87,30 @@ class Bench:
 
     def reader(self, name: str):
         """``metrics/<name>.py``'s ``read(ctx)``."""
-        path = os.path.join(self.root, "benchport", "metrics", f"{name}.py")
-        if not os.path.exists(path):
-            raise Fail(f"no reader for metric {name!r}: {path}")
-        spec = importlib.util.spec_from_file_location(
-            "benchport_metric_" + name.replace(".", "_").replace("-", "_"), path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        try:
+            return schema.plugin(self.root, "metrics", name).read
+        except FileNotFoundError as e:
+            raise Fail(str(e)) from None
 
 
 class Request:
-    """One request of the window, as its client recorded it."""
+    """One request of the window, as its client recorded it; ``calls``:
+    its call trees, made again from the seed."""
 
-    __slots__ = ("client", "i", "due", "done", "answer", "ops", "rows")
+    __slots__ = ("client", "i", "due", "done", "answer", "calls")
 
     def __init__(self, client, i, due, done, answer):
         self.client, self.i, self.due, self.done, self.answer = client, i, due, done, answer
-        self.ops = self.rows = None
+        self.calls = None
 
     @property
     def ok(self) -> bool:
         return self.answer is not None
+
+    @property
+    def rows(self) -> list[list[tuple[str, int]]]:
+        """Each call's (frame, row) leaves."""
+        return [schema.leaves(c) for c in self.calls]
 
 
 class Ctx:
@@ -160,7 +162,7 @@ def host_span_targets():
     return out
 
 
-def start_clients(cfg, mix, seed, seconds, trace):
+def start_clients(cfg, mix, seed, seconds, trace, root):
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
@@ -172,7 +174,8 @@ def start_clients(cfg, mix, seed, seconds, trace):
     for c in range(n):
         here, there = ctx.Pipe()
         pr = ctx.Process(target=client.run, name=f"benchport-client-{c}",
-                         args=(there, c, mix, cfg, seed, n_max, int(mix["warm_requests"]), trace))
+                         args=(there, c, mix, cfg, seed, n_max, int(mix["warm_requests"]), trace,
+                               root))
         pr.start()
         there.close()
         procs.append(pr)
@@ -218,25 +221,27 @@ def open_server(cfg, data_dir, engine, trace):
     server = Server(conf)
     server.open()
     idx = server.holder.create_index(cfg["index"], IndexOptions(column_label=cfg.get("column_label", "")))
-    idx.create_frame(cfg["frame"], FrameOptions(row_label=cfg.get("row_label", "")))
+    for f in schema.frames(cfg):
+        idx.create_frame(f["name"], FrameOptions(row_label=f["row_label"]))
     return server
 
 
-def load(server, cfg, seed, device) -> int:
-    """The configuration's pairs into the frame through the bulk path."""
+def load(server, cfg, seed, device, root) -> int:
+    """The configuration's pairs into their frames through the bulk path."""
     import numpy as np
 
     from benchport import datagen
     from pilosa_tpu_torch.bulk.ingress import apply_bulk
 
-    frame = server.holder.index(cfg["index"]).frame(cfg["frame"])
+    idx = server.holder.index(cfg["index"])
     engine = server.executor.engine
     n = 0
-    for rows, cols in datagen.chunks(cfg, seed, device):
+    for frame, rows, cols in datagen.chunks(cfg, seed, device, root=root):
         r = rows.cpu().numpy().astype(np.uint64)
         c = cols.cpu().numpy().astype(np.uint64)
         del rows, cols
-        n += apply_bulk(frame, r, c, engine=engine, executor=server.executor, index=cfg["index"])
+        n += apply_bulk(idx.frame(frame), r, c, engine=engine, executor=server.executor,
+                        index=cfg["index"])
     return n
 
 
@@ -262,7 +267,7 @@ def release(server, index: str) -> None:
 
 def sample(requests, seed, n_check):
     """The check's requests: the answered request that names the most
-    distinct rows, and others drawn from the seed."""
+    distinct (frame, row) leaves, and others drawn from the seed."""
     answered = [r for r in requests if r.ok]
     if not answered:
         return []
@@ -273,21 +278,24 @@ def sample(requests, seed, n_check):
     return [longest] + [rest[int(j)] for j in sorted(pick)]
 
 
-def judge(cfg, seed, checked, device, control=False):
+def judge(cfg, seed, checked, device, control=False, root=None):
     """Compare the answers of ``checked`` with the reference; returns the
     number of wrong counts and the number of counts compared.  With
     ``control`` the reference in its broken precision stands in for
     the program's answers."""
     from benchport import reference
 
-    dense = reference.dense_rows(cfg, seed, device)
-    wrong = compared = 0
+    counts = reference.per_slice(cfg, seed, device, [c for r in checked for c in r.calls],
+                                 root=root)
+    want = reference.totals(counts)
+    got = reference.totals(counts, control=True) if control else None
+    wrong = compared = j = 0
     for r in checked:
-        want = reference.counts(dense, list(zip(r.ops, r.rows)))
-        got = reference.counts(dense, list(zip(r.ops, r.rows)), control=True) if control else r.answer
-        wrong += sum(int(a != b) for a, b in zip(got, want))
-        compared += len(want)
-    del dense
+        n = len(r.calls)
+        answer = got[j:j + n] if control else r.answer
+        wrong += sum(int(a != b) for a, b in zip(answer, want[j:j + n]))
+        compared += n
+        j += n
     return wrong, compared
 
 
@@ -331,19 +339,19 @@ class HostLoad:
         return self
 
 
-def _set_up(server, cfg, mix, seed, device, pipes, t_proc0):
+def _set_up(server, cfg, mix, seed, device, pipes, t_proc0, root):
     """Load the data, fill the pool, warm every client; returns the
     pairs loaded and the stages' end times (s from process start)."""
     import http.client
 
     stages = {"start": time.perf_counter() - t_proc0}
-    loaded = load(server, cfg, seed, device)
+    loaded = load(server, cfg, seed, device, root)
     stages["load"] = time.perf_counter() - t_proc0
-    traffic = Traffic(mix, cfg, seed)
+    traffic = shape(mix, cfg, seed, root)
     host, port = server.host.rsplit(":", 1)
     conn = http.client.HTTPConnection(host, int(port), timeout=600)
-    for ops, rows in traffic.cover():
-        post(conn, f"/index/{cfg['index']}/query", traffic.body(ops, rows))
+    for request in traffic.cover():
+        post(conn, f"/index/{cfg['index']}/query", traffic.body(request))
     conn.close()
     stages["fill"] = time.perf_counter() - t_proc0
     for p in pipes:
@@ -414,15 +422,16 @@ def _window(server, procs, pipes, seconds, trace, engine, t_proc0) -> Ctx:
     t_end = t_start + seconds
     for p in pipes:
         p.send(("go", t_start, t_end))
-    while time.perf_counter() < t_start:
-        time.sleep(0.001)
+    # One sleep to each edge: this thread shares the server's interpreter,
+    # and each wake-up inside the window would take the GIL from the
+    # thread that serves the request.
+    time.sleep(max(0.0, t_start - time.perf_counter()))
     load_ = HostLoad()
     launches0 = dict(kernels.LAUNCHES)
     upload0 = server.executor.engine.stat_upload_bytes
     if dtrace:
         dtrace.mark(OPEN_MARK)
-    while time.perf_counter() < t_end:
-        time.sleep(min(0.01, max(0.0, t_end - time.perf_counter())))
+    time.sleep(max(0.0, t_end - time.perf_counter()))
     if dtrace:
         dtrace.mark(CLOSE_MARK)
     load_.stop()
@@ -467,11 +476,11 @@ def _run(args, root, engine, t_proc0, out) -> int:
     if engine == "cuda":
         torch.cuda.reset_peak_memory_stats()
 
-    procs, pipes = start_clients(cfg, mix, args.seed, args.seconds, bool(args.trace))
+    procs, pipes = start_clients(cfg, mix, args.seed, args.seconds, bool(args.trace), root)
     data_dir = tempfile.mkdtemp(prefix="benchport-")
     try:
         server = open_server(cfg, data_dir, engine, bool(args.trace))
-        loaded, stages = _set_up(server, cfg, mix, args.seed, device, pipes, t_proc0)
+        loaded, stages = _set_up(server, cfg, mix, args.seed, device, pipes, t_proc0, root)
         ctx = _window(server, procs, pipes, args.seconds, bool(args.trace), engine, t_proc0)
         if engine == "cuda":
             torch.cuda.synchronize()
@@ -486,15 +495,22 @@ def _run(args, root, engine, t_proc0, out) -> int:
         if bad:
             raise Fail(f"modules of {', '.join(bad)} were loaded in this process")
 
-        traffic = Traffic(mix, cfg, args.seed)
+        traffic = shape(mix, cfg, args.seed, root)
         for r in ctx.requests:
-            r.ops, r.rows = traffic.request("window", r.client, r.i)
+            r.calls = traffic.request("window", r.client, r.i)
         ctx.requests = [r for r in ctx.requests if ctx.t_start <= r.due < ctx.t_end]
         ctx.cell, ctx.cfg, ctx.mix = cell, cfg, mix
         checked = sample(ctx.requests, args.seed, int(mix["check_requests"]))
         t_check = time.perf_counter()
-        wrong, compared = judge(cfg, args.seed, checked, device)
+        if engine == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        wrong, compared = judge(cfg, args.seed, checked, device, root=root)
         check_s = time.perf_counter() - t_check
+        if engine == "cuda":
+            peak_check = torch.cuda.max_memory_allocated() - held
+            print(f"benchport: the check's peak allocation {peak_check} bytes over the {held} "
+                  f"held when it began", file=sys.stderr)
         unanswered = sum(1 for r in ctx.requests if not r.ok)
 
         metrics = {}
@@ -524,6 +540,13 @@ def _run(args, root, engine, t_proc0, out) -> int:
               "server cpu %.1f s" % (np.percentile(lat, 50), np.percentile(lat, 90),
                                      np.percentile(lat, 99), lat.max(), hl.gc_s, hl.gc_full,
                                      hl.cpu_s), file=sys.stderr)
+        # Calls answered in each 5 s of the window: whether a slow run was
+        # slow throughout or for a stretch of it.
+        ans = [r for r in ctx.requests if r.ok and r.done <= ctx.t_end]
+        per = np.bincount(np.array([(r.done - ctx.t_start) // 5 for r in ans], dtype=np.int64),
+                          weights=[len(r.answer) for r in ans], minlength=1)
+        print("benchport: calls/s in each 5 s: " + " ".join(
+            f"{n / 5:.0f}" for n in per[:max(1, int(ctx.seconds // 5))]), file=sys.stderr)
         print(f"benchport: {args.workload} seed {args.seed}: {len(ctx.requests)} requests due, "
               f"{loaded} pairs loaded, {compared} counts of {len(checked)} requests checked "
               f"in {check_s:.1f} s", file=sys.stderr)

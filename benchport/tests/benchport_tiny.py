@@ -23,16 +23,22 @@ TINY_MIX = {"calls_per_request": 8, "check_requests": 6, "clients": 2,
 def make_root(tmp_path) -> str:
     """A root holding a tiny copy of the benchmark's data files."""
     root = str(tmp_path / "root")
-    for sub in ("configs", "traffic", "metrics"):
-        shutil.copytree(os.path.join(REPO, "benchport", sub), os.path.join(root, "benchport", sub))
+    for sub in ("configs", "traffic", "metrics", "kinds", "shapes"):
+        src = os.path.join(REPO, "benchport", sub)
+        if os.path.isdir(src):
+            shutil.copytree(src, os.path.join(root, "benchport", sub),
+                            ignore=shutil.ignore_patterns("__pycache__"))
     with open(os.path.join(REPO, "BENCHMARK.json")) as f:
         bench = json.load(f)
     for c in bench["configs"]:
         path = os.path.join(root, c["file"])
         with open(path) as f:
             cfg = json.load(f)
-        cfg.update(TINY_CFG[c["name"]])
-        cfg["data"]["stars_max"] = 3000
+        # A configuration with no tiny size here keeps its own: no test
+        # here runs it.
+        cfg.update(TINY_CFG.get(c["name"], {}))
+        if cfg["data"]["kind"] == "stars":
+            cfg["data"]["stars_max"] = 3000
         with open(path, "w") as f:
             json.dump(cfg, f)
     tdir = os.path.join(root, "benchport", "traffic")

@@ -11,7 +11,7 @@ import torch
 
 from benchport_tiny import make_root, run_cell
 
-from benchport import datagen, reference
+from benchport import datagen, reference, schema
 from benchport.harness import Request, judge
 from benchport.traffic_gen import Traffic
 
@@ -40,15 +40,17 @@ def test_traffic_is_a_function_of_the_seed(tiny_root, seed):
                [b.request(stream, c, i) for c in range(2) for i in range(5)]
     assert a.request("window", 0, 0) != Traffic(mix, cfg, seed + 1).request("window", 0, 0)
     assert a.request("window", 0, 0) != a.request("window", 1, 0)
-    ops, rows = a.request("window", 1, 3)
-    assert len(ops) == mix["calls_per_request"]
-    for op, rs in zip(ops, rows):
-        k = mix["operands"][op]
+    calls = a.request("window", 1, 3)
+    assert len(calls) == mix["calls_per_request"]
+    for call in calls:
+        k = mix["operands"][call[0]]
+        rs = [r for _, r in schema.leaves(call)]
+        assert {f for f, _ in schema.leaves(call)} == {cfg["frame"]}
         assert len(set(rs)) == len(rs) and k["min"] <= len(rs) <= k["max"]
         assert all(0 <= r < cfg["rows"] for r in rs)
-    assert set(ops) == set(mix["ops"])
-    named = {r for _, rows in a.cover() for rs in rows for r in rs}
-    assert named == set(range(cfg["rows"]))
+    assert {call[0] for call in calls} == set(mix["ops"])
+    named = {leaf for req in a.cover() for call in req for leaf in schema.leaves(call)}
+    assert named == {(cfg["frame"], r) for r in range(cfg["rows"])}
 
 
 @pytest.mark.parametrize("name", ["startrace-gh"])
@@ -58,7 +60,8 @@ def test_data_is_a_function_of_the_seed(tiny_root, name):
 
     def pairs(s, block):
         got = list(datagen.chunks(cfg, s, "cpu", block))
-        return torch.cat([r for r, _ in got]), torch.cat([c for _, c in got])
+        assert {f for f, _, _ in got} == {cfg["frame"]}
+        return torch.cat([r for _, r, _ in got]), torch.cat([c for _, _, c in got])
 
     r1, c1 = pairs(seed, 1)
     r2, c2 = pairs(seed, 2)
@@ -75,19 +78,21 @@ def test_reference_matches_sets_of_columns(tiny_root, name):
     """The reference's counts against Python sets built from the pairs."""
     cfg = tiny(tiny_root, name)
     seed = 41
-    rows = torch.cat([r for r, _ in datagen.chunks(cfg, seed, "cpu", 2)]).numpy()
-    cols = torch.cat([c for _, c in datagen.chunks(cfg, seed, "cpu", 2)]).numpy()
+    rows = torch.cat([r for _, r, _ in datagen.chunks(cfg, seed, "cpu", 2)]).numpy()
+    cols = torch.cat([c for _, _, c in datagen.chunks(cfg, seed, "cpu", 2)]).numpy()
     sets = [set(cols[rows == r].tolist()) for r in range(cfg["rows"])]
-    dense = reference.dense_rows(cfg, seed, "cpu", 2)
     rng = np.random.default_rng(1)
+    calls, want = [], []
     for _ in range(30):
         rs = rng.choice(cfg["rows"], size=int(rng.integers(2, 9)), replace=False).tolist()
         union = set().union(*(sets[r] for r in rs))
         inter = set.intersection(*(sets[r] for r in rs))
         diff = sets[rs[0]].difference(*(sets[r] for r in rs[1:]))
-        assert reference.count(dense, "Union", rs) == len(union)
-        assert reference.count(dense, "Intersect", rs) == len(inter)
-        assert reference.count(dense, "Difference", rs) == len(diff)
+        leaves = tuple(("Bitmap", cfg["frame"], r) for r in rs)
+        calls += [("Union",) + leaves, ("Intersect",) + leaves, ("Difference",) + leaves]
+        want += [len(union), len(inter), len(diff)]
+    got = reference.totals(reference.per_slice(cfg, seed, "cpu", calls, block=2))
+    assert got == want
 
 
 @pytest.mark.parametrize("name,mix", [("startrace-gh", "team-stars")])
@@ -99,7 +104,7 @@ def test_control_is_not_correct(tiny_root, name, mix):
     checked = []
     for i in range(6):
         r = Request(0, i, 0.0, 0.0, [])
-        r.ops, r.rows = traffic.request("window", 0, i)
+        r.calls = traffic.request("window", 0, i)
         checked.append(r)
     wrong, compared = judge(cfg, 77, checked, "cpu", control=True)
     assert compared == 6 * m["calls_per_request"]

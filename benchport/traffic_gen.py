@@ -1,25 +1,35 @@
-"""The one traffic generator: requests of batched N-ary Counts.
+"""Traffic: requests of Count calls, made from the seed.
 
-A traffic mix (``traffic/<name>.json``) gives the parameters; a
-configuration (``configs/<name>.json``) gives the index, frame, row label
-and row count.  Every request is made from ``(seed, client, stream, i)``
-alone, so the client that sends request ``i`` and the harness that
-checks it make the same request without passing it around.  Numpy only:
-client processes import this and nothing heavier.
+A traffic mix (``traffic/<name>.json``) gives the parameters and names
+its query shape (``"shape"``, default ``"nary"``); a configuration
+(``configs/<name>.json``) gives the index and its frames.  Every request
+is made from ``(seed, client, stream, i)`` alone, so the client that
+sends request ``i`` and the harness that checks it make the same request
+without passing it around.  Numpy only: client processes import this
+and nothing heavier.
 
-Parameters of a mix:
+A shape is a class ``Traffic(mix, cfg, seed)`` with ``Shape``'s
+interface: ``request(stream, client, i)``, a list of ``calls`` call
+trees (``schema``); ``cover()``, requests that name every row of every
+frame; ``body(request)``, the POST's PQL.  ``nary`` is the class below;
+any other shape is ``<root>/benchport/shapes/<shape>.py``'s ``Traffic``.
+
+Parameters of the ``nary`` mix (flat folds of one frame's rows: the
+configuration's first):
 
 - ``calls_per_request``: Counts in one POST;
 - ``ops``: {"Union" | "Intersect" | "Difference": weight};
 - ``operands``: for each op, {"min": k0, "max": k1}: K uniform in
   [k0, k1], distinct rows;
-- ``row_skew``: Zipf exponent over the configuration's rows, whose ranks
-  are a seeded permutation of the row ids (0 = uniform).
+- ``row_skew``: Zipf exponent over the frame's rows, whose ranks are a
+  seeded permutation of the row ids (0 = uniform).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from benchport import schema
 
 OPS = ("Union", "Intersect", "Difference")
 
@@ -43,16 +53,44 @@ def rng_for(seed: int, *key: int) -> np.random.Generator:
     return np.random.default_rng(np.random.SeedSequence(seed_words(seed) + [int(k) for k in key]))
 
 
-class Traffic:
-    """A mix over one configuration.  ``request(stream, client, i)``
-    returns ``(ops, rows)``: each call's op name and its operand rows."""
+def shape(mix: dict, cfg: dict, seed: int, root: str) -> "Shape":
+    """The mix's shape over ``cfg``, found by name under ``root``."""
+    name = mix.get("shape", "nary")
+    if name == "nary":
+        return Traffic(mix, cfg, seed)
+    return schema.plugin(root, "shapes", name).Traffic(mix, cfg, seed)
+
+
+class Shape:
+    """What every shape shares: the mix, the configuration, the seed, the
+    frames' row labels, ``calls`` a request and the PQL of a request."""
 
     def __init__(self, mix: dict, cfg: dict, seed: int):
         self.mix = mix
         self.cfg = cfg
         self.seed = int(seed)
-        self.n_rows = int(cfg["rows"])
+        self.frames = schema.frames(cfg)
+        self.labels = {f["name"]: f["row_label"] or schema.DEFAULT_ROW_LABEL for f in self.frames}
         self.calls = int(mix["calls_per_request"])
+
+    def request(self, stream: str, client: int, i: int) -> list:
+        raise NotImplementedError
+
+    def cover(self) -> list[list]:
+        raise NotImplementedError
+
+    def body(self, request: list) -> bytes:
+        return "".join(f"Count({schema.pql(c, self.labels)})" for c in request).encode()
+
+
+class Traffic(Shape):
+    """The ``nary`` shape: each call one op over distinct rows of the
+    configuration's first frame."""
+
+    def __init__(self, mix: dict, cfg: dict, seed: int):
+        super().__init__(mix, cfg, seed)
+        self.frame = self.frames[0]["name"]
+        self.n_rows = self.frames[0]["rows"]
         names = list(mix["ops"])
         unknown = set(names) - set(OPS)
         if unknown:
@@ -74,7 +112,7 @@ class Traffic:
         self.log_p = -s * np.log(ranks)
         self.rank_row = rng_for(self.seed, 7).permutation(self.n_rows)
 
-    def request(self, stream: str, client: int, i: int) -> tuple[list[str], list[list[int]]]:
+    def request(self, stream: str, client: int, i: int) -> list:
         rng = rng_for(self.seed, STREAMS[stream], client, i)
         n = self.calls
         ops = rng.choice(len(self.op_names), size=n, p=self.op_p)
@@ -84,10 +122,13 @@ class Traffic:
         # log p + Gumbel noise (successive sampling by weight).
         keys = self.log_p[None, :] + rng.gumbel(size=(n, self.n_rows))
         order = np.argsort(-keys, axis=1)[:, : self.k_max]
-        rows = [self.rank_row[order[c, : ks[c]]].tolist() for c in range(n)]
-        return [self.op_names[o] for o in ops], rows
+        return [self._call(self.op_names[ops[c]], self.rank_row[order[c, : ks[c]]].tolist())
+                for c in range(n)]
 
-    def cover(self) -> list[tuple[list[str], list[list[int]]]]:
+    def _call(self, op: str, rows: list[int]) -> tuple:
+        return (op,) + tuple(("Bitmap", self.frame, r) for r in rows)
+
+    def cover(self) -> list[list]:
         """Requests of this mix's shape that name every row: set-up sends
         them so that the whole working set is resident before the window.
         The calls cycle through the mix's ops, each with as many operands
@@ -105,20 +146,9 @@ class Traffic:
             calls.append((self.op_names[o], part))
         out, rows_in = [], 0
         for op, part in calls:
-            if not out or len(out[-1][0]) >= self.calls or rows_in + len(part) > COVER_ROWS:
-                out.append(([], []))
+            if not out or len(out[-1]) >= self.calls or rows_in + len(part) > COVER_ROWS:
+                out.append([])
                 rows_in = 0
-            out[-1][0].append(op)
-            out[-1][1].append(part)
+            out[-1].append(self._call(op, part))
             rows_in += len(part)
         return out
-
-    def body(self, ops: list[str], rows: list[list[int]]) -> bytes:
-        frame = self.cfg["frame"]
-        label = self.cfg.get("row_label", "rowID")
-        return "".join(
-            f"Count({op}("
-            + ", ".join(f"Bitmap({label}={r}, frame={frame})" for r in rs)
-            + "))"
-            for op, rs in zip(ops, rows)
-        ).encode()
